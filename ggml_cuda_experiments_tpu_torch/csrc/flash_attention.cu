@@ -1,9 +1,13 @@
-// Causal flash-attention forward for prefill on Hopper (sm_90a).
+// Flash-attention forward for prefill on Hopper (sm_90a): causal and/or an
+// additive f32 mask.
 //
 // Replaces ops/flash_attention.py::_flash_kernel of the JAX package.
 //   q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D] bf16 -> out [B, Hq, Sq, D] bf16;
+//   score = (q . k) * scale + mask[b, h, i, j] (mask optional, read through
+//   four element strides, any of them 0 for a broadcast dim); with `causal`
 //   query i attends key j iff j <= i + Sk - Sq (the reference's decode
-//   convention); GQA maps query head h to KV head h / (Hq / Hkv).
+//   convention); GQA maps query head h to KV head h / (Hq / Hkv). A row whose
+//   every key is masked gives 0.
 //   Bound on the H100: the tensor cores (4 * Sq * Sk * D / 2 FLOPs per head
 //   against 2 * Sk * D bytes of K/V per query tile). Design: one CTA per
 //   (64-query tile, head), 4 warps, each owning 16 query rows end to end, so
@@ -35,9 +39,11 @@ struct FaSmem {
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       const bf16* __restrict__ v,
+                       const float* __restrict__ mask, bf16* __restrict__ out,
                        int Hq, int Hkv, int Sq, int Sk, float scale,
-                       int causal) {
+                       int causal, long long smb, long long smh,
+                       long long smq, long long smk) {
   using L = FaSmem<D>;
   extern __shared__ __align__(128) unsigned char fa_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(fa_smem);
@@ -56,6 +62,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qh = q + ((size_t)b * Hq + h) * (size_t)Sq * D;
   const bf16* kh = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
   const bf16* vh = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const float* mh = mask ? mask + b * smb + h * smh : nullptr;
 
   constexpr int VEC = D / 8;           // 16-byte vectors per row
   for (int i = tid; i < FA_BQ * VEC; i += FA_THREADS) {
@@ -121,8 +128,13 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int kp0 = k0 + lane, kp1 = k0 + lane + 32;
       const bool ok0 = kp0 < Sk && (!causal || kp0 <= qpos + offset);
       const bool ok1 = kp1 < Sk && (!causal || kp1 <= qpos + offset);
-      const float s0 = ok0 ? Ss[r * L::LDS + lane] * scale : -INFINITY;
-      const float s1 = ok1 ? Ss[r * L::LDS + lane + 32] * scale : -INFINITY;
+      float s0 = ok0 ? Ss[r * L::LDS + lane] * scale : -INFINITY;
+      float s1 = ok1 ? Ss[r * L::LDS + lane + 32] * scale : -INFINITY;
+      if (mh && qpos < Sq) {
+        const float* mr = mh + qpos * smq;
+        if (ok0) s0 += mr[kp0 * smk];
+        if (ok1) s1 += mr[kp1 * smk];
+      }
       const float m_old = m_s[r], l_old = l_s[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       float p0 = 0.f, p1 = 0.f, alpha = 1.f;
@@ -176,8 +188,9 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 static int launch_flash_attention(const bf16* q, const bf16* k, const bf16* v,
-                                  bf16* out, int B, int Hq, int Hkv, int Sq,
-                                  int Sk, float scale, int causal,
+                                  const float* mask, bf16* out, int B, int Hq,
+                                  int Hkv, int Sq, int Sk, float scale,
+                                  int causal, const long long* ms,
                                   cudaStream_t stream) {
   static int granted = 0;
   constexpr int smem = FaSmem<D>::BYTES;
@@ -185,21 +198,27 @@ static int launch_flash_attention(const bf16* q, const bf16* k, const bf16* v,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, B * Hq);
   flash_attention_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, out, Hq, Hkv, Sq, Sk, scale, causal);
+      q, k, v, mask, out, Hq, Hkv, Sq, Sk, scale, causal, ms[0], ms[1],
+      ms[2], ms[3]);
   return (int)cudaGetLastError();
 }
 
+// mask: null, or f32 read at mask[b*smb + h*smh + i*smq + j*smk]
 GCT_EXPORT int flash_attention_fwd(const bf16* q, const bf16* k,
-                                   const bf16* v, bf16* out, int B, int Hq,
-                                   int Hkv, int Sq, int Sk, int D, float scale,
-                                   int causal, void* stream) {
+                                   const bf16* v, const float* mask,
+                                   bf16* out, int B, int Hq, int Hkv, int Sq,
+                                   int Sk, int D, float scale, int causal,
+                                   long long smb, long long smh,
+                                   long long smq, long long smk,
+                                   void* stream) {
   if (Hq % Hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const long long ms[4] = {smb, smh, smq, smk};
   if (D == 128)
-    return launch_flash_attention<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk,
-                                       scale, causal, st);
+    return launch_flash_attention<128>(q, k, v, mask, out, B, Hq, Hkv, Sq, Sk,
+                                       scale, causal, ms, st);
   if (D == 64)
-    return launch_flash_attention<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, scale,
-                                      causal, st);
+    return launch_flash_attention<64>(q, k, v, mask, out, B, Hq, Hkv, Sq, Sk,
+                                      scale, causal, ms, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,19 +1,21 @@
-"""Llama-family model in PyTorch: the batch-1 greedy path with Q4_K-E
-linears, a bf16 contiguous KV cache, flash prefill and split-KV decode.
+"""Llama-family model in PyTorch: Q4_K-E linears, a bf16 contiguous KV
+cache, flash prefill and split-KV decode; greedy or sampled generation.
 
 Port of the reference's ``models/llama.py``, same function names,
 signatures and public layouts (KV cache [L, B, Hkv, S, D]; logits f32).
 What differs, on purpose:
 
 - The port always runs the UNFUSED branch of ``_attention_block`` and
-  ``_mlp_block``: it has no fused kernels yet, so ``cfg.fuse_attn``,
-  ``cfg.fuse_mlp`` and ``cfg.fuse_layer`` do not apply. RoPE runs as plain
-  torch (the reference's fused prefill RoPE kernel is a fusion).
+  ``_mlp_block``: it has no fused decode kernels yet, so ``cfg.fuse_attn``,
+  ``cfg.fuse_mlp`` and ``cfg.fuse_layer`` do not apply. The prefill takes
+  the fused RoPE + repack kernel (``ops/prefill_fuse.py``) under the
+  reference's own gate; elsewhere RoPE runs as plain torch.
 - Weights stay in logical column order: no ``wof``, ``w_gu_f``, ``hperm`` or
   model pack, which exist only because of Mosaic limits.
 - Not ported yet, and raised, never computed another way:
   ``cfg.x_quant8``, ``cfg.hperm``, ``cfg.xla_attn_max_cache``, MoE layers, a
-  quantized KV cache, ``generate(sampling=...)``.
+  quantized contiguous KV cache (the paged pool of ``models/engine.py`` is
+  int8 / fp8 capable).
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
@@ -30,8 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
+from ggml_cuda_experiments_tpu_torch.models.sampling import (
+    SamplingParams, sample)
 from ggml_cuda_experiments_tpu_torch.ops.flash_attention import flash_attention
 from ggml_cuda_experiments_tpu_torch.ops.flash_decode import flash_decode
+from ggml_cuda_experiments_tpu_torch.ops.prefill_fuse import (
+    rope_pack_prefill)
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
     QuantLinear, qmatmul, qmatmul_ref, quantize)
 
@@ -158,6 +164,25 @@ def _write_cache_layer(cache: torch.Tensor, li: int, new: torch.Tensor,
     return cache
 
 
+def _quantize_rowwise(x: torch.Tensor, fmt: str = "int8"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token absmax quantization of [..., D] to int8 (scale amax / 127,
+    round half to even, clip to +-127) or float8_e4m3fn (scale amax / 448).
+    Returns (values, f32 scales [...]); bit-equal to the reference's."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if fmt == "fp8":
+        scale = amax / 448.0
+        q = (xf / torch.where(scale == 0.0, 1.0, scale)).to(
+            torch.float8_e4m3fn)
+    else:
+        scale = amax / 127.0
+        q = torch.clamp(torch.round(xf / torch.where(scale == 0.0, 1.0,
+                                                     scale)),
+                        -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # transformer blocks (the unfused branch of the reference)
 # ---------------------------------------------------------------------------
@@ -168,11 +193,21 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     B, T, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rms_norm(h, layer["attn_norm"], cfg.rms_eps)
-    q, k, v = qkv_proj(layer, x, cfg)
-    q = rope(q.reshape(B, T, Hq, D), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, T, Hkv, D), positions, cfg.rope_theta)
-    kt = k.transpose(1, 2)                       # [B, Hkv, T, D]
-    vt = v.reshape(B, T, Hkv, D).transpose(1, 2)
+    if (not decode and B == 1 and T % 128 == 0 and D == 128
+            and "wqkv" in layer):
+        # the reference's fuse_rope gate (its cache is bf16 here): one
+        # kernel ropes q / k and repacks q / k / v head-major
+        qt, kt, vt = rope_pack_prefill(
+            apply_linear(x, layer["wqkv"])[0], positions[0], n_heads=Hq,
+            n_kv_heads=Hkv, head_dim=D, rope_theta=cfg.rope_theta)
+        q = qt.transpose(0, 1)[None]             # [1, T, Hq, D]
+        kt, vt = kt[None], vt[None]              # [1, Hkv, T, D]
+    else:
+        q, k, v = qkv_proj(layer, x, cfg)
+        q = rope(q.reshape(B, T, Hq, D), positions, cfg.rope_theta)
+        k = rope(k.reshape(B, T, Hkv, D), positions, cfg.rope_theta)
+        kt = k.transpose(1, 2)                   # [B, Hkv, T, D]
+        vt = v.reshape(B, T, Hkv, D).transpose(1, 2)
     pos0 = positions[:, 0]
     _write_cache_layer(cache.k, li, kt, pos0)
     _write_cache_layer(cache.v, li, vt, pos0)
@@ -246,22 +281,24 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
              steps: int, cache: KVCache | None = None,
-             sampling=None) -> np.ndarray:
-    """Greedy generation via a host loop over ``decode_step``. Tokens stay
-    on the device until the one fetch at the end."""
-    if sampling is not None:
-        raise NotImplementedError("sampling: only greedy is ported yet")
+             sampling=None, seed: int = 0) -> np.ndarray:
+    """Generation via a host loop over ``decode_step``. Greedy by default;
+    pass a ``sampling.SamplingParams`` for temperature / top-k / top-p,
+    drawn from a ``torch.Generator`` seeded with ``seed`` on the prompt's
+    device. Tokens stay on the device until the one fetch at the end."""
     B, T = prompt.shape
     if cache is None:
         cache = KVCache.create(cfg, B, _round_up(T + steps, 256),
                                device=prompt.device)
+    gen = torch.Generator(device=prompt.device).manual_seed(seed)
+    sampling = sampling or SamplingParams(temperature=0.0)
     logits, cache = prefill(params, cfg, prompt, cache)
     out = []
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = sample(logits, gen, sampling)
     for _ in range(steps):
         out.append(tok)
         logits, cache = decode_step(params, cfg, tok, cache)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = sample(logits, gen, sampling)
     return torch.stack(out, dim=1).cpu().numpy()
 
 

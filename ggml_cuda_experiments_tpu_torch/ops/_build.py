@@ -1,8 +1,9 @@
 """Build ``csrc/*.cu`` with ``nvcc`` into one shared library and bind it
 with ``ctypes``.
 
-Every kernel source has a plain C entry point (no PyTorch headers), so the
-whole build is one ``nvcc`` call of seconds. The library lands in
+Every kernel source has a plain C entry point (no PyTorch headers). The
+build starts one ``nvcc -c`` per source, all at once, and links the objects
+into one library: seconds in all. The library lands in
 ``build/kernels/<hash>/`` at the root of the checkout (git-ignored), keyed by
 a hash of the sources and flags, and is built at the first launch of any
 kernel. A missing ``nvcc`` or a failed build raises with nvcc's output.
@@ -24,12 +25,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu")
+SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
+           "rope_pack.cu", "paged_attention.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+         "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every entry returns int (a cudaError_t)
 SIGNATURES = {
@@ -43,9 +46,17 @@ SIGNATURES = {
                               _I, _I, _I, _F, _P),
     # o, m, s, out, B, Hq, Hkv, D, n_splits, stream
     "lse_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                            _P),
+    # q, k, v, mask, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, mask
+    # strides (b, h, i, j), stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _L, _L, _L, _L, _P),
+    # y, C, S2, qo, ko, vo, T, nH, nKV, D, stream
+    "rope_pack": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
+    # B, Hq, Hkv, n_pages, page_size, D, pages_per_seq, layer, kv_kind,
+    # scale, stream
+    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -83,18 +94,36 @@ def build() -> Path:
         BUILD_INFO.update(seconds=0.0, path=str(lib_path), log="(cached)")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libkernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
+    jobs = []
+    for src in SOURCES:
+        obj = out_dir / f"{Path(src).stem}.{pid}.o"
+        cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"libkernels.{pid}.so"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, lib_path)
-    BUILD_INFO.update(seconds=secs, path=str(lib_path),
-                      log=proc.stdout + proc.stderr)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib_path),
+                      log="".join(log) + proc.stdout + proc.stderr)
     return lib_path
 
 

@@ -1,14 +1,16 @@
-"""Causal flash-attention forward for prefill.
+"""Flash-attention forward for prefill: causal and/or an additive mask.
 
 Port of the reference's ``ops/flash_attention.py`` (``flash_attention`` and
-its ``_flash_kernel``) without the additive mask and the lse residual, which
-the main path does not use. The CUDA kernel (``csrc/flash_attention.cu``)
-takes 64-query tiles against 64-key tiles with bf16 tensor-core products,
-f32 online softmax, P rounded to bf16 before P.V as in the reference, and
-skips key tiles past the causal frontier. Causality follows the reference's
-decode convention: the Sq queries are the last Sq positions of the Sk-long
-context (query i attends key j iff j <= i + Sk - Sq). GQA maps query head h
-to KV head h // (Hq / Hkv).
+its ``_flash_kernel``) without the lse residual, which only ring attention
+uses. The CUDA kernel (``csrc/flash_attention.cu``) takes 64-query tiles
+against 64-key tiles with bf16 tensor-core products, f32 online softmax, P
+rounded to bf16 before P.V as in the reference, and skips key tiles past the
+causal frontier. The additive f32 mask is read in place through its strides,
+so a broadcast dim (stride 0) is never materialized. Causality follows the
+reference's decode convention: the Sq queries are the last Sq positions of
+the Sk-long context (query i attends key j iff j <= i + Sk - Sq). GQA maps
+query head h to KV head h // (Hq / Hkv). A row whose every key is masked
+gives 0.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
 LAUNCHES = {"flash_attention": 0}
 
 
-def flash_attention_ref(q, k, v, *, scale=None, causal=False):
+def flash_attention_ref(q, k, v, mask=None, *, scale=None, causal=False):
     """Plain version: q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D] -> [B, Hq, Sq,
     D] in q's dtype. Scores and softmax statistics in f32; the
     probabilities are rounded to v's dtype before P.V and the sum is
@@ -35,22 +37,28 @@ def flash_attention_ref(q, k, v, *, scale=None, causal=False):
     kf = k.float().repeat_interleave(r, dim=1)
     vf = v.float().repeat_interleave(r, dim=1)
     s = (q.float() @ kf.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + mask.float()
     if causal:
         qpos = torch.arange(Sq, device=q.device)[:, None]
         kpos = torch.arange(Sk, device=q.device)[None, :]
         s = torch.where(kpos <= qpos + (Sk - Sq), s, -torch.inf)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m == -torch.inf, 0.0, torch.exp(s - m))
     o = p.to(v.dtype).float() @ vf
-    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    return (o / torch.where(l == 0, 1.0, l)).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, scale=None, causal=False):
-    """O = softmax(Q K^T * scale) V without materializing the scores.
+def flash_attention(q, k, v, mask=None, *, scale=None, causal=False):
+    """O = softmax(Q K^T * scale + mask) V without materializing the scores.
 
     q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] bf16, Hq % Hkv == 0, D 64 or
-    128. Returns O [B, Hq, Sq, D] bf16."""
+    128. mask: optional additive f32 mask broadcastable from
+    [B|1, Hq|1, Sq, Sk] (-inf where masked). Returns O [B, Hq, Sq, D]
+    bf16."""
     if not kernels_for(q):
-        return flash_attention_ref(q, k, v, scale=scale, causal=causal)
+        return flash_attention_ref(q, k, v, mask, scale=scale, causal=causal)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 \
                 or t.dim() != 4 or not t.is_contiguous():
@@ -67,10 +75,24 @@ def flash_attention(q, k, v, *, scale=None, causal=False):
         raise ValueError("causal attention needs Sk >= Sq")
     if scale is None:
         scale = float(1.0 / D ** 0.5)
+    strides = (0, 0, 0, 0)
+    if mask is not None:
+        if mask.device != q.device or mask.dtype != torch.float32:
+            raise ValueError(f"mask: need f32 on {q.device}, got "
+                             f"{mask.dtype} on {mask.device}")
+        if mask.dim() != 4 or mask.shape[0] not in (1, B) \
+                or mask.shape[1] not in (1, Hq):
+            raise ValueError(f"mask {tuple(mask.shape)} does not broadcast "
+                             f"from [B|1, Hq|1, Sq, Sk] = [{B}, {Hq}, {Sq}, "
+                             f"{Sk}]")
+        mask = torch.broadcast_to(mask, (B, Hq, Sq, Sk))
+        strides = mask.stride()
     out = torch.empty_like(q)
     rc = _build.lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, Sq, Sk, D, scale, int(causal), _build.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, Sq, Sk, D, scale, int(causal), *strides,
+        _build.stream_of(q))
     _build.check(rc, "flash_attention_fwd")
     LAUNCHES["flash_attention"] += 1
     return out

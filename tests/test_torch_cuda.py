@@ -7,7 +7,9 @@ it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: the exact-f32 matvec 1e-4 * max, the bf16
-GEMM 2e-2 * max, attention 1e-2 * max, model logits 2e-2 * max."""
+GEMM 2e-2 * max, attention 1e-2 * max, paged decode 2e-3 * max on bf16 pages
+and 2e-2 * max on int8 / fp8 pages, model logits 2e-2 * max; rope_pack is
+exact."""
 
 import dataclasses
 
@@ -18,7 +20,10 @@ import torch
 from ggml_cuda_experiments_tpu_torch.models import llama
 from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
+from ggml_cuda_experiments_tpu_torch.models import engine
 from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
+from ggml_cuda_experiments_tpu_torch.ops import paged_attention as pa
+from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
 from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
 from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
 
@@ -84,6 +89,92 @@ def test_flash_attention(dev, hq, hkv, d, sq, sk):
     k = _randn(8, 2, hkv, sk, d).to(dev, torch.bfloat16)
     v = _randn(9, 2, hkv, sk, d).to(dev, torch.bfloat16)
     _check(fa.flash_attention, q, k, v, causal=True, tol=1e-2)
+
+
+@pytest.mark.parametrize("sq,sk,length,causal", [
+    (128, 128, 37, True), (100, 100, 100, True), (64, 256, 200, False),
+    (64, 192, 1, False)])
+def test_flash_attention_masked(dev, sq, sk, length, causal):
+    """The engine's masks: a length mask with the causal cut, and a chunk
+    mask (key j visible iff j <= pos0 + i and j < length) without it; a
+    [1, 1, 1, Sk] mask is read through stride-0 broadcast dims."""
+    q = _randn(10, 2, 4, sq, 64).to(dev, torch.bfloat16)
+    k = _randn(11, 2, 2, sk, 64).to(dev, torch.bfloat16)
+    v = _randn(12, 2, 2, sk, 64).to(dev, torch.bfloat16)
+    kv = torch.arange(sk, device=dev)
+    if causal:
+        mask = torch.where(kv < length, 0.0, -torch.inf)[None, None, None]
+    else:
+        qpos = (sk - sq) + torch.arange(sq, device=dev)[:, None]
+        mask = torch.where((kv <= qpos) & (kv < length), 0.0,
+                           -torch.inf)[None, None]
+    _check(fa.flash_attention, q, k, v, mask, causal=causal, tol=1e-2)
+
+
+def test_flash_attention_unmasked_rows_stay_zero(dev):
+    q = _randn(13, 1, 2, 64, 128).to(dev, torch.bfloat16)
+    kv = _randn(14, 1, 2, 64, 128).to(dev, torch.bfloat16)
+    mask = torch.zeros((1, 2, 64, 64), device=dev)
+    mask[:, 1, 5] = -torch.inf
+    out = fa.flash_attention(q, kv, kv, mask)
+    assert torch.isfinite(out).all() and not out[:, 1, 5].any()
+
+
+@pytest.mark.parametrize("t,nh,nkv", [(128, 4, 2), (256, 32, 32)])
+def test_rope_pack_is_exact(dev, t, nh, nkv):
+    y = _randn(15, t, (nh + 2 * nkv) * 128).to(dev, torch.bfloat16)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)
+    kw = dict(n_heads=nh, n_kv_heads=nkv, head_dim=128)
+    before = pf.LAUNCHES["rope_pack"]
+    got = pf.rope_pack_prefill(y, pos, **kw)
+    with plain_versions():
+        ref = pf.rope_pack_prefill(y, pos, **kw)
+    assert pf.LAUNCHES["rope_pack"] == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("fmt", [False, "int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(8, 2, 64, 32), (4, 4, 128, 64),
+                                          (32, 2, 128, 16)])
+def test_paged_decode(dev, fmt, hq, hkv, d, ps):
+    L, B, pps = 2, 3, 8
+    n_pages = B * pps + 2
+    kp = _randn(16, L, n_pages, hkv, ps, d).to(dev)
+    vp = _randn(17, L, n_pages, hkv, ps, d).to(dev)
+    kw = {}
+    if fmt:
+        kp, ks = llama._quantize_rowwise(kp, fmt)
+        vp, vs = llama._quantize_rowwise(vp, fmt)
+        kw = dict(k_scale_pages=ks, v_scale_pages=vs)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q = _randn(18, B, hq, d).to(dev, torch.bfloat16)
+    pidx = torch.from_numpy(np.random.default_rng(19).permutation(
+        n_pages)[:B * pps].reshape(B, pps).astype(np.int32)).to(dev)
+    lens = torch.tensor([1, ps + 1, pps * ps], dtype=torch.int32, device=dev)
+    before = pa.LAUNCHES["paged_decode"]
+    _check(pa.paged_decode, q, kp, vp, lens, pidx, layer=1,
+           tol=2e-2 if fmt else 2e-3, **kw)
+    assert pa.LAUNCHES["paged_decode"] == before + 1
+
+
+def test_engine_on_the_card_matches_the_cpu(dev):
+    """A debug-size int8 engine run on the card, against the CPU's."""
+    cfg = dataclasses.replace(PRESETS["debug"], n_layers=2)
+    params = llama.quantize_params(llama.init_weights(cfg, seed=0), "q4_k")
+    outs = []
+    for p in (params, _to(params, dev)):
+        eng = engine.Engine(p, cfg, max_batch=4, page_size=32, n_pages=32,
+                            max_seq_len=128, quantized_kv="int8",
+                            decode_window=4)
+        for n in (5, 40, 17):
+            eng.add_request(list(range(1, n + 1)), max_new_tokens=9)
+        outs.append(eng.run_to_completion())
+    # free-running, so compare the first tokens (from the prefill); later
+    # ones may part at a bf16 rounding tie
+    assert all(len(t) == 9 and t[0] == outs[0][r][0]
+               for r, t in outs[1].items()), outs
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

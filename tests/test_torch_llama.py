@@ -204,8 +204,7 @@ def test_generate_is_deterministic_greedy():
 
 
 @pytest.mark.parametrize("case", ["x_quant8", "hperm", "quantized_kv",
-                                  "sampling", "q8_0", "xq8",
-                                  "x_prepermuted"])
+                                  "q8_0", "xq8", "x_prepermuted"])
 def test_unported_options_raise(case):
     params = tl.quantize_params(tl.init_weights(DEBUG, seed=1), "q4_k")
     prompt = torch.arange(1, 5)[None]
@@ -218,8 +217,6 @@ def test_unported_options_raise(case):
         elif case in ("xq8", "x_prepermuted"):
             tl.apply_linear(torch.zeros((1, 256)), params["lm_head"],
                             **{case: True})
-        elif case == "sampling":
-            tl.generate(params, DEBUG, prompt, steps=2, sampling=object())
         else:
             tl.quantize_params(tl.init_weights(DEBUG, seed=1), "q8_0")
 
