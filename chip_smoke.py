@@ -12,14 +12,25 @@ Phases, each printing its own lines; any failure ends the run nonzero:
   4. every kernel against its plain PyTorch version on the card at the
      paths' shapes: max error, bound, and both times (CUDA events, 20
      calls in one CUDA graph, median of 5 replays, weights rotated past
-     the 50 MB L2); 4b. the engine path's kernels (paged decode over bf16,
-     int8 and fp8 pools, masked flash attention, rope_pack);
+     the 50 MB L2), and a PyTorch call computing the same function where
+     one exists; 4b. the engine path's kernels (paged decode over bf16,
+     int8 and fp8 pools, masked flash attention, rope_pack); 4c. the fused
+     batch-1 decode kernels (int8-activation matvec, fused MLP, fused
+     attention, one layer of the layer kernel) at the 7B shapes;
   5. the generate path: llama2-7b at full width and all 32 layers, random
-     weights from a seed, quantized to q4_k on the card, three greedy
-     requests through ``generate`` with every kernel's launch count
-     asserted, then TTFT / decode rate per request, then request 1 teacher-
-     forced through the plain versions on the card (logits within
-     2e-2 * max);
+     weights from a seed, quantized to q4_k on the card, the preset's
+     default decode (fused MLP), three greedy requests through
+     ``generate`` with every kernel's launch count asserted, then TTFT /
+     decode rate per request, then request 1 teacher-forced through the
+     plain versions on the card (logits within 2e-2 * max);
+  5b. the same weights in bench.py's decode configuration (x_quant8,
+     ``permute_hidden_params``, hperm): the same three requests through
+     ``model_step`` (every layer in one launch), launch counts asserted,
+     TTFT / decode rate; the two sibling paths (x_quant8 alone: fused
+     attention + fused MLP; the per-layer ``layer_step``) with their
+     counts; every layer_step against its plain version at its forced
+     input (5e-3 * max), model_step against the chained layer_step
+     launches (equal), logits within 2e-2 * max;
   6. the engine path on the same weights: 12 greedy requests through an
      int8-pool ``Engine`` of 8 slots, then three 512-token prompts in
      128-token chunks, each run with its launch counts asserted; TTFT,
@@ -28,8 +39,8 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      layer against the plain versions (within 2e-2 * max).
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
-object with every kernel's route, source, launches per path, error and
-times. Imports nothing of jax.
+object with every kernel's route, source, launches per path, error,
+times and bound. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -92,20 +103,25 @@ class Results:
     def __init__(self):
         self.kernels = {}
 
-    def add(self, name, case, err, scale, bound, ms, plain_ms,
-            headline=False):
-        ok = err <= bound * scale
+    def add(self, name, case, err, scale, tol, ms, plain_ms, bound,
+            headline=False, library_ms=None):
+        """``bound``: (ms, "bytes" | "operations"), the least time the card
+        could take for the case's work (``CardSpec.bound_ms``)."""
+        ok = err <= tol * scale
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         log(f"  {name:16s} {case:44s} max_abs_err {err:.3e} "
-            f"(bound {bound:g}*{scale:.3e} = {bound * scale:.3e}) "
+            f"(bound {tol:g}*{scale:.3e} = {tol * scale:.3e}) "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"least {bound[0]:.4f} ms ({bound[1]}){lib}  "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {case}: error {err} > "
-                                 f"{bound} * {scale}")
+                                 f"{tol} * {scale}")
         k = self.kernels.setdefault(name, {"max_abs_err": 0.0})
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if headline or "ms" not in k:
-            k.update(ms=ms, plain_ms=plain_ms, shape=case)
+            k.update(ms=ms, plain_ms=plain_ms, shape=case, bound_ms=bound[0],
+                     bound_by=bound[1], library_ms=library_ms)
 
 
 KERNELS = {
@@ -130,7 +146,21 @@ KERNELS = {
     "paged_decode": (
         "ggml_cuda_experiments_tpu_torch/csrc/paged_attention.cu",
         "ggml_cuda_experiments_tpu/ops/paged_attention.py:47", []),
+    "q4k_q8_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_q8.cu",
+                      "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1465",
+                      ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1540"]),
+    "fused_mlp": ("ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
+                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1937", []),
+    "fused_attention": (
+        "ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
+        "ggml_cuda_experiments_tpu/ops/fused_attention.py:76", []),
+    # one kernel, two entries: model_step (every layer) and layer_step
+    "layer_kernel": ("ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
+                     "ggml_cuda_experiments_tpu/ops/layer_kernel.py:113", []),
 }
+# launch-count keys of each kernel above (one wrapper each, but two for
+# the layer kernel)
+COUNT_KEYS = {"layer_kernel": ("model_step", "layer_step")}
 
 
 # ---------------------------------------------------------------- phases
@@ -173,7 +203,7 @@ def phase_build():
 def phase_quantizer(dev, seed):
     import numpy as np
     import torch
-    from ggml_cuda_experiments_tpu.oracle import quant as quant_ref
+    from ggml_cuda_experiments_tpu_torch.oracle import quant as quant_ref
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     log("== 3. device quantizer vs oracle")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -182,7 +212,8 @@ def phase_quantizer(dev, seed):
     got = qm.quantize(w)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    want = qm.from_oracle(quant_ref.quantize_q4_k(w.cpu().numpy()))
+    want = qm.from_oracle(quant_ref.quantize_q4_k(w.cpu().numpy()),
+                          device="cpu")
     for f in ("qs", "es", "em"):
         if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
             raise AssertionError(f"device quantizer: {f} differs from the "
@@ -196,25 +227,34 @@ def _rotating(make, nbytes, budget=160 * 2**20):
     return [make(i) for i in range(max(1, -(-budget // max(nbytes, 1))))]
 
 
+def _spec():
+    from ggml_cuda_experiments_tpu_torch.utils.device_info import card_spec
+    spec = card_spec()
+    if spec is None:
+        raise AssertionError("no published peaks for this card: the bounds "
+                             "cannot be computed")
+    return spec
+
+
+def _rate(nbytes, flops, ms):
+    """Achieved rates, and the share of the card's published peaks."""
+    spec = _spec()
+    gbs, tfs = nbytes / ms / 1e6, flops / ms / 1e9
+    return (f"{gbs:.0f} GB/s ({100 * gbs * 1e9 / spec.hbm_bytes_per_s:.1f}"
+            f"% of {spec.name} HBM), {tfs:.1f} TFLOP/s "
+            f"({100 * tfs * 1e12 / spec.peak_flops_bf16:.1f}% of bf16)")
+
+
 def phase_kernels(dev, seed, res: Results):
     import torch
+    import torch.nn.functional as F
     from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
     from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
-    from ggml_cuda_experiments_tpu_torch.utils.device_info import card_spec
     log("== 4. kernels vs plain versions on the card")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    spec = card_spec()
-
-    def rate(nbytes, flops, ms):
-        """Achieved rates, and the share of the card's published peaks."""
-        gbs, tfs = nbytes / ms / 1e6, flops / ms / 1e9
-        if spec is None:
-            return f"{gbs:.0f} GB/s, {tfs:.1f} TFLOP/s"
-        return (f"{gbs:.0f} GB/s ({100 * gbs * 1e9 / spec.hbm_bytes_per_s:.1f}"
-                f"% of {spec.name} HBM), {tfs:.1f} TFLOP/s "
-                f"({100 * tfs * 1e12 / spec.peak_flops_bf16:.1f}% of bf16)")
+    spec = _spec()
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
@@ -235,9 +275,12 @@ def phase_kernels(dev, seed, res: Results):
         ms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]))
         with plain_versions():
             pms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]))
+        nbytes = ws[0].nbytes + 4 * (k + n)
         res.add("q4k_matvec", f"N={n} K={k} ({len(ws)} weight copies)",
-                err, sc, 1e-4, ms, pms, headline=(n, k) == (24576, 4096))
-        log(f"    {rate(ws[0].nbytes + 4 * (k + n), 2 * n * k, ms)}")
+                err, sc, 1e-4, ms, pms,
+                spec.bound_ms(nbytes, 2 * n * k, "f32"),
+                headline=(n, k) == (24576, 4096))
+        log(f"    {_rate(nbytes, 2 * n * k, ms)}")
         del ws
 
     # q4k_gemm at the engine's batch-8 decode rows and both prefill ranges
@@ -252,12 +295,16 @@ def phase_kernels(dev, seed, res: Results):
             ms = time_ms(lambda i: qm.q4k_gemm(x, w))
             with plain_versions():
                 pms = time_ms(lambda i: qm.q4k_gemm(x, w))
+            nbytes = w.nbytes + 2 * m * k + 4 * m * n
             res.add("q4k_gemm", f"M={m} N={n} K={k}", err, sc, 2e-2, ms, pms,
+                    spec.bound_ms(nbytes, 2 * m * n * k, "bf16"),
                     headline=(m, n) == (512, 24576))
-            log(f"    {rate(w.nbytes + 2 * m * k + 4 * m * n, 2 * m * n * k, ms)}")
+            log(f"    {_rate(nbytes, 2 * m * n * k, ms)}")
         del w
 
-    # flash_decode (+ lse_merge) on the stacked 7B MHA cache, and GQA 32/8
+    # flash_decode (+ lse_merge) on the stacked 7B MHA cache, and GQA 32/8;
+    # the PyTorch call for the same function: one SDPA over the layer with
+    # a length mask
     for (L, Hq, Hkv, S, D) in ((32, 32, 32, 1024, 128), (2, 32, 8, 1024, 128)):
         kc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
         vc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
@@ -276,10 +323,17 @@ def phase_kernels(dev, seed, res: Results):
             with plain_versions():
                 pms = time_ms(lambda i: fd.flash_decode_partials(
                     q, kc, vc, lens, scale=scale, n_splits=n, layer=i % L))
+            mask = (torch.arange(S, device=dev) < length)[None, None, None]
+            lib = time_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], kc[i % L], vc[i % L], attn_mask=mask,
+                enable_gqa=Hq != Hkv))
             case = (f"[{L},1,{Hkv},{S},{D}] Hq={Hq} len={length} "
                     f"splits={n}")
+            part_bytes = n * Hq * (D + 2) * 4
             res.add("flash_decode", case, err, sc, 1e-2, ms, pms,
-                    headline=(Hq == Hkv and length == 1024))
+                    spec.bound_ms(2 * Hkv * length * D * 2 + Hq * D * 2
+                                  + part_bytes, 4 * Hq * length * D, "bf16"),
+                    headline=(Hq == Hkv and length == 1024), library_ms=lib)
             parts = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
                                              n_splits=n, layer=layer)
             y2 = fd.lse_merge(parts)
@@ -290,10 +344,12 @@ def phase_kernels(dev, seed, res: Results):
             with plain_versions():
                 pms2 = time_ms(lambda i: fd.lse_merge(parts))
             res.add("lse_merge", case, err2, sc2, 1e-2, ms2, pms2,
+                    spec.bound_ms(part_bytes + Hq * D * 2, 3 * n * Hq * D,
+                                  "f32"),
                     headline=(Hq == Hkv and length == 1024))
         del kc, vc
 
-    # flash_attention, causal prefill
+    # flash_attention, causal prefill; the PyTorch call: causal SDPA
     for (T, Hq, Hkv, D) in ((128, 32, 32, 128), (512, 32, 32, 128),
                             (128, 32, 4, 64)):
         q = randn(1, Hq, T, D, dtype=torch.bfloat16)
@@ -306,8 +362,14 @@ def phase_kernels(dev, seed, res: Results):
         ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
         with plain_versions():
             pms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
+        lib = time_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
+        pairs = T * (T + 1) // 2                   # visible (query, key)
         res.add("flash_attention", f"T={T} Hq={Hq} Hkv={Hkv} D={D} causal",
-                err, sc, 1e-2, ms, pms, headline=T == 512)
+                err, sc, 1e-2, ms, pms,
+                spec.bound_ms(2 * (2 * Hq + 2 * Hkv) * T * D,
+                              4 * Hq * pairs * D, "bf16"),
+                headline=T == 512, library_ms=lib)
 
 
 PAGED_LENGTHS = (1, 63, 64, 65, 300, 512, 777, 1024)
@@ -334,6 +396,7 @@ def phase_engine_kernels(dev, seed, res: Results):
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
     log("== 4b. engine-path kernels vs plain versions on the card")
     g = torch.Generator(device=dev).manual_seed(seed + 3)
+    spec = _spec()
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -343,7 +406,7 @@ def phase_engine_kernels(dev, seed, res: Results):
             return torch.cat([t.flatten() for t in y])
         return y
 
-    def both(name, case, fn, bound, headline=False):
+    def both(name, case, fn, tol, bound, headline=False):
         y = flat(fn(1))
         with plain_versions():
             ref = flat(fn(1))
@@ -351,7 +414,7 @@ def phase_engine_kernels(dev, seed, res: Results):
         ms = time_ms(fn)
         with plain_versions():
             pms = time_ms(fn)
-        res.add(name, case, err, sc, bound, ms, pms, headline=headline)
+        res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
         return ms
 
     # paged_decode: B = 8, MHA 32/32, D = 128, page 64, ragged lengths up
@@ -371,12 +434,16 @@ def phase_engine_kernels(dev, seed, res: Results):
             kp, ks = llama._quantize_rowwise(kf, fmt)
             vp, vs = llama._quantize_rowwise(vf, fmt)
             kw = dict(k_scale_pages=ks, v_scale_pages=vs)
+        # the pages this run's lengths read, q, the table and the output
+        nbytes = keys * H * (2 * D * kp.element_size() + (8 if kw else 0))
         ms = both("paged_decode",
                   f"B=8 32/32 D=128 page 64 {fmt}, {n_pages} pages x{L}",
                   lambda i: pa.paged_decode(q, kp, vp, lens, pidx,
                                             layer=i % L, **kw),
-                  2e-3 if fmt == "bf16" else 2e-2, headline=fmt == "int8")
-        nbytes = keys * H * (2 * D * kp.element_size() + (8 if kw else 0))
+                  2e-3 if fmt == "bf16" else 2e-2,
+                  spec.bound_ms(nbytes + 2 * 2 * B * H * D + 4 * B * PPS,
+                                4 * H * keys * D, "bf16"),
+                  headline=fmt == "int8")
         log(f"    {nbytes / ms / 1e6:.0f} GB/s of pages read")
         del kp, vp, kw
     del kf, vf
@@ -404,8 +471,11 @@ def phase_engine_kernels(dev, seed, res: Results):
     v = randn(1, H, T, D, dtype=torch.bfloat16)
     mask = torch.where(torch.arange(T, device=dev) < 450, 0.0,
                        -torch.inf)[None, None, None]
+    pairs = sum(min(i + 1, 450) for i in range(T))
     both("flash_attention", "T=512 32/32 D=128 length mask + causal",
-         lambda i: fa.flash_attention(q, k, v, mask, causal=True), 1e-2)
+         lambda i: fa.flash_attention(q, k, v, mask, causal=True), 1e-2,
+         spec.bound_ms(2 * 4 * H * T * D + 4 * T, 4 * H * pairs * D,
+                       "bf16"))
     C, S, pos0, length = 128, 1024, 384, 500
     q = randn(1, H, C, D, dtype=torch.bfloat16)
     k = randn(1, H, S, D, dtype=torch.bfloat16)
@@ -414,22 +484,122 @@ def phase_engine_kernels(dev, seed, res: Results):
     qpos = pos0 + torch.arange(C, device=dev)[:, None]
     mask = torch.where((kv <= qpos) & (kv < length), 0.0,
                        -torch.inf)[None, None]
+    pairs = int((mask == 0).sum())
     both("flash_attention", "C=128 over S=1024, chunk mask",
-         lambda i: fa.flash_attention(q, k, v, mask), 1e-2)
+         lambda i: fa.flash_attention(q, k, v, mask), 1e-2,
+         spec.bound_ms(2 * H * (2 * C + 2 * S) * D + 4 * C * S,
+                       4 * H * pairs * D, "bf16"))
 
     # rope_pack at a 512-token 7B prompt: bit-exact against the plain one
     y = randn(T, 3 * H * D, dtype=torch.bfloat16)
     pos = torch.arange(T, dtype=torch.int32, device=dev)
     both("rope_pack", "T=512 32/32 D=128",
          lambda i: pf.rope_pack_prefill(y, pos, n_heads=H, n_kv_heads=H,
-                                        head_dim=D), 0.0, headline=True)
+                                        head_dim=D), 0.0,
+         spec.bound_ms(2 * 2 * T * 3 * H * D + 4 * T, 6 * T * 2 * H * D,
+                       "f32"), headline=True)
+
+
+def phase_fused_kernels(dev, seed, res: Results):
+    """The fused batch-1 decode kernels against their plain versions at the
+    llama2-7b shapes (weights rotated past the L2 where one copy fits)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
+    from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    log("== 4c. fused batch-1 decode kernels vs plain versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    spec = _spec()
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def weight(n, k):
+        return qm.quantize(randn(n, k, scale=k ** -0.5))
+
+    def both(name, case, fn, tol, bound, headline=False, calls=20):
+        got = fn(0)
+        with plain_versions():
+            ref = fn(0)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err, sc = rel_err(got[0], ref[0])
+        for gk, rk in zip(got[1:], ref[1:]):      # k_new / v_new
+            e2, s2 = rel_err(gk, rk)
+            if e2 > 2e-2 * max(1.0, s2):
+                raise AssertionError(f"{name} {case}: k/v error {e2}")
+        ms = time_ms(fn, calls=calls)
+        with plain_versions():
+            pms = time_ms(fn, calls=max(1, calls // 10), replays=3)
+        res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
+
+    # q4k_q8_matvec at wqkv, w_gu, w_down and the lm_head
+    for n, k in ((12288, 4096), (24576, 4096), (4096, 12288), (32000, 4096)):
+        ws = _rotating(lambda i: weight(n, k), weight(8, k).nbytes * n // 8)
+        x = randn(1, k)
+        nbytes = ws[0].nbytes + 4 * (k + n)
+        both("q4k_q8_matvec", f"N={n} K={k} ({len(ws)} weight copies)",
+             lambda i: qm.q4k_q8_matvec(x, ws[i % len(ws)]), 1e-4,
+             spec.bound_ms(nbytes, 2 * n * k, "int8"),
+             headline=(n, k) == (32000, 4096))
+        del ws
+
+    # fused_mlp at 7B: w_gu [24576, 4096], w_down [4096, 12288]
+    mlps = [(weight(24576, 4096), weight(4096, 12288)) for _ in range(2)]
+    x = randn(1, 4096)
+    nbytes = mlps[0][0].nbytes + mlps[0][1].nbytes + 8 * 4096
+    both("fused_mlp", "w_gu 24576x4096, w_down 4096x12288 (2 copies)",
+         lambda i: qm.mlp_fused(x, *mlps[i % 2]), 5e-3,
+         spec.bound_ms(nbytes, 2 * (24576 * 4096 + 4096 * 12288), "int8"),
+         headline=True)
+
+    # fused_attention at cache length 1024: MHA 32/32 (7B) and GQA 32/8
+    for hkv in (32, 8):
+        L, S, length = 2, 1024, 1023                 # 1024 keys with the new
+        kc = randn(L, 1, hkv, S, 128, dtype=torch.bfloat16)
+        vc = randn(L, 1, hkv, S, 128, dtype=torch.bfloat16)
+        lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+        ws = [(weight((32 + 2 * hkv) * 128, 4096), weight(4096, 4096))
+              for _ in range(3)]
+        kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+        kv_bytes = 2 * hkv * (length + 1) * 128 * 2
+        nbytes = ws[0][0].nbytes + ws[0][1].nbytes + kv_bytes + 8 * 4096
+        ops = 2 * (ws[0][0].array_shape[0] + 4096) * 4096
+        both("fused_attention",
+             f"Hq=32 Hkv={hkv} len 1024, wqkv + wo (3 copies)",
+             lambda i: fat.attention_fused(x, *ws[i % 3], kc, vc, lens,
+                                           i % L, **kw), 5e-3,
+             spec.bound_ms(nbytes, ops, "int8"), headline=hkv == 32)
+        del kc, vc, ws
+
+    # one 7B layer of the layer kernel (layer_step) at cache length 1024
+    kc = randn(2, 1, 32, 1024, 128, dtype=torch.bfloat16)
+    vc = randn(2, 1, 32, 1024, 128, dtype=torch.bfloat16)
+    lens = torch.full((1,), 1023, dtype=torch.int32, device=dev)
+    layer = {"wqkv": weight(12288, 4096), "wo": weight(4096, 4096),
+             "w_gu": weight(24576, 4096), "w_down": weight(4096, 12288),
+             "attn_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16),
+             "mlp_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16)}
+    pack = lk.pack_layers([layer])
+    h = randn(1, 4096)
+    nbytes = (sum(layer[k].nbytes for k in lk.STREAM)
+              + 2 * 32 * 1024 * 128 * 2 + 8 * 4096)
+    ops = 2 * sum(layer[k].array_shape[0] * layer[k].array_shape[1]
+                  for k in lk.STREAM)
+    both("layer_kernel", "layer_step, one 7B layer, len 1024",
+         lambda i: lk.layer_step(h, pack, kc, vc, lens, i % 2, n_heads=32,
+                                 n_kv_heads=32, head_dim=128), 5e-3,
+         spec.bound_ms(nbytes, ops, "int8"))
 
 
 def _tables():
     from ggml_cuda_experiments_tpu_torch.ops import (
-        flash_attention as fa, flash_decode as fd, paged_attention as pa,
-        prefill_fuse as pf, quant_matmul as qm)
-    return (qm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, pf.LAUNCHES, pa.LAUNCHES)
+        flash_attention as fa, flash_decode as fd, fused_attention as fat,
+        layer_kernel as lk, paged_attention as pa, prefill_fuse as pf,
+        quant_matmul as qm)
+    return (qm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, pf.LAUNCHES, pa.LAUNCHES,
+            fat.LAUNCHES, lk.LAUNCHES)
 
 
 def _reset_counts():
@@ -514,7 +684,8 @@ def _log_top(events, per, unit, n=10):
                 f" calls/{unit}  {e.key[:70]}")
 
 
-def _profile_decode(params, cfg, prompt, dev, trace_dir, steps: int = 4):
+def _profile_decode(params, cfg, prompt, dev, trace_dir, tag="generate",
+                    steps: int = 4):
     """torch.profiler over a few decode steps: device time by kernel and
     the device's busy share of the wall time; Chrome trace to trace_dir."""
     import torch
@@ -532,79 +703,66 @@ def _profile_decode(params, cfg, prompt, dev, trace_dir, steps: int = 4):
             t = torch.argmax(lg, -1).to(torch.int32)
 
     prof, wall_us, busy, events = _profiled(run)
-    log(f"  profile: {steps} decode steps, wall {wall_us / steps:.1f} us/step,"
+    log(f"  profile ({tag}): {steps} decode steps, wall "
+        f"{wall_us / steps:.1f} us/step,"
         f" device busy {busy / steps:.1f} us/step "
         f"({100 * busy / wall_us:.1f}% of wall)")
     _log_top(events, steps, "step")
     os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, "decode_trace.json")
+    path = os.path.join(trace_dir, f"decode_trace_{tag}.json")
     prof.export_chrome_trace(path)
     log(f"  trace: {path}")
 
 
-def phase_model(dev, seed, profile=None):
+def _drive_generate(params, cfg, prompts, requests, path):
+    """One greedy ``generate`` per request, the launch counts set to 0 just
+    before and read just after. Returns (tokens per request, counts)."""
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
-    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
-    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
-    cfg = PRESETS["llama2-7b"]
-    L = cfg.n_layers
-    log(f"== 5. main path: {cfg.name} dim {cfg.dim}, {L} layers, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}, q4_k, bf16 KV cache, greedy")
-    t0 = time.perf_counter()
-    dense = llama.init_weights(cfg, seed=seed, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    params = llama.quantize_params(dense, "q4_k")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del dense
-    torch.cuda.empty_cache()
-    qbytes = sum(w.nbytes for layer in params["layers"]
-                 for w in layer.values() if hasattr(w, "nbytes"))
-    qbytes += params["lm_head"].nbytes
-    log(f"  init_weights {t1 - t0:.3f} s, quantize_params {t2 - t1:.3f} s; "
-        f"quantized linears {qbytes / 1e9:.3f} GB; w_down K = "
-        f"{params['layers'][0]['w_down'].shape[1]}")
-
-    g = torch.Generator(device=dev).manual_seed(seed + 2)
-    prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
-                             device=dev, dtype=torch.int64)
-               for p, _ in REQUESTS]
     torch.cuda.synchronize()
     _reset_counts()
     outs = []
-    for (p, n), prompt in zip(REQUESTS, prompts):
+    for (p, n), prompt in zip(requests, prompts):
         ts = time.perf_counter()
         toks = llama.generate(params, cfg, prompt, steps=n)
         te = time.perf_counter()
-        if toks.shape != (1, n) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"generate gave {toks.shape} / out-of-range")
+        if toks.shape != (1, n) or not ((toks >= 0)
+                                        & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{path}: generate gave {toks.shape} / "
+                                 "out-of-range tokens")
         outs.append(toks)
-        log(f"  generate(prompt {p}, gen {n}): {te - ts:.3f} s wall, "
-            f"tokens {toks[0, :8].tolist()}...")
-    counts = _counts()
-    want = {
-        "q4k_matvec": sum(1 + n * (4 * L + 1) for _, n in REQUESTS),
-        "q4k_gemm": sum(4 * L for p, _ in REQUESTS if 2 <= p <= 512),
-        "flash_attention": L * len(REQUESTS),
-        "flash_decode": sum(n * L for _, n in REQUESTS),
-        "lse_merge": sum(n * L for _, n in REQUESTS),
-        # the fused RoPE + repack at prompts of a multiple of 128 tokens
-        "rope_pack": sum(L for p, _ in REQUESTS if p % 128 == 0),
-        "paged_decode": 0,
-    }
-    log(f"  launches in the main path: {counts}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
-    log("  launch counts equal what the path implies "
-        f"(per decode step {4 * L + 1} q4k_matvec, {L} flash_decode; "
-        f"{L} rope_pack per prefill at prompts 128 and 512, 0 at 16)")
+        log(f"  {path}: generate(prompt {p}, gen {n}): {te - ts:.3f} s "
+            f"wall, tokens {toks[0, :8].tolist()}...")
+    return outs, _counts()
 
-    # TTFT and decode rate per request (same entry points, host clock
-    # around work that ends in a device sync)
+
+def _prefill_counts(L, requests):
+    """Launches of the prefills of ``requests`` (prompts of 2-512 tokens):
+    4 q4k_gemm and one flash_attention per layer, rope_pack per layer at
+    prompts of a multiple of 128 tokens; every other kernel 0."""
+    want = {k: 0 for k in _counts()}
+    want.update(
+        q4k_gemm=sum(4 * L for p, _ in requests if 2 <= p <= 512),
+        flash_attention=L * len(requests),
+        rope_pack=sum(L for p, _ in requests if p % 128 == 0))
+    return want
+
+
+def _assert_counts(path, counts, want):
+    log(f"  launches in {path}: {counts}")
+    if counts != want:
+        raise AssertionError(f"{path}: launch counts {counts} != expected "
+                             f"{want}")
+
+
+def _time_requests(params, cfg, prompts, requests, outs, dev):
+    """TTFT and decode rate per request through ``prefill`` and
+    ``decode_step`` (host clock around work that ends in a device sync);
+    the tokens must be ``generate``'s."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
     timing = []
-    for (p, n), prompt, toks in zip(REQUESTS, prompts, outs):
+    for (p, n), prompt, toks in zip(requests, prompts, outs):
         cache = llama.KVCache.create(cfg, 1, llama._round_up(p + n, 256),
                                      device=dev)
         torch.cuda.synchronize()
@@ -631,6 +789,53 @@ def phase_model(dev, seed, profile=None):
         log(f"  request prompt {p} gen {n}: TTFT {ttft * 1e3:.2f} ms "
             f"(prefill + first token), decode {rate:.2f} tok/s over "
             f"{n - 1} steps")
+    return timing
+
+
+def phase_model(dev, seed, profile=None):
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    cfg = PRESETS["llama2-7b"]
+    L = cfg.n_layers
+    log(f"== 5. main path: {cfg.name} dim {cfg.dim}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, q4_k, bf16 KV cache, greedy, the "
+        f"preset's decode (fused MLP)")
+    t0 = time.perf_counter()
+    dense = llama.init_weights(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = llama.quantize_params(dense, "q4_k")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del dense
+    torch.cuda.empty_cache()
+    qbytes = sum(w.nbytes for layer in params["layers"]
+                 for w in layer.values() if hasattr(w, "nbytes"))
+    qbytes += params["lm_head"].nbytes
+    log(f"  init_weights {t1 - t0:.3f} s, quantize_params {t2 - t1:.3f} s; "
+        f"quantized linears {qbytes / 1e9:.3f} GB; w_down K = "
+        f"{params['layers'][0]['w_down'].shape[1]}")
+
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
+                             device=dev, dtype=torch.int64)
+               for p, _ in REQUESTS]
+    outs, counts = _drive_generate(params, cfg, prompts, REQUESTS, "generate")
+    decode_steps = sum(n for _, n in REQUESTS)
+    want = _prefill_counts(L, REQUESTS)
+    want.update(
+        # per prefill the head; per decode step wqkv, wo and the head
+        q4k_matvec=len(REQUESTS) + decode_steps * (2 * L + 1),
+        fused_mlp=decode_steps * L, flash_decode=decode_steps * L,
+        lse_merge=decode_steps * L)
+    _assert_counts("generate", counts, want)
+    log("  launch counts equal what the path implies (per decode step "
+        f"{2 * L + 1} q4k_matvec, {L} fused_mlp, {L} flash_decode; per "
+        f"prefill {4 * L} q4k_gemm, {L} rope_pack at prompts 128 and 512, "
+        "0 at 16)")
+    timing = _time_requests(params, cfg, prompts, REQUESTS, outs, dev)
 
     # teacher-forced against the plain versions on the card, same weights:
     # request 1's prompt, then its first 4 generated tokens. Forced at the
@@ -679,7 +884,163 @@ def phase_model(dev, seed, profile=None):
     if profile:
         _profile_decode(params, cfg, prompts[0], dev, profile)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, timing, params
+    return counts, timing, params, prompts
+
+
+def _forced_fused(params, m_pack, cfg, tok, cache):
+    """One decode step of the layer kernel forced layer by layer: every
+    layer_step launch against its plain version on the kernel path's own
+    input; model_step against those launches chained with h in f32; the
+    head (int8 activations) on the kernel path's h, kernel against plain;
+    and, printed only, the plain chain run free from the same embedding.
+    Returns (per-layer max error relative to max|plain|, model_step's max
+    difference from the chain, (kernel logits, plain logits), free-running
+    logits error relative to max|plain|)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+              rms_eps=cfg.rms_eps)
+    args = (cache.k, cache.v, cache.lengths)
+    h0 = params["embed"][tok].float()               # [1, dim]
+    h, hp_free, worst = h0, h0, []
+    for li, layer in enumerate(params["layers"]):
+        pack = lk.pack_layers([layer])
+        hk = lk.layer_step(h, pack, *args, li, **kw)[0]
+        with plain_versions():
+            hp = lk.layer_step(h, pack, *args, li, **kw)[0]
+            hp_free = lk.layer_step(hp_free, pack, *args, li, **kw)[0]
+        worst.append(float((hk - hp).abs().max() / hp.abs().max()))
+        h = hk
+    hm = lk.model_step(h0, m_pack, *args, **kw)[0]
+    chain_diff = float((hm - h).abs().max())
+
+    def head(x):
+        x = llama.rms_norm(x.to(params["embed"].dtype), params["final_norm"],
+                           cfg.rms_eps)
+        return llama.apply_linear(x, params["lm_head"], cfg.x_quant8).float()
+    lk_logits = head(hm)
+    with plain_versions():
+        lp_logits, free = head(hm), head(hp_free)
+    free_err = float((lk_logits - free).abs().max() / free.abs().max())
+    return worst, chain_diff, (lk_logits, lp_logits), free_err
+
+
+def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
+                       profile=None):
+    """bench.py's batch-1 decode configuration and its two siblings."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    base = PRESETS["llama2-7b"]
+    L = base.n_layers
+    cfg = dataclasses.replace(base, x_quant8=True, hperm=True)
+    log(f"== 5b. bench.py's decode: {cfg.name}, x_quant8, hperm "
+        "(permute_hidden_params: the model pack, no weight copy), "
+        "model_step per decode step")
+    t0 = time.perf_counter()
+    pb = llama.permute_hidden_params(params, cfg)
+    if "m_pack" not in pb:
+        raise AssertionError("permute_hidden_params built no model pack")
+    log(f"  model pack in {time.perf_counter() - t0:.3f} s: "
+        f"{pb['m_pack'].ptrs.numel()} pointers, "
+        f"{pb['m_pack'].norms.numel() * 4} bytes of f32 norms")
+    outs, counts = _drive_generate(pb, cfg, prompts, REQUESTS,
+                                   "generate bench config")
+    steps = sum(n for _, n in REQUESTS)
+    want = _prefill_counts(L, REQUESTS)
+    want.update(q4k_q8_matvec=len(REQUESTS) + steps, model_step=steps)
+    _assert_counts("generate bench config", counts, want)
+    log("  launch counts equal what the path implies (per decode step 1 "
+        "model_step and 1 q4k_q8_matvec; per prefill 1 q4k_q8_matvec for "
+        "the head)")
+    timing = _time_requests(pb, cfg, prompts, REQUESTS, outs, dev)
+    paths = {"generate_xq8_hperm": counts}
+
+    # the siblings on one request: x_quant8 alone (fused attention + fused
+    # MLP per layer) and the per-layer kernel (layer_step per layer)
+    (p1, n1), prompt = REQUESTS[1], prompts[1:2]
+    sib = ((p1, n1),)
+    per_layer = dict({k: v for k, v in pb.items() if k != "m_pack"},
+                     layers=[dict(lay, w_pack=lk.pack_layers([lay]))
+                             for lay in pb["layers"]])
+    for path, tree, c, per_step in (
+            ("generate x_quant8", params,
+             dataclasses.replace(base, x_quant8=True),
+             {"fused_attention": L, "fused_mlp": L}),
+            ("generate per-layer", per_layer, cfg, {"layer_step": L})):
+        (toks,), counts = _drive_generate(tree, c, prompt, sib, path)
+        want = _prefill_counts(L, sib)
+        want.update(q4k_q8_matvec=1 + n1,
+                    **{k: v * n1 for k, v in per_step.items()})
+        _assert_counts(path, counts, want)
+        same = int((toks[0] == outs[1][0]).sum())
+        first = toks[0, 0] == outs[1][0, 0]
+        log(f"  {path}: first token {'equals' if first else 'DIFFERS from'}"
+            f" model_step's (same prefill); {same}/{n1} tokens equal, free "
+            "running")
+        if not first:
+            raise AssertionError(f"{path}: the first token differs")
+        paths[path.replace(" ", "_").replace("-", "_")] = counts
+
+    # forced check on request 3's cache (512 tokens) and its first token
+    cache = llama.KVCache.create(cfg, 1, 768, device=dev)
+    logits, cache = llama.prefill(pb, cfg, prompts[2], cache)
+    tok = torch.argmax(logits, -1)
+    worst, chain_diff, (lk_, lp_), free_err = _forced_fused(
+        pb, pb["m_pack"], cfg, tok, cache)
+    err, sc = float((lk_ - lp_).abs().max()), float(lp_.abs().max())
+    li, lerr = max(enumerate(worst), key=lambda t: t[1])
+    ok = (lk_.shape == (1, cfg.vocab_size) and bool(torch.isfinite(lk_).all())
+          and err <= 2e-2 * sc and lerr <= 5e-3 and chain_diff == 0.0)
+    log(f"  forced decode step at length 512: worst layer_step {li}: "
+        f"{lerr:.3e} of max (bound 5e-3); model_step vs the chained "
+        f"layer_step launches max diff {chain_diff:.3e} (must be 0); head "
+        f"logits max_abs_err {err:.4e} vs 2e-2*{sc:.4e}; argmax "
+        f"{int(lk_.argmax())} / {int(lp_.argmax())}; the plain chain run "
+        f"free: logits {free_err:.3e} of max (printed) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"forced fused decode: layer {li} {lerr}, "
+                             f"chain {chain_diff}, logits {err} vs {sc}")
+
+    # model_step's time at this cache (every layer, one launch)
+    spec = _spec()
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+              rms_eps=cfg.rms_eps)
+    h0 = pb["embed"][tok].float()
+    args = (h0, pb["m_pack"], cache.k, cache.v, cache.lengths)
+    ms = time_ms(lambda i: lk.model_step(*args, **kw), calls=5, replays=3)
+    with plain_versions():
+        pms = time_ms(lambda i: lk.model_step(*args, **kw), calls=1,
+                      replays=1)
+    length = int(cache.lengths[0]) + 1
+    wbytes = sum(lay[k].nbytes for lay in pb["layers"] for k in lk.STREAM)
+    ops = 2 * L * sum(pb["layers"][0][k].array_shape[0]
+                      * pb["layers"][0][k].array_shape[1] for k in lk.STREAM)
+    kv = 2 * L * cfg.n_kv_heads * length * cfg.head_dim * 2
+    hm = lk.model_step(*args, **kw)[0]
+    with plain_versions():
+        hp = lk.model_step(*args, **kw)[0]
+    e, s_ = rel_err(hm, hp)
+    log(f"  [{card}] model_step, {L} layers at length {length}: "
+        f"{wbytes / 1e9:.3f} GB of weights, {kv / 1e6:.1f} MB of K/V; "
+        f"against its plain version run free over the {L} layers "
+        f"{e:.3e} (max {s_:.3e}, printed)")
+    # its error: the forced per-layer check above (the chain is exact)
+    res.add("layer_kernel", f"model_step, {L} layers, len {length}",
+            lerr, 1.0, 5e-3, ms, pms,
+            spec.bound_ms(wbytes + kv + 8 * cfg.dim, ops, "int8"),
+            headline=True)
+    if profile:
+        _profile_decode(pb, cfg, prompts[0], dev, profile, "model_step")
+    return paths, timing
 
 
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
@@ -744,9 +1105,10 @@ def _drive_engine(params, cfg, prompts, gen, path, **kw):
     steps = calls["_paged_decode_step"]
     fills = calls["_paged_prefill"] + calls["_paged_prefill_chunk"]
     heads = calls["_paged_prefill"] + calls["_paged_prefill_chunk+logits"]
-    want = {"q4k_matvec": heads, "q4k_gemm": steps * (4 * L + 1) + fills * 4 * L,
-            "flash_decode": 0, "lse_merge": 0, "flash_attention": fills * L,
-            "rope_pack": 0, "paged_decode": steps * L}
+    want = {k: 0 for k in counts}
+    want.update(q4k_matvec=heads,
+                q4k_gemm=steps * (4 * L + 1) + fills * 4 * L,
+                flash_attention=fills * L, paged_decode=steps * L)
     log(f"  {path}: {len(prompts)} requests, {calls['_paged_prefill']} "
         f"prefills, {calls['_paged_prefill_chunk']} chunks, {steps} decode "
         f"steps in {wall:.2f} s; launches {counts}")
@@ -931,20 +1293,29 @@ def main() -> int:
     res = Results()
     phase_kernels(dev, args.seed, res)
     phase_engine_kernels(dev, args.seed, res)
+    phase_fused_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
-    counts, timing, params = phase_model(dev, args.seed, args.profile)
+    counts, timing, params, prompts = phase_model(dev, args.seed,
+                                                  args.profile)
+    fused_paths, fused_timing = phase_fused_decode(
+        dev, args.seed, params, prompts, res, card, args.profile)
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     paths, engine_metrics = phase_engine(dev, args.seed, params,
                                          PRESETS["llama2-7b"], card)
-    paths = {"generate": counts, **paths}
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    paths = {"generate": counts, **fused_paths, **paths}
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "ggml_cuda_experiments_tpu"
+           or m.startswith("ggml_cuda_experiments_tpu.")]
+    if bad:
+        raise AssertionError(f"imported jax or the JAX package: {bad}")
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         k = res.kernels[name]
-        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        keys = COUNT_KEYS.get(name, (name,))
+        by_path = {p: sum(c[key] for key in keys) for p, c in paths.items()
+                   if any(c[key] for key in keys)}
         if not by_path:
             raise AssertionError(f"{name} was launched on no path")
         kernels.append({
@@ -952,9 +1323,12 @@ def main() -> int:
             "replaces": replaces, "also_replaces": also,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "shape": k["shape"]})
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "shape": k["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "requests": timing,
+                      "requests_bench_decode": fused_timing,
                       "engine": engine_metrics}))
     print(card)
     print(json.dumps({"ok": True, "device": {

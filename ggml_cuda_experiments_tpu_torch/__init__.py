@@ -4,20 +4,25 @@ A second package beside ``ggml_cuda_experiments_tpu`` (the JAX/Pallas
 reference, which stays as it is). Plain tensor code is PyTorch; every Pallas
 kernel on the ported path has a hand-written CUDA C++ counterpart for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use and bound with
-``ctypes``. The package never imports jax. It reuses two pure modules of the
-reference: ``models.config`` (``ModelConfig``, ``PRESETS``) and
-``oracle.quant`` (NumPy only).
+``ctypes``. The package imports neither jax nor anything of the reference
+package: it keeps its own copies of the configurations (``models.config``)
+and of the Q4_K specification (``oracle.quant``).
 
 Subpackages
 -----------
 - ``ops``     kernel wrappers (``quant_matmul``, ``flash_decode``,
-              ``flash_attention``), the LSE merge (``lse``) and the build
-              (``_build``). Each wrapper runs its plain PyTorch version for a
-              CPU tensor and launches its kernel (or raises) for a CUDA one.
+              ``flash_attention``, ``prefill_fuse``, ``paged_attention``,
+              ``fused_attention``, ``layer_kernel``), the LSE merge (``lse``)
+              and the build (``_build``). Each wrapper runs its plain
+              PyTorch version for a CPU tensor and launches its kernel (or
+              raises) for a CUDA one.
 - ``csrc``    the CUDA C++ kernels, each with a plain C entry point.
-- ``models``  the Llama model (batch-1 greedy path, unfused branch), the
-              config re-export and the bridge from the JAX parameters.
-- ``utils``   platform selection and device facts.
+- ``models``  the Llama model (``generate`` and its batch-1 decode
+              branches), the serving ``Engine``, sampling, the
+              configurations and the bridge from the JAX parameters.
+- ``oracle``  the NumPy Q4_K specification.
+- ``utils``   platform selection (the card unless a device is named) and
+              device facts.
 """
 
 __version__ = "0.1.0"

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
+from ggml_cuda_experiments_tpu_torch.utils.platform import resolve_device
 
 _LAYER_SHAPES = {
     "wq": lambda c: (c.n_heads * c.head_dim, c.dim),
@@ -40,7 +41,8 @@ def _leaf(a, shape, device, name) -> torch.Tensor:
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference's dense parameter tree (float32 NumPy leaves) as the
-    port's bf16 tree on ``device``."""
+    port's bf16 tree on ``device`` (the card unless named)."""
+    device = resolve_device(device)
     if len(np_params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(np_params['layers'])} layers, config has "
                          f"{cfg.n_layers}")

@@ -42,6 +42,7 @@ from ggml_cuda_experiments_tpu_torch.models.sampling import (
 from ggml_cuda_experiments_tpu_torch.ops.flash_attention import (
     flash_attention)
 from ggml_cuda_experiments_tpu_torch.ops.paged_attention import paged_decode
+from ggml_cuda_experiments_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
@@ -80,7 +81,9 @@ class PagedKVPool:
     def create(cfg: ModelConfig, n_pages: int, page_size: int,
                quantized: bool | str = False, dtype=torch.bfloat16,
                device=None) -> "PagedKVPool":
-        """``quantized``: False, True / "int8", or "fp8" (float8_e4m3fn)."""
+        """``quantized``: False, True / "int8", or "fp8" (float8_e4m3fn);
+        on the card unless ``device`` is named."""
+        device = resolve_device(device)
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
                  cfg.head_dim)
         if quantized:

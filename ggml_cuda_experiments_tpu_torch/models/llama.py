@@ -3,23 +3,30 @@ cache, flash prefill and split-KV decode; greedy or sampled generation.
 
 Port of the reference's ``models/llama.py``, same function names,
 signatures and public layouts (KV cache [L, B, Hkv, S, D]; logits f32).
-What differs, on purpose:
+``_forward``, ``_attention_block``, ``_mlp_block`` and ``_head_logits``
+take the reference's branch for every ``ModelConfig`` (``x_quant8``,
+``fuse_attn``, ``fuse_mlp``, ``fuse_layer``, ``hperm``), decided from the
+same shapes: the batch-1 decode runs ``model_step`` (every layer in one
+launch), ``layer_step`` per layer, ``attention_fused`` and ``mlp_fused``,
+or the unfused blocks, and the matvecs take int8 activations under
+``x_quant8``. The prefill takes the fused RoPE + repack kernel
+(``ops/prefill_fuse.py``) under the reference's own gate. What differs, on
+purpose:
 
-- The port always runs the UNFUSED branch of ``_attention_block`` and
-  ``_mlp_block``: it has no fused decode kernels yet, so ``cfg.fuse_attn``,
-  ``cfg.fuse_mlp`` and ``cfg.fuse_layer`` do not apply. The prefill takes
-  the fused RoPE + repack kernel (``ops/prefill_fuse.py``) under the
-  reference's own gate; elsewhere RoPE runs as plain torch.
-- Weights stay in logical column order: no ``wof``, ``w_gu_f``, ``hperm`` or
-  model pack, which exist only because of Mosaic limits.
+- Weights stay in logical column order: ``w_gu`` stands where the
+  reference builds ``w_gu_f``, W_o has no ``wof`` layout, and
+  ``permute_hidden_params`` permutes nothing: it attaches the model pack
+  (a device table of weight pointers, no copy) that picks ``model_step``.
 - Not ported yet, and raised, never computed another way:
-  ``cfg.x_quant8``, ``cfg.hperm``, ``cfg.xla_attn_max_cache``, MoE layers, a
-  quantized contiguous KV cache (the paged pool of ``models/engine.py`` is
-  int8 / fp8 capable).
+  ``cfg.xla_attn_max_cache``, MoE layers, a quantized contiguous KV cache
+  (the paged pool of ``models/engine.py`` is int8 / fp8 capable), the
+  ``x_prepermuted`` argument (no interleaved order exists here).
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
   in ``generate`` is the tokens at the end.
+- ``init_weights`` and ``KVCache.create`` build on the card unless a
+  device is named.
 """
 
 from __future__ import annotations
@@ -36,10 +43,15 @@ from ggml_cuda_experiments_tpu_torch.models.sampling import (
     SamplingParams, sample)
 from ggml_cuda_experiments_tpu_torch.ops.flash_attention import flash_attention
 from ggml_cuda_experiments_tpu_torch.ops.flash_decode import flash_decode
+from ggml_cuda_experiments_tpu_torch.ops import layer_kernel
+from ggml_cuda_experiments_tpu_torch.ops.fused_attention import (
+    attention_fused, attention_fused_supported)
 from ggml_cuda_experiments_tpu_torch.ops.prefill_fuse import (
     rope_pack_prefill)
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
-    QuantLinear, qmatmul, qmatmul_ref, quantize)
+    QuantLinear, mlp_fused, mlp_fused_supported, qmatmul, qmatmul_ref,
+    quantize)
+from ggml_cuda_experiments_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
@@ -52,12 +64,6 @@ _QPIPE_MAX_ROWS = 512
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.x_quant8:
-        raise NotImplementedError("cfg.x_quant8: the int8-activation "
-                                  "matvec is not ported yet")
-    if cfg.hperm:
-        raise NotImplementedError("cfg.hperm: the port stores weights in "
-                                  "logical order")
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported yet")
     if cfg.xla_attn_max_cache:
@@ -67,14 +73,17 @@ def _check_cfg(cfg: ModelConfig) -> None:
 
 def apply_linear(x: torch.Tensor, w, xq8: bool = False,
                  x_prepermuted: bool = False) -> torch.Tensor:
-    """y = x @ W^T for dense [N, K] or QuantLinear weights; x: [..., K]."""
-    if xq8 or x_prepermuted:
-        raise NotImplementedError("x_quant8 / x_prepermuted: not ported")
+    """y = x @ W^T for dense [N, K] or QuantLinear weights; x: [..., K].
+    ``xq8``: a batch-1 product takes int8 activations where the
+    reference's gate allows it (``quant_matmul.qmatmul``)."""
+    if x_prepermuted:
+        raise NotImplementedError("x_prepermuted: the port keeps logical "
+                                  "column order")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QuantLinear):
         if x2.shape[0] <= _QPIPE_MAX_ROWS:
-            y = qmatmul(x2, w)
+            y = qmatmul(x2, w, x_quant8=xq8)
         else:
             # the reference's qmatmul_xla: f32 dequantize + a plain matmul
             y = qmatmul_ref(x2, w).to(x.dtype)
@@ -85,13 +94,13 @@ def apply_linear(x: torch.Tensor, w, xq8: bool = False,
 
 def qkv_proj(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     """Query/key/value projections; one fused wqkv weight when present."""
+    xq8 = cfg.x_quant8
     if "wqkv" in layer:
-        y = apply_linear(x, layer["wqkv"])
+        y = apply_linear(x, layer["wqkv"], xq8)
         s1 = cfg.n_heads * cfg.head_dim
         s2 = s1 + cfg.n_kv_heads * cfg.head_dim
         return y[..., :s1], y[..., s1:s2], y[..., s2:]
-    return (apply_linear(x, layer["wq"]), apply_linear(x, layer["wk"]),
-            apply_linear(x, layer["wv"]))
+    return tuple(apply_linear(x, layer[k], xq8) for k in ("wq", "wk", "wv"))
 
 
 def gate_up_proj(layer: Params, x: torch.Tensor, xq8: bool = False,
@@ -145,6 +154,7 @@ class KVCache:
                device=None) -> "KVCache":
         if quantized:
             raise NotImplementedError("int8/fp8 KV cache: not ported yet")
+        device = resolve_device(device)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
@@ -184,8 +194,15 @@ def _quantize_rowwise(x: torch.Tensor, fmt: str = "int8"
 
 
 # ---------------------------------------------------------------------------
-# transformer blocks (the unfused branch of the reference)
+# transformer blocks
 # ---------------------------------------------------------------------------
+
+def _append_kv(cache: KVCache, li: int, kn: torch.Tensor, vn: torch.Tensor,
+               pos0: torch.Tensor) -> None:
+    """Append one token's k / v [Hkv, D] of layer ``li`` at pos0 (B == 1)."""
+    _write_cache_layer(cache.k, li, kn[None, :, None, :], pos0)
+    _write_cache_layer(cache.v, li, vn[None, :, None, :], pos0)
+
 
 def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
                      cache: KVCache, li: int, positions: torch.Tensor, *,
@@ -193,6 +210,17 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     B, T, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rms_norm(h, layer["attn_norm"], cfg.rms_eps)
+    if (decode and cfg.fuse_attn and B == 1 and T == 1 and cfg.x_quant8
+            and "wqkv" in layer
+            and attention_fused_supported(layer["wqkv"], layer["wo"], Hq, Hkv,
+                                          D, cache.k.dtype)):
+        # the whole block in one launch; its k / v go to the cache after
+        o, kn, vn = attention_fused(
+            x[:, 0].float(), layer["wqkv"], layer["wo"], cache.k, cache.v,
+            cache.lengths, li, n_heads=Hq, n_kv_heads=Hkv, head_dim=D,
+            rope_theta=cfg.rope_theta)
+        _append_kv(cache, li, kn, vn, positions[:, 0])
+        return o[:, None].to(h.dtype), cache
     if (not decode and B == 1 and T % 128 == 0 and D == 128
             and "wqkv" in layer):
         # the reference's fuse_rope gate (its cache is bf16 here): one
@@ -220,7 +248,7 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         o = flash_attention(q.transpose(1, 2).contiguous(), kt.contiguous(),
                             vt.contiguous(), causal=True).transpose(1, 2)
     o = o.reshape(B, T, Hq * D).to(h.dtype)
-    return apply_linear(o, layer["wo"]), cache
+    return apply_linear(o, layer["wo"], cfg.x_quant8), cache
 
 
 def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor
@@ -228,9 +256,21 @@ def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor
     if "router" in layer:
         raise NotImplementedError("MoE layers are not ported yet")
     x = rms_norm(h, layer["mlp_norm"], cfg.rms_eps)
-    gate, up = gate_up_proj(layer, x)
+    x2 = x.reshape(-1, x.shape[-1])
+    if (x2.shape[0] == 1 and cfg.fuse_mlp and "w_gu" in layer
+            and mlp_fused_supported(layer["w_gu"], layer["w_down"])):
+        # one row (decode, or a 1-token prompt): the whole MLP in one launch
+        out = mlp_fused(x2.float(), layer["w_gu"], layer["w_down"])
+        return out.to(x.dtype).reshape(*x.shape[:-1], -1)
+    gate, up = gate_up_proj(layer, x, cfg.x_quant8)
     return apply_linear(F.silu(gate.float()).to(x.dtype) * up,
-                        layer["w_down"])
+                        layer["w_down"], cfg.x_quant8)
+
+
+def _layer_kernel_ok(layer: Params, cfg: ModelConfig, cache: KVCache
+                     ) -> bool:
+    return layer_kernel.fused_layout_ok(layer, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim, cache.k.dtype)
 
 
 def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -238,7 +278,37 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              all_logits: bool = False) -> tuple[torch.Tensor, KVCache]:
     _check_cfg(cfg)
     h = params["embed"][tokens]                  # [B, T, dim]
+    B, T = tokens.shape
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+              rms_eps=cfg.rms_eps)
+    use_layer_kernel = (decode and cfg.fuse_layer and cfg.hperm
+                        and cfg.x_quant8 and B == 1 and T == 1)
+    pack = params.get("m_pack")
+    # the pack's layers share one shape (build_model_pack), so the
+    # reference's gate over every layer is its gate over the first
+    if (use_layer_kernel and pack is not None
+            and _layer_kernel_ok(pack.layers[0], cfg, cache)):
+        # every decoder layer in one launch, h in f32 throughout; then one
+        # cache append per array
+        hm, kn, vn = layer_kernel.model_step(
+            h[:, 0].float(), pack, cache.k, cache.v, cache.lengths, **kw)
+        pos = positions[:1, 0].long()
+        cache.k[:, 0, :, pos] = kn[:, :, None].to(cache.k.dtype)
+        cache.v[:, 0, :, pos] = vn[:, :, None].to(cache.v.dtype)
+        h = rms_norm(hm[:, None].to(h.dtype), params["final_norm"],
+                     cfg.rms_eps)
+        return _head_logits(params, cfg, h, cache, tokens, all_logits)
     for li, layer in enumerate(params["layers"]):
+        if use_layer_kernel and layer_kernel.layer_step_supported(
+                layer, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                cache.k.dtype):
+            h2, kn, vn = layer_kernel.layer_step(
+                h[:, 0].float(), layer["w_pack"], cache.k, cache.v,
+                cache.lengths, li, **kw)
+            _append_kv(cache, li, kn, vn, positions[:, 0])
+            h = h2[:, None].to(h.dtype)
+            continue
         attn, cache = _attention_block(layer, cfg, h, cache, li, positions,
                                        decode=decode)
         h = h + attn
@@ -252,7 +322,7 @@ def _head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor,
                  ) -> tuple[torch.Tensor, KVCache]:
     """Final-norm output ``h`` -> f32 logits; bumps cache lengths."""
     hl = h if all_logits else h[:, -1]
-    logits = apply_linear(hl, params["lm_head"])
+    logits = apply_linear(hl, params["lm_head"], cfg.x_quant8)
     cache.lengths += tokens.shape[1]
     return logits.float(), cache
 
@@ -312,11 +382,12 @@ def _round_up(x: int, m: int) -> int:
 
 def init_weights(cfg: ModelConfig, seed: int = 0, device=None,
                  dtype=torch.bfloat16) -> Params:
-    """Random-init dense weights (scaled normal), drawn on ``device`` from a
-    seeded ``torch.Generator``. Quantize with ``quantize_params``. The draws
+    """Random-init dense weights (scaled normal), drawn on ``device`` (the
+    card unless named) from a seeded ``torch.Generator``. Quantize with
+    ``quantize_params``. The draws
     differ from the reference's NumPy ones; carry its weights across with
     ``models.convert.params_from_jax`` where the two must match."""
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, hd = cfg.dim, cfg.head_dim
 
@@ -399,4 +470,41 @@ def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
         out["layers"].append(ql)
     if quantize_head:
         out["lm_head"] = quantize(params["lm_head"].float(), fmt)
+    return out
+
+
+def permute_hidden_params(params: Params, cfg: ModelConfig) -> Params:
+    """The reference's deploy layout for the whole-layer kernel
+    (``cfg.hperm``). There it gathers embed / norm columns and wo / w_down
+    rows into the quant kernels' interleaved lane order; the port's hidden
+    state stays in logical order, so nothing is permuted and this only
+    attaches the model pack (``build_model_pack``)."""
+    if any("router" in layer for layer in params["layers"]):
+        raise NotImplementedError("hperm: MoE layers are not ported yet")
+    return build_model_pack(params, cfg)
+
+
+def build_model_pack(params: Params, cfg: ModelConfig) -> Params:
+    """``params`` with ``"m_pack"``: the device table of every layer's
+    weight pointers that ``model_step`` reads (``ops/layer_kernel.py``; no
+    weight is copied). As in the reference, a no-op unless every layer has
+    q4_k wqkv / wo / w_gu / w_down of one shape, with dim and the padded
+    intermediate multiples of 4096 (where the reference builds
+    ``w_gu_f``)."""
+    layers = params["layers"]
+    stream = layer_kernel.STREAM
+
+    def ok(lay):
+        return (all(isinstance(lay.get(k), QuantLinear)
+                    and lay[k].fmt == "q4_k" for k in stream)
+                and lay["w_down"].array_shape[1] % 4096 == 0
+                and lay["w_gu"].array_shape[1] % 4096 == 0)
+
+    if not layers or not all(ok(lay) for lay in layers):
+        return params
+    shapes0 = [layers[0][k].array_shape for k in stream]
+    if any([lay[k].array_shape for k in stream] != shapes0 for lay in layers):
+        return params
+    out = dict(params)
+    out["m_pack"] = layer_kernel.pack_layers(layers)
     return out

@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
-           "rope_pack.cu", "paged_attention.cu")
+           "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
+           "fused_decode.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -57,6 +58,21 @@ SIGNATURES = {
     # scale, stream
     "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _F, _P),
+    # x, qs, es, em, y, N, K, stream
+    "q4k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # x, w_gu qs/es/em, w_down qs/es/em, ygu scratch, y, Kg, Kd, Nd, stream
+    "fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, wqkv qs/es/em, wo qs/es/em, k, v, lengths, layer, Hq, Hkv, S,
+    # cache_f32, theta, scale, yqkv / part scratch, o, k_new, v_new, stream
+    "fused_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
+    # h, ptrs, norms, k, v, lengths, layer0, nL, Hq, Hkv, S, Kd, cache_f32,
+    # theta, scale, eps, yqkv / part / ygu / h2 scratch, h_out, k_new,
+    # v_new, stream
+    "layer_kernel": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    # clears and returns the runtime's last error
+    "kernels_clear_error": (),
 }
 
 _lock = threading.Lock()

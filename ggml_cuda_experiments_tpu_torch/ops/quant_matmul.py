@@ -11,12 +11,24 @@ of a block holds element j in its low nibble and element j + 16 in its high
 nibble. Dequantization is ``w = q * f32(es) - f32(em)``, bit-equal to the
 reference's ``dequantize_jnp`` for the same oracle blocks.
 
-Kernels (``csrc/q4k_matmul.cu``):
-- ``q4k_matvec`` — B = 1, exact f32 activations; replaces the reference's
-  ``_chunk_kernel`` and ``_vpu2_kernel``.
-- ``q4k_gemm`` — B >= 2, bf16 operands with f32 accumulation (the
-  reference's numerics); replaces ``_mxu_kernel``, ``_pipe_sub_kernel`` and
-  ``_pipe_kernel``.
+Kernels:
+- ``q4k_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact f32 activations;
+  replaces the reference's ``_chunk_kernel`` and ``_vpu2_kernel``.
+- ``q4k_gemm`` (``csrc/q4k_matmul.cu``) — B >= 2, bf16 operands with f32
+  accumulation (the reference's numerics); replaces ``_mxu_kernel``,
+  ``_pipe_sub_kernel`` and ``_pipe_kernel``.
+- ``q4k_q8_matvec`` (``csrc/q4k_q8.cu``) — B = 1 with int8 activations
+  (``x_quant8``); replaces ``_chunk8_kernel`` / ``_chunk8_compute``.
+- ``mlp_fused`` (``csrc/fused_decode.cu``) — the whole batch-1 silu MLP in
+  one launch; replaces ``_fused_mlp_kernel``.
+
+The int8-activation numerics are the reference's, reproduced exactly: per
+32-block, with xl / xh the block's elements 0-15 / 16-31 (the two nibbles
+of one byte), a = xl - xh/16 and b = xh/16 are quantized to int8 with
+scale amax/127 (1 where amax == 0), round half to even, clip +-127; then
+y = sum_b es*(sa*sum(lo*aq) + sb*sum(p*bq) + 8*sum(xh)) - em*sum(xl + xh)
+with lo the low nibbles and p = lo + 16*hi - 128 (the byte XOR 0x80 read
+as int8). Both integer dots are exact; only the f32 fold order differs.
 
 Each wrapper runs its plain PyTorch version (``qmatmul_ref``) for a CPU
 tensor and launches its kernel, or raises, for a CUDA tensor.
@@ -29,15 +41,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ggml_cuda_experiments_tpu.oracle import quant as quant_ref
 from ggml_cuda_experiments_tpu_torch.ops import _build
-from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
-
-QK = quant_ref.QK            # 32
-QK_K = quant_ref.QK_K        # 256
+from ggml_cuda_experiments_tpu_torch.oracle.quant import QK, QK_K
+from ggml_cuda_experiments_tpu_torch.utils.platform import (
+    kernels_for, resolve_device)
 
 # kernel launches, counted by the wrappers right after each launch
-LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0}
+LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0, "q4k_q8_matvec": 0,
+            "fused_mlp": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,12 +145,19 @@ def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
     return QuantLinear(fmt="q4_k", shape=(n, k), qs=qs, es=es, em=em)
 
 
-def from_oracle(t: quant_ref.Q4_K, device=None) -> QuantLinear:
-    """Port container from the oracle's planar Q4_K blocks (the same bytes,
-    plus the Q4_K-E bf16 effective scales)."""
-    if not isinstance(t, quant_ref.Q4_K):
+_Q4K_FIELDS = ("qs", "sc", "mn", "d", "dmin", "shape")
+
+
+def from_oracle(t, device=None) -> QuantLinear:
+    """Port container from planar Q4_K blocks (the same bytes, plus the
+    Q4_K-E bf16 effective scales), on the card unless ``device`` says
+    otherwise. ``t`` is read by its fields (qs, sc, mn, d, dmin, shape), so
+    the blocks of ``oracle.quant.quantize_q4_k`` and of any oracle with the
+    same layout are taken alike."""
+    if not all(hasattr(t, f) for f in _Q4K_FIELDS):
         raise NotImplementedError(f"from_oracle: {type(t).__name__} "
                                   "(the port has q4_k only so far)")
+    device = resolve_device(device)
     n, k = t.shape
     d8 = torch.from_numpy(np.repeat(t.d, 8, axis=-1))       # [N, K/32] f32
     dm8 = torch.from_numpy(np.repeat(t.dmin, 8, axis=-1))
@@ -170,10 +188,75 @@ def qmatmul_ref(x: torch.Tensor, ql: QuantLinear,
 
 
 # ---------------------------------------------------------------------------
+# int8 activations (the reference's x_quant8 numerics)
+# ---------------------------------------------------------------------------
+
+def _block_scale(v: torch.Tensor) -> torch.Tensor:
+    """Per-block int8 scale of v [..., 16]: amax / 127, or 1 where amax is
+    0 (IEEE division, as the kernels compute it)."""
+    amax = v.abs().amax(-1)
+    return torch.where(amax == 0, torch.ones_like(amax), _div(amax, 127.0))
+
+
+def _q8(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(v / scale[..., None]), -127, 127).to(
+        torch.int8)
+
+
+def quantize_activations_q8(x: torch.Tensor):
+    """Per-32-block int8 operands of x [K] (or [1, K]) for the integer-dot
+    matvec: (aq, bq) int8 [K/32, 16], the quantized a = xl - xh/16 and
+    b = xh/16 of each block, and sc f32 [4, K/32] holding c = 8*sum(xh),
+    xs = sum(xl + xh), sa and sb. Bit-equal to the reference's
+    ``_quant_rows_blockwise`` / ``_act_quant_build`` for the same x."""
+    xb = x.float().reshape(-1, QK)
+    xl, xh = xb[:, :QK // 2], xb[:, QK // 2:]
+    b = xh / 16.0                                # exact: a power of two
+    a = xl - b
+    sa, sb = _block_scale(a), _block_scale(b)
+    sc = torch.stack([8.0 * xh.sum(-1), (xl + xh).sum(-1), sa, sb])
+    return _q8(a, sa), _q8(b, sb), sc
+
+
+_Q8_ROWS = 4096             # rows per chunk of the plain int8 matvec
+
+
+def qmatmul_q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """Plain version of the int8-activation matvec: y f32 [1, N] for
+    x [1, K] (see the module docstring for the formula). The integer
+    block dots are exact in f32 (|sum| < 2^24)."""
+    _fmt_check(ql.fmt)
+    n, k = ql.array_shape
+    aq, bq, (c, xs, sa, sb) = quantize_activations_q8(x.reshape(-1))
+    aqf, bqf = aq.float(), bq.float()
+    ys = []
+    for r in range(0, n, _Q8_ROWS):
+        p = ql.qs[r:r + _Q8_ROWS].reshape(-1, k // QK, QK // 2)
+        zl = torch.einsum("nbt,bt->nb", (p & 0x0F).float(), aqf)
+        zp = torch.einsum("nbt,bt->nb", (p ^ 0x80).view(torch.int8).float(),
+                          bqf)
+        z = sa * zl + sb * zp + c
+        ys.append((ql.es[r:r + _Q8_ROWS].float() * z
+                   - ql.em[r:r + _Q8_ROWS].float() * xs).sum(-1))
+    return torch.cat(ys)[None]
+
+
+def mlp_fused_ref(x: torch.Tensor, w_gu: QuantLinear,
+                  w_down: QuantLinear) -> torch.Tensor:
+    """Plain version of ``mlp_fused``: the w_gu int8 matvec, silu(g) * u in
+    f32, the w_down int8 matvec of that mid. x f32 [1, K]; y f32 [1, Nd]."""
+    y = qmatmul_q8_ref(x, w_gu)[0]
+    kd = y.shape[0] // 2
+    g, u = y[:kd], y[kd:]
+    return qmatmul_q8_ref(((g * torch.sigmoid(g)) * u)[None], w_down)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_weight(ql: QuantLinear, x: torch.Tensor) -> tuple[int, int]:
+def _check_ql(ql: QuantLinear, device: torch.device) -> tuple[int, int]:
+    """Raise unless the weight's arrays are what the kernels read."""
     _fmt_check(ql.fmt)
     n, k = ql.array_shape
     if k % QK_K:
@@ -181,13 +264,18 @@ def _check_weight(ql: QuantLinear, x: torch.Tensor) -> tuple[int, int]:
     for name, t, dt, shape in (("qs", ql.qs, torch.uint8, (n, k // 2)),
                                ("es", ql.es, torch.bfloat16, (n, k // QK)),
                                ("em", ql.em, torch.bfloat16, (n, k // QK))):
-        if t.device != x.device or t.dtype != dt or tuple(t.shape) != shape \
+        if t.device != device or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
-                f"{name}: need contiguous {dt} {shape} on {x.device}, got "
+                f"{name}: need contiguous {dt} {shape} on {device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if ql.qs.data_ptr() % 16:
         raise ValueError("qs must be 16-byte aligned")
+    return n, k
+
+
+def _check_weight(ql: QuantLinear, x: torch.Tensor) -> tuple[int, int]:
+    n, k = _check_ql(ql, x.device)
     if x.dim() != 2 or x.shape[1] != k or not x.is_contiguous():
         raise ValueError(f"x: need contiguous [B, {k}], got {tuple(x.shape)}")
     return n, k
@@ -227,15 +315,92 @@ def q4k_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return y
 
 
-def qmatmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+def q8_matvec_supported(ql: QuantLinear) -> bool:
+    """The reference's gate of its int8-activation matvec beyond B == 1:
+    q4_k with (K/32) % 128 == 0."""
+    return ql.fmt == "q4_k" and (ql.array_shape[1] // QK) % 128 == 0
+
+
+def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str) -> tuple[int, int]:
+    n, k = _check_weight(ql, x)
+    if x.dtype != torch.float32 or x.shape[0] != 1 \
+            or not q8_matvec_supported(ql):
+        raise ValueError(f"{name}: x must be f32 [1, K] with K % 4096 == 0, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    return n, k
+
+
+def q4k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """y [1, N] f32 = the int8-activation matvec of x [1, K] f32."""
+    if not kernels_for(x):
+        return qmatmul_q8_ref(x, ql)
+    n, k = _check_q8(x, ql, "q4k_q8_matvec")
+    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
+    rc = _build.lib().q4k_q8_matvec(
+        x.data_ptr(), ql.qs.data_ptr(), ql.es.data_ptr(), ql.em.data_ptr(),
+        y.data_ptr(), n, k, _build.stream_of(x))
+    _build.check(rc, "q4k_q8_matvec")
+    LAUNCHES["q4k_q8_matvec"] += 1
+    return y
+
+
+def qmatmul(x: torch.Tensor, ql: QuantLinear,
+            x_quant8: bool = False) -> torch.Tensor:
     """y [B, N] = x [B, K] @ deq(W)^T in x's dtype, x in logical order.
 
-    B == 1 runs the exact-f32 matvec (the reference's ``_chunk_kernel`` /
-    ``_vpu2_kernel``); B >= 2 the bf16 GEMM (its ``_mxu_kernel`` and, for
-    its ``pipelined`` prefill range, ``_pipe_sub_kernel``: the same
-    function, so the port has one kernel and no ``pipelined`` flag)."""
+    B == 1 runs the int8-activation matvec when ``x_quant8`` and the
+    reference's gate allow it (its ``_chunk8_kernel``), else the exact-f32
+    matvec (its ``_chunk_kernel`` / ``_vpu2_kernel``); B >= 2 the bf16 GEMM
+    (its ``_mxu_kernel`` and, for its ``pipelined`` prefill range,
+    ``_pipe_sub_kernel``: the same function, so the port has one kernel and
+    no ``pipelined`` flag)."""
     if x.shape[0] == 1:
-        y = q4k_matvec(x.float().contiguous(), ql)
+        if x_quant8 and q8_matvec_supported(ql):
+            y = q4k_q8_matvec(x.float().contiguous(), ql)
+        else:
+            y = q4k_matvec(x.float().contiguous(), ql)
     else:
         y = q4k_gemm(x.to(torch.bfloat16).contiguous(), ql)
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the fused batch-1 MLP
+# ---------------------------------------------------------------------------
+
+def mlp_fused_supported(w_gu, w_down) -> bool:
+    """The reference's decision, from shapes: it runs ``mlp_fused`` where
+    ``quantize_params`` built ``w_gu_f`` (q4_k, dim and the padded
+    intermediate multiples of 4096) and ``mlp_fused_supported`` accepts it
+    (one 4096 segment of K, (K/32) % 128 == 0), i.e. w_gu [2 Kd, 4096] and
+    w_down [Nd, Kd] with Kd % 4096 == 0."""
+    if not (isinstance(w_gu, QuantLinear) and isinstance(w_down, QuantLinear)):
+        return False
+    if w_gu.fmt != "q4_k" or w_down.fmt != "q4_k":
+        return False
+    ng, kg = w_gu.array_shape
+    _, kd = w_down.array_shape
+    return kg == 4096 and ng == 2 * kd and kd % 4096 == 0
+
+
+def mlp_fused(x: torch.Tensor, w_gu: QuantLinear,
+              w_down: QuantLinear) -> torch.Tensor:
+    """y [1, Nd] f32 = the fused silu MLP of x [1, 4096] f32 (normed, in
+    logical order; w_gu = [gate; up] rows, logical order too)."""
+    if not kernels_for(x):
+        return mlp_fused_ref(x, w_gu, w_down)
+    if not mlp_fused_supported(w_gu, w_down):
+        raise ValueError(f"mlp_fused: w_gu {w_gu.array_shape}, w_down "
+                         f"{w_down.array_shape} outside the fused gate")
+    ng, kg = _check_q8(x, w_gu, "mlp_fused")
+    nd, kd = _check_ql(w_down, x.device)
+    ws = torch.empty((ng,), dtype=torch.float32, device=x.device)
+    y = torch.empty((1, nd), dtype=torch.float32, device=x.device)
+    rc = _build.lib().fused_mlp(
+        x.data_ptr(), w_gu.qs.data_ptr(), w_gu.es.data_ptr(),
+        w_gu.em.data_ptr(), w_down.qs.data_ptr(), w_down.es.data_ptr(),
+        w_down.em.data_ptr(), ws.data_ptr(), y.data_ptr(), kg, kd, nd,
+        _build.stream_of(x))
+    _build.check(rc, "fused_mlp")
+    LAUNCHES["fused_mlp"] += 1
+    return y

@@ -1,0 +1,99 @@
+"""GGML Q4_K block quantization in NumPy: the executable specification the
+port's device quantizer and kernels are held to.
+
+The port's own copy of the Q4_K part of the JAX package's
+``oracle/quant.py`` (same arithmetic, same planar layout), so the port
+imports nothing of that package. Layout, per-32-block planar nibbles:
+
+    qs   uint8 [..., N/2]    byte j of a block: element j (low nibble),
+                             element j + 16 (high nibble)
+    sc   uint8 [..., N/32]   6-bit sub-scales
+    mn   uint8 [..., N/32]   6-bit sub-mins
+    d    f32   [..., N/256]  superblock scale (fp16-rounded)
+    dmin f32   [..., N/256]  superblock min scale (fp16-rounded)
+
+Dequantization: x = (d * sc) * q - (dmin * mn), q in [0, 15].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+QK = 32          # elements per quantization block
+QK_K = 256       # elements per Q4_K superblock
+
+
+def np_div(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a / b where b != 0, else 0."""
+    return np.divide(a, b, out=np.zeros_like(a), where=(b != 0))
+
+
+def _f16_round(x: np.ndarray) -> np.ndarray:
+    """Round scale factors through fp16, as GGML stores them in fp16."""
+    return x.astype(np.float16).astype(np.float32)
+
+
+def pack_nibbles(q: np.ndarray) -> np.ndarray:
+    """[..., nb, 32] uint8 (values 0..15) -> [..., nb, 16] packed uint8."""
+    return (q[..., :16] | (q[..., 16:] << 4)).astype(np.uint8)
+
+
+def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
+    """[..., nb, 16] packed uint8 -> [..., nb, 32] uint8 (values 0..15)."""
+    return np.concatenate([packed & np.uint8(0x0F), packed >> 4], axis=-1)
+
+
+@dataclasses.dataclass
+class Q4_K:
+    """Planar Q4_K tensor: asymmetric 4-bit, 6-bit sub-scales per
+    superblock; x ~ (d * sc_j) * q - (dmin * mn_j) for 32-element
+    sub-block j of each 256-element superblock."""
+    qs: np.ndarray
+    sc: np.ndarray
+    mn: np.ndarray
+    d: np.ndarray
+    dmin: np.ndarray
+    shape: tuple
+
+
+def quantize_q4_k(x: np.ndarray) -> Q4_K:
+    x = np.asarray(x, np.float32)
+    *lead, n = x.shape
+    assert n % QK_K == 0, f"last dim {n} must be a multiple of {QK_K}"
+    nsb = n // QK_K
+    xb = x.reshape(*lead, nsb, 8, QK)
+    mn_f = np.minimum(np.min(xb, axis=-1), 0.0)
+    mx_f = np.maximum(np.max(xb, axis=-1), 0.0)
+    scale_f = (mx_f - mn_f) / 15.0
+    neg_mn = -mn_f
+    d = _f16_round(np.max(scale_f, axis=-1) / 63.0)
+    dmin = _f16_round(np.max(neg_mn, axis=-1) / 63.0)
+    sc = np.clip(np.round(scale_f * np_div(np.ones_like(d), d)[..., None]),
+                 0, 63).astype(np.uint8)
+    inv_dmin = np_div(np.ones_like(dmin), dmin)
+    mn = np.clip(np.round(neg_mn * inv_dmin[..., None]), 0, 63)
+    mn = mn.astype(np.uint8)
+    # quantize against the decoded scales, so dequantization inverts exactly
+    eff_scale = d[..., None] * sc.astype(np.float32)
+    eff_min = dmin[..., None] * mn.astype(np.float32)
+    inv_s = np_div(np.ones_like(eff_scale), eff_scale)
+    q = np.clip(np.round((xb + eff_min[..., None]) * inv_s[..., None]), 0, 15)
+    q = q.astype(np.uint8)
+    return Q4_K(
+        qs=pack_nibbles(q.reshape(*lead, n // QK, QK)).reshape(*lead, n // 2),
+        sc=sc.reshape(*lead, n // QK), mn=mn.reshape(*lead, n // QK),
+        d=d, dmin=dmin, shape=tuple(x.shape))
+
+
+def dequantize_q4_k(t: Q4_K) -> np.ndarray:
+    *lead, n = t.shape
+    nsb = n // QK_K
+    q = unpack_nibbles(t.qs.reshape(*lead, n // QK, QK // 2)).astype(
+        np.float32)
+    sc = t.sc.reshape(*lead, nsb, 8).astype(np.float32)
+    mn = t.mn.reshape(*lead, nsb, 8).astype(np.float32)
+    eff_scale = (t.d[..., None] * sc).reshape(*lead, n // QK)
+    eff_min = (t.dmin[..., None] * mn).reshape(*lead, n // QK)
+    return (q * eff_scale[..., None] - eff_min[..., None]).reshape(t.shape)

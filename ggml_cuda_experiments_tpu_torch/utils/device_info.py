@@ -21,7 +21,20 @@ class CardSpec:
     hbm_bytes_per_s: float
     l2_bytes: int
     peak_flops_bf16: float          # dense tensor-core rate
+    peak_ops_int8: float            # dense tensor-core int8 rate
+    peak_flops_f32: float           # f32 outside the tensor cores
     smem_per_block: int             # opt-in dynamic shared memory limit
+
+    def bound_ms(self, nbytes: float, ops: float, kind: str
+                 ) -> tuple[float, str]:
+        """The least time the card could take for work that moves
+        ``nbytes`` and does ``ops`` operations of ``kind`` ("bf16", "int8"
+        or "f32"), and which of the two sets it."""
+        peak = {"bf16": self.peak_flops_bf16, "int8": self.peak_ops_int8,
+                "f32": self.peak_flops_f32}[kind]
+        t_bytes, t_ops = nbytes / self.hbm_bytes_per_s, ops / peak
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
 
 
 # NVIDIA data sheets and the Hopper architecture white paper (dense rates).
@@ -29,9 +42,9 @@ class CardSpec:
 # itself as "NVIDIA H100 80GB HBM3".
 _SPECS = {
     "H100 PCIe": CardSpec("H100 PCIe", 114, 2.0e12, 50 * 2**20, 756e12,
-                          232_448),
+                          1513e12, 51e12, 232_448),
     "H100": CardSpec("H100 SXM", 132, 3.35e12, 50 * 2**20, 989e12,
-                     232_448),
+                     1979e12, 67e12, 232_448),
 }
 
 

@@ -10,6 +10,10 @@ the card. A wrapper never falls back from the kernel to the plain version.
 ``plain_versions()`` is the one explicit exception, for comparisons on the
 card: inside it every wrapper runs its plain version, so a whole model can be
 held against its kernel path on the same device and weights.
+
+Entry points that create tensors (``init_weights``, ``KVCache.create``,
+``PagedKVPool.create``, ``from_oracle``, ``params_from_jax``) build on the
+card unless the caller names another device (``resolve_device``).
 """
 
 from __future__ import annotations
@@ -46,3 +50,10 @@ def require_cuda() -> torch.device:
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: the card when ``device`` is
+    None (raising without one), else ``device``. The CPU runs only when a
+    caller asks for it."""
+    return require_cuda() if device is None else torch.device(device)

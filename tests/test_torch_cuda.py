@@ -9,7 +9,12 @@ it:
 Tolerances as in chip_smoke.py: the exact-f32 matvec 1e-4 * max, the bf16
 GEMM 2e-2 * max, attention 1e-2 * max, paged decode 2e-3 * max on bf16 pages
 and 2e-2 * max on int8 / fp8 pages, model logits 2e-2 * max; rope_pack is
-exact."""
+exact. The int8-activation kernels: the matvec 1e-4 * max (its integer dots
+are exact and its operands equal the plain version's), the fused MLP,
+attention and layer kernels 5e-3 * max (the JAX package's bound for its
+fused kernels: an f32 ulp in a value before its int8 quantization may move
+one step), k_new / v_new 2e-2 * max(1, max); model_step equals chained
+layer_step launches."""
 
 import dataclasses
 
@@ -22,6 +27,8 @@ from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
 from ggml_cuda_experiments_tpu_torch.models import engine
 from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
+from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
+from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
 from ggml_cuda_experiments_tpu_torch.ops import paged_attention as pa
 from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
 from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
@@ -159,10 +166,109 @@ def test_paged_decode(dev, fmt, hq, hkv, d, ps):
     assert pa.LAUNCHES["paged_decode"] == before + 1
 
 
+@pytest.mark.parametrize("n,k", [(640, 4096), (300, 12288), (4096, 4096)])
+def test_q4k_q8_matvec(dev, n, k):
+    ql = qm.quantize(_randn(20, n, k, scale=k ** -0.5).to(dev))
+    before = qm.LAUNCHES["q4k_q8_matvec"]
+    _check(qm.q4k_q8_matvec, _randn(21, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES["q4k_q8_matvec"] == before + 1
+
+
+@pytest.mark.parametrize("kd", [4096, 8192])
+def test_fused_mlp(dev, kd):
+    w_gu = qm.quantize(_randn(22, 2 * kd, 4096, scale=1 / 64).to(dev))
+    w_down = qm.quantize(_randn(23, 256, kd, scale=1 / 64).to(dev))
+    before = qm.LAUNCHES["fused_mlp"]
+    _check(qm.mlp_fused, _randn(24, 1, 4096).to(dev), w_gu, w_down, tol=5e-3)
+    assert qm.LAUNCHES["fused_mlp"] == before + 1
+
+
+def _attn_weights(seed, hq, hkv, dev):
+    wqkv = qm.quantize(_randn(seed, (hq + 2 * hkv) * 128, 4096,
+                              scale=1 / 64).to(dev))
+    wo = qm.quantize(_randn(seed + 1, 4096, 4096, scale=1 / 64).to(dev))
+    return wqkv, wo
+
+
+def _close(got, ref, tol, floor=0.0):
+    got, ref = got.float(), ref.float()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= tol * max(floor, float(ref.abs().max())), err
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hkv", [32, 8, 4])
+@pytest.mark.parametrize("length", [1, 23, 255, 256])
+def test_fused_attention(dev, hkv, length, cache_dtype):
+    wqkv, wo = _attn_weights(25, 32, hkv, dev)
+    kc = _randn(27, 2, 1, hkv, 256, 128).to(dev, cache_dtype)
+    vc = _randn(28, 2, 1, hkv, 256, 128).to(dev, cache_dtype)
+    x = _randn(29, 1, 4096).to(dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+    before = fat.LAUNCHES["fused_attention"]
+    got = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 1, **kw)
+    with plain_versions():
+        ref = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 1, **kw)
+    torch.cuda.synchronize()
+    assert fat.LAUNCHES["fused_attention"] == before + 1
+    _close(got[0], ref[0], 5e-3)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == cache_dtype
+        _close(g, r, 2e-2, floor=1.0)
+
+
+def _layers(seed, n, hkv, dev):
+    layers = []
+    for i in range(n):
+        wqkv, wo = _attn_weights(seed + 10 * i, 32, hkv, dev)
+        layers.append({
+            "wqkv": wqkv, "wo": wo,
+            "w_gu": qm.quantize(_randn(seed + 10 * i + 2, 8192, 4096,
+                                       scale=1 / 64).to(dev)),
+            "w_down": qm.quantize(_randn(seed + 10 * i + 3, 4096, 4096,
+                                         scale=1 / 64).to(dev)),
+            "attn_norm": (1 + 0.1 * _randn(seed + 10 * i + 4, 4096)).to(
+                dev, torch.bfloat16),
+            "mlp_norm": (1 + 0.1 * _randn(seed + 10 * i + 5, 4096)).to(
+                dev, torch.bfloat16)})
+    return layers
+
+
+@pytest.mark.parametrize("hkv", [32, 8])
+def test_layer_step_and_model_step(dev, hkv):
+    """Each layer's launch against its plain version; model_step against
+    the layer launches chained with h carried in f32."""
+    layers = _layers(30, 2, hkv, dev)
+    kc = _randn(31, 2, 1, hkv, 256, 128).to(dev, torch.bfloat16)
+    vc = _randn(32, 2, 1, hkv, 256, 128).to(dev, torch.bfloat16)
+    lens = torch.tensor([100], dtype=torch.int32, device=dev)
+    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+    h = _randn(33, 1, 4096).to(dev)
+    hs, kns = h, []
+    for li, layer in enumerate(layers):
+        pack = lk.pack_layers([layer])
+        got = lk.layer_step(hs, pack, kc, vc, lens, li, **kw)
+        with plain_versions():
+            ref = lk.layer_step(hs, pack, kc, vc, lens, li, **kw)
+        _close(got[0], ref[0], 5e-3)
+        _close(got[1], ref[1], 2e-2, floor=1.0)
+        hs = got[0]
+        kns.append(got[1])
+    before = lk.LAUNCHES["model_step"]
+    hm, kn, vn = lk.model_step(h, lk.pack_layers(layers), kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["model_step"] == before + 1
+    assert torch.equal(hm, hs)
+    assert torch.equal(kn, torch.stack(kns))
+
+
 def test_engine_on_the_card_matches_the_cpu(dev):
     """A debug-size int8 engine run on the card, against the CPU's."""
     cfg = dataclasses.replace(PRESETS["debug"], n_layers=2)
-    params = llama.quantize_params(llama.init_weights(cfg, seed=0), "q4_k")
+    params = llama.quantize_params(
+        llama.init_weights(cfg, seed=0, device="cpu"), "q4_k")
     outs = []
     for p in (params, _to(params, dev)):
         eng = engine.Engine(p, cfg, max_batch=4, page_size=32, n_pages=32,
@@ -190,11 +296,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fd.flash_decode(q, kv, kv)                             # D = 96
     with pytest.raises(ValueError):
         fa.flash_attention(q[:, :, None], kv, kv)              # D = 96
+    with pytest.raises(ValueError):                           # K % 4096
+        qm.q4k_q8_matvec(torch.zeros((1, 256), device=dev), ql)
 
 
 def test_debug_model_on_the_card_matches_the_cpu(dev):
     cfg = dataclasses.replace(PRESETS["debug"], n_layers=2)
-    params = llama.quantize_params(llama.init_weights(cfg, seed=0), "q4_k")
+    params = llama.quantize_params(
+        llama.init_weights(cfg, seed=0, device="cpu"), "q4_k")
     moved = _to(params, dev)
     prompt = torch.arange(1, 9)[None]
     outs = []

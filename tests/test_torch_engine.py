@@ -18,11 +18,14 @@ from ggml_cuda_experiments_tpu.models import engine as je
 from ggml_cuda_experiments_tpu.models import llama as jl
 from ggml_cuda_experiments_tpu.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models.config import (
+    ModelConfig as TModelConfig)
 from ggml_cuda_experiments_tpu_torch.models import engine as te
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 
 CFG = dataclasses.replace(PRESETS["debug"], fuse_mlp=False, fuse_attn=False,
                           fuse_layer=False)
+TCFG = TModelConfig(**dataclasses.asdict(CFG))      # the port's twin
 N_PAGES, PS = 16, 32
 TRASH = N_PAGES - 1
 ROWS = np.array([[5, 2, TRASH, TRASH],          # request A, 40 tokens
@@ -45,7 +48,7 @@ def _tnp(t):
 def params():
     jp = jl.init_weights(CFG, seed=21)
     tp = convert.params_from_jax(jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32), jp), CFG)
+        lambda a: np.asarray(a, np.float32), jp), TCFG, device="cpu")
     return jl.quantize_params(jp, "q4_k"), tl.quantize_params(tp, "q4_k")
 
 
@@ -104,7 +107,8 @@ def _prompt(n, seed):
 def test_prefill_chunk_and_decode_match_jax(params, fmt):
     jq, tq = params
     jpool = je.PagedKVPool.create(CFG, N_PAGES, PS, quantized=fmt)
-    tpool = te.PagedKVPool.create(CFG, N_PAGES, PS, quantized=fmt)
+    tpool = te.PagedKVPool.create(TCFG, N_PAGES, PS, quantized=fmt,
+                                  device="cpu")
     rows_t = torch.from_numpy(ROWS)
 
     # request A: whole-prompt prefill, 40 tokens padded to 64
@@ -114,7 +118,7 @@ def test_prefill_chunk_and_decode_match_jax(params, fmt):
     jlog, jpool = je.paged_prefill(jq, CFG, jnp.asarray(toks),
                                    jnp.asarray(40, jnp.int32),
                                    jnp.asarray(ROWS[0]), jpool)
-    tlog, tpool = te._paged_prefill(tq, CFG, torch.from_numpy(toks), 40,
+    tlog, tpool = te._paged_prefill(tq, TCFG, torch.from_numpy(toks), 40,
                                     rows_t[0], tpool)
     _close(tlog, jlog)
 
@@ -130,7 +134,7 @@ def test_prefill_chunk_and_decode_match_jax(params, fmt):
             jnp.asarray(70, jnp.int32), jnp.asarray(ROWS[1]), jpool,
             with_logits=last)
         tlog_b, tpool = te._paged_prefill_chunk(
-            tq, CFG, torch.from_numpy(chunk), pos0, 70, rows_t[1], tpool,
+            tq, TCFG, torch.from_numpy(chunk), pos0, 70, rows_t[1], tpool,
             with_logits=last)
         assert (tlog_b is None) == (not last)
     _close(tlog_b, jlog_b)
@@ -145,7 +149,7 @@ def test_prefill_chunk_and_decode_match_jax(params, fmt):
         jq, CFG, jnp.asarray(tokens), jnp.asarray(lengths),
         jnp.asarray(ROWS), jpool, jnp.asarray(active), ppcb=4)
     tlog_d, tpool = te._paged_decode_step(
-        tq, CFG, torch.from_numpy(tokens), torch.from_numpy(lengths),
+        tq, TCFG, torch.from_numpy(tokens), torch.from_numpy(lengths),
         rows_t, tpool, torch.from_numpy(active), ppcb=4)
     _close(tlog_d[:2], np.asarray(jlog_d)[:2])
     _pools_close(tpool, jpool)
@@ -155,7 +159,8 @@ def test_pool_writes_are_in_place():
     """The index writes land in the pool's own storage (no rebuild), at
     (layer, page, :, offset), and wholly invalid prefill runs and idle
     decode slots go to the trash page only."""
-    pool = te.PagedKVPool.create(CFG, N_PAGES, PS, quantized="fp8")
+    pool = te.PagedKVPool.create(TCFG, N_PAGES, PS, quantized="fp8",
+                                 device="cpu")
     ptrs = [t.data_ptr() for t in (pool.k, pool.v, pool.k_scale)]
     hkv, d = CFG.n_kv_heads, CFG.head_dim
     val = torch.randn(2, hkv, d).to(torch.float8_e4m3fn)
@@ -174,7 +179,7 @@ def test_pool_writes_are_in_place():
                               torch.arange(2) * PS, 20, PS, TRASH)
     assert run_pages.tolist() == [7, TRASH]
     kt = torch.ones((hkv, 64, d), dtype=torch.bfloat16)
-    bpool = te.PagedKVPool.create(CFG, N_PAGES, PS)
+    bpool = te.PagedKVPool.create(TCFG, N_PAGES, PS, device="cpu")
     ptr = bpool.k.data_ptr()
     te._pool_write_pages(bpool.k, 0, run_pages, kt, PS)
     assert bpool.k.data_ptr() == ptr

@@ -16,18 +16,21 @@ from ggml_cuda_experiments_tpu.models import engine as je
 from ggml_cuda_experiments_tpu.models import llama as jl
 from ggml_cuda_experiments_tpu.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models.config import (
+    ModelConfig as TModelConfig)
 from ggml_cuda_experiments_tpu_torch.models import engine as te
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 
 CFG = dataclasses.replace(PRESETS["debug"], fuse_mlp=False, fuse_attn=False,
                           fuse_layer=False)
+TCFG = TModelConfig(**dataclasses.asdict(CFG))      # the port's twin
 
 
 @pytest.fixture(scope="module")
 def params():
     jp = jl.init_weights(CFG, seed=11)
     return jp, convert.params_from_jax(jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32), jp), CFG)
+        lambda a: np.asarray(a, np.float32), jp), TCFG, device="cpu")
 
 
 def _prompts(seed, sizes):
@@ -36,7 +39,7 @@ def _prompts(seed, sizes):
 
 
 def _serve(engine_cls, p, prompts, new, **kw):
-    eng = engine_cls(p, CFG, **kw)
+    eng = engine_cls(p, TCFG if engine_cls is te.Engine else CFG, **kw)
     rids = [eng.add_request(pr, max_new_tokens=new) for pr in prompts]
     out = eng.run_to_completion()
     assert len(eng.allocator.free) == kw["n_pages"] - 1, "pages leaked"
@@ -52,7 +55,7 @@ def _both(params, prompts, new, **kw):
 
 
 def _generate(tp, prompt, steps):
-    return tl.generate(tp, CFG, torch.tensor([prompt]), steps)[0].tolist()
+    return tl.generate(tp, TCFG, torch.tensor([prompt]), steps)[0].tolist()
 
 
 KW = dict(max_batch=2, page_size=32, n_pages=64, max_seq_len=256)
@@ -75,7 +78,7 @@ def test_decode_progresses_during_long_prefill(params):
     """While a 120-token prompt is prefilled in chunks of 32, the running
     request advances one token every scheduler step."""
     short, long = _prompts(7, [6, 120])
-    eng = te.Engine(params[1], CFG, prefill_chunk=32, **KW)
+    eng = te.Engine(params[1], TCFG, prefill_chunk=32, **KW)
     rid_s = eng.add_request(short, max_new_tokens=8)
     eng.step()
     rid_l = eng.add_request(long, max_new_tokens=4)

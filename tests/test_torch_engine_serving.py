@@ -23,18 +23,21 @@ from ggml_cuda_experiments_tpu.models import engine as je
 from ggml_cuda_experiments_tpu.models import llama as jl
 from ggml_cuda_experiments_tpu.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models.config import (
+    ModelConfig as TModelConfig)
 from ggml_cuda_experiments_tpu_torch.models import engine as te
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 
 CFG = dataclasses.replace(PRESETS["debug"], fuse_mlp=False, fuse_attn=False,
                           fuse_layer=False)
+TCFG = TModelConfig(**dataclasses.asdict(CFG))      # the port's twin
 
 
 @pytest.fixture(scope="module")
 def params():
     jp = jl.init_weights(CFG, seed=11)
     return jp, convert.params_from_jax(jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32), jp), CFG)
+        lambda a: np.asarray(a, np.float32), jp), TCFG, device="cpu")
 
 
 def _prompts(seed, sizes):
@@ -43,7 +46,7 @@ def _prompts(seed, sizes):
 
 
 def _serve(engine_cls, p, prompts, new, **kw):
-    eng = engine_cls(p, CFG, **kw)
+    eng = engine_cls(p, TCFG if engine_cls is te.Engine else CFG, **kw)
     rids = [eng.add_request(pr, max_new_tokens=new) for pr in prompts]
     out = eng.run_to_completion()
     assert len(eng.allocator.free) == kw["n_pages"] - 1, "pages leaked"
@@ -59,7 +62,7 @@ def _both(params, prompts, new, **kw):
 
 
 def _generate(tp, prompt, steps):
-    return tl.generate(tp, CFG, torch.tensor([prompt]), steps)[0].tolist()
+    return tl.generate(tp, TCFG, torch.tensor([prompt]), steps)[0].tolist()
 
 
 KW = dict(max_batch=2, page_size=32, n_pages=64, max_seq_len=256)
@@ -106,6 +109,6 @@ def test_eos_stops_a_request(params):
 
 def test_unported_options_raise(params):
     with pytest.raises(NotImplementedError):
-        te.Engine(params[1], CFG, scheduler="native", **KW)
+        te.Engine(params[1], TCFG, scheduler="native", **KW)
     with pytest.raises(NotImplementedError):
-        te.Engine(params[1], CFG, mesh=object(), **KW)
+        te.Engine(params[1], TCFG, mesh=object(), **KW)

@@ -1,0 +1,180 @@
+"""The port's whole-layer / whole-model decode kernels (plain versions, on
+the CPU) against the JAX package's ``layer_step`` / ``model_step``
+(Pallas ``_layer_kernel``, interpret mode), and the port's ``generate``
+against the JAX package's in the four batch-1 decode configurations, on
+the 2-layer dim-4096 model of tests/test_layer_kernel.py (the smallest the
+fused gates accept).
+
+The JAX package runs these kernels in its permuted-hidden layout: its
+inputs are gathered by ``quant_matmul._perm(4096)`` and its outputs
+un-permuted here; the port stays in logical order. Tolerances: h 5e-3 *
+max per layer and k_new / v_new 2e-2 * max(1, max), as
+tests/test_layer_kernel.py holds the JAX kernels (1e-2 * max for the two
+layers of model_step, whose second layer starts from the first's
+difference); logits 2e-2 * max, and 3e-2 * max for x_quant8 with
+the unfused blocks between fused ones (h rounds to bf16 after every block
+there, and a one-ulp flip moves a whole int8 step of the next block's
+activations: the JAX package's own x_quant8 decode bound,
+tests/test_quant_matmul.py::test_model_x_quant8_decode). Greedy tokens
+exact: seed 1 is free of ties (the JAX top-2 logit gap is >= 0.125 at
+every step, asserted)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ggml_cuda_experiments_tpu.models import llama as jl
+from ggml_cuda_experiments_tpu.models.config import ModelConfig as JConfig
+from ggml_cuda_experiments_tpu.ops import layer_kernel as jlk
+from ggml_cuda_experiments_tpu.ops import quant_matmul as jqm
+from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models import llama as tl
+from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
+from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as tlk
+
+KW = dict(name="lk-test", vocab_size=512, dim=4096, n_layers=2, n_heads=32,
+          n_kv_heads=32, intermediate=4096, head_dim=128, max_seq_len=512)
+HEADS = dict(n_heads=32, n_kv_heads=32, head_dim=128)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(JAX, port) quantized trees from the same dense weights, each also
+    with the model pack (``permute_hidden_params``) and the per-layer
+    packs (the model pack stripped)."""
+    jp = jl.init_weights(JConfig(**KW), seed=1, as_numpy=True)
+    dense = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
+    jq = jl.quantize_params(jp, "q4_k")
+    tq = tl.quantize_params(convert.params_from_jax(
+        dense, ModelConfig(**KW), device="cpu"), "q4_k")
+    jm = jax.device_put(jl.permute_hidden_params(
+        jq, JConfig(**KW, x_quant8=True, hperm=True)))
+    tm = tl.permute_hidden_params(tq, ModelConfig(**KW, x_quant8=True,
+                                                  hperm=True))
+    assert "m_pack" in jm and "m_pack" in tm
+    jlay = {k: v for k, v in jm.items() if k != "m_pack"}
+    jlay["layers"] = [dict(lay, w_pack=jlk.pack_stream(
+        lay["wqkv"], lay["wo"], lay["w_gu_f"])) for lay in jm["layers"]]
+    tlay = {k: v for k, v in tm.items() if k != "m_pack"}
+    tlay["layers"] = [dict(lay, w_pack=tlk.pack_layers([lay]))
+                      for lay in tm["layers"]]
+    return {"plain": (jq, tq), "model": (jm, tm), "layer": (jlay, tlay)}
+
+
+@pytest.fixture(scope="module")
+def step_inputs():
+    rng = np.random.default_rng(5)
+    h = rng.normal(size=(1, 4096)).astype(np.float32)
+    kc = rng.normal(size=(2, 1, 32, 256, 128)).astype(np.float32)
+    vc = rng.normal(size=(2, 1, 32, 256, 128)).astype(np.float32)
+    return h, kc, vc, np.asarray([23], np.int32)
+
+
+def _close(got, want, tol, floor=0.0):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(floor, float(np.abs(want).max())), err
+
+
+def test_model_and_layer_step_match_jax(models, step_inputs):
+    (jm, tm), (jlay, tlay) = models["model"], models["layer"]
+    h, kc, vc, lens = step_inputs
+    perm = np.asarray(jqm._perm(4096))
+    inv = np.argsort(perm)
+    jc = (jnp.asarray(kc, jnp.bfloat16), jnp.asarray(vc, jnp.bfloat16),
+          jnp.asarray(lens))
+    tc = (torch.from_numpy(kc).to(torch.bfloat16),
+          torch.from_numpy(vc).to(torch.bfloat16), torch.from_numpy(lens))
+    hp = jnp.asarray(h[:, perm])
+    want = jlk.model_step(hp, jm["m_pack"], *jc, **HEADS)
+    got = tlk.model_step(torch.from_numpy(h), tm["m_pack"], *tc, **HEADS)
+    _close(got[0].numpy(), np.asarray(want[0])[:, inv], 1e-2)
+    assert got[1].shape == (2, 32, 128)
+    for g, w in zip(got[1:], want[1:]):
+        _close(g.float().numpy(), w, 2e-2, floor=1.0)
+    for li, (lay_j, lay_t) in enumerate(zip(jlay["layers"],
+                                            tlay["layers"])):
+        want = jlk.layer_step(hp, lay_j["w_pack"], lay_j["w_down"],
+                              lay_j["attn_norm"], lay_j["mlp_norm"], *jc,
+                              li, **HEADS)
+        got = tlk.layer_step(torch.from_numpy(h), lay_t["w_pack"], *tc, li,
+                             **HEADS)
+        _close(got[0].numpy(), np.asarray(want[0])[:, inv], 5e-3)
+        for g, w in zip(got[1:], want[1:]):
+            _close(g.float().numpy(), w, 2e-2, floor=1.0)
+
+
+def test_model_step_chains_layer_steps(models, step_inputs):
+    """model_step is the layer steps chained with h kept in f32."""
+    (_, tm), (_, tlay) = models["model"], models["layer"]
+    h, kc, vc, lens = step_inputs
+    tc = (torch.from_numpy(kc).to(torch.bfloat16),
+          torch.from_numpy(vc).to(torch.bfloat16), torch.from_numpy(lens))
+    hm, kn, vn = tlk.model_step(torch.from_numpy(h), tm["m_pack"], *tc,
+                                **HEADS)
+    hs, kns = torch.from_numpy(h), []
+    for li, lay in enumerate(tlay["layers"]):
+        hs, k1, _ = tlk.layer_step(hs, lay["w_pack"], *tc, li, **HEADS)
+        kns.append(k1)
+    assert torch.equal(hm, hs) and torch.equal(kn, torch.stack(kns))
+
+
+CONFIGS = {
+    # name: (flags, tree, fused calls per decode step, logits tolerance)
+    "preset_default": ({}, "plain", {"mlp_fused": 2}, 2e-2),
+    "x_quant8": ({"x_quant8": True}, "plain",
+                 {"attention_fused": 2, "mlp_fused": 2}, 3e-2),
+    "x_quant8_hperm": ({"x_quant8": True, "hperm": True}, "model",
+                       {"model_step": 1}, 2e-2),
+    "per_layer": ({"x_quant8": True, "hperm": True}, "layer",
+                  {"layer_step": 2}, 2e-2),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_generate_matches_jax(models, name, monkeypatch):
+    flags, tree, per_step, tol = CONFIGS[name]
+    jq, tq = models[tree]
+    jc, tc = JConfig(**KW, **flags), ModelConfig(**KW, **flags)
+    calls = dict.fromkeys(("mlp_fused", "attention_fused", "model_step",
+                           "layer_step"), 0)
+
+    def spy(owner, fn_name):
+        fn = getattr(owner, fn_name)
+
+        def wrapped(*a, **kw):
+            calls[fn_name] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(owner, fn_name, wrapped)
+
+    spy(tl, "mlp_fused")
+    spy(tl, "attention_fused")
+    spy(tlk, "model_step")
+    spy(tlk, "layer_step")
+    prompt = np.arange(1, 9, dtype=np.int32)[None]
+    jcache = jl.KVCache.create(jc, 1, 256)
+    tcache = tl.KVCache.create(tc, 1, 256, device="cpu")
+    jlog, jcache = jl.prefill(jq, jc, jnp.asarray(prompt), jcache)
+    tlog, tcache = tl.prefill(tq, tc, torch.from_numpy(prompt), tcache)
+    assert not any(calls.values())               # the prefill is unfused
+    jlogs, tlogs = [np.asarray(jlog)], [tlog.numpy()]
+    steps = 4
+    for _ in range(steps):
+        jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
+        ttok = torch.argmax(tlog, -1).to(torch.int32)
+        assert int(jtok[0]) == int(ttok[0])
+        jlog, jcache = jl.decode_step(jq, jc, jtok, jcache)
+        tlog, tcache = tl.decode_step(tq, tc, ttok, tcache)
+        jlogs.append(np.asarray(jlog))
+        tlogs.append(tlog.numpy())
+    want = {k: v * steps for k, v in per_step.items()}
+    assert {k: v for k, v in calls.items() if v} == want
+    j, t = np.stack(jlogs), np.stack(tlogs)
+    top2 = np.sort(j, -1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0]).min() >= 0.125   # tie-free seed
+    assert np.array_equal(j.argmax(-1), t.argmax(-1))
+    _close(t, j, tol)
+    assert tcache.lengths.tolist() == [8 + steps]

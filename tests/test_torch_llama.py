@@ -2,8 +2,9 @@
 Pallas kernels run interpreted, the port's wrappers take their plain
 versions).
 
-The JAX side runs its unfused branch (fuse_mlp / fuse_attn / fuse_layer
-off), the branch the port implements. Weights come from the JAX
+These tests pin the unfused branch (fuse_mlp / fuse_attn / fuse_layer
+off) in both packages; tests/test_torch_fused_*.py hold the fused batch-1
+decode branches. Weights come from the JAX
 ``init_weights`` and cross with ``params_from_jax``; both packages then
 quantize through the oracle's arithmetic, so every Q4_K block is identical
 (asserted below) and the logits differ only by summation order and bf16
@@ -28,6 +29,8 @@ from ggml_cuda_experiments_tpu.ops import quant_matmul as jqm
 from ggml_cuda_experiments_tpu.utils.tensor_io import load_tensor
 from ggml_cuda_experiments_tpu_torch.models import convert
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
+from ggml_cuda_experiments_tpu_torch.models.config import (
+    ModelConfig as TModelConfig, PRESETS as TPRESETS)
 from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as tqm
 
 REPO = Path(__file__).resolve().parents[1]
@@ -40,6 +43,14 @@ ONE_LAYER_7B = dataclasses.replace(PRESETS["llama2-7b"], n_layers=1,
                                    vocab_size=512, **UNFUSED)
 
 
+def _port(cfg):
+    """The port's ModelConfig with the same fields as the JAX one."""
+    return TModelConfig(**dataclasses.asdict(cfg))
+
+
+TDEBUG = _port(DEBUG)
+
+
 def _np_tree(params):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params)
 
@@ -47,7 +58,7 @@ def _np_tree(params):
 def _both(cfg, seed):
     """(JAX quantized tree, port quantized tree) from the same weights."""
     jp = jl.init_weights(cfg, seed=seed)
-    tp = convert.params_from_jax(_np_tree(jp), cfg)
+    tp = convert.params_from_jax(_np_tree(jp), _port(cfg), device="cpu")
     return jl.quantize_params(jp, "q4_k"), tl.quantize_params(tp, "q4_k")
 
 
@@ -71,17 +82,18 @@ def _assert_close(got, want, tol=2e-2):
 def _greedy_pair(jq, tq, cfg, prompt, steps):
     """Prefill + ``steps`` greedy decode steps in both packages; returns the
     stacked logits and tokens of each."""
+    tcfg = _port(cfg)
     jc = jl.KVCache.create(cfg, prompt.shape[0], 256)
-    tc = tl.KVCache.create(cfg, prompt.shape[0], 256)
+    tc = tl.KVCache.create(tcfg, prompt.shape[0], 256, device="cpu")
     jlog, jc = jl.prefill(jq, cfg, jnp.asarray(prompt), jc)
-    tlog, tc = tl.prefill(tq, cfg, torch.from_numpy(prompt), tc)
+    tlog, tc = tl.prefill(tq, tcfg, torch.from_numpy(prompt), tc)
     jout, tout = [np.asarray(jlog)], [tlog.numpy()]
     jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
     ttok = torch.argmax(tlog, -1).to(torch.int32)
     jtoks, ttoks = [np.asarray(jtok)], [ttok.numpy()]
     for _ in range(steps):
         jlog, jc = jl.decode_step(jq, cfg, jtok, jc)
-        tlog, tc = tl.decode_step(tq, cfg, ttok, tc)
+        tlog, tc = tl.decode_step(tq, tcfg, ttok, tc)
         jout.append(np.asarray(jlog))
         tout.append(tlog.numpy())
         jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
@@ -94,7 +106,7 @@ def _greedy_pair(jq, tq, cfg, prompt, steps):
 
 def test_params_from_jax_is_bit_exact():
     jp = _np_tree(jl.init_weights(DEBUG, seed=5))
-    tp = convert.params_from_jax(jp, DEBUG)
+    tp = convert.params_from_jax(jp, TDEBUG, device="cpu")
     for key in ("embed", "final_norm", "lm_head"):
         assert tp[key].dtype == torch.bfloat16
         assert np.array_equal(tp[key].float().numpy(), jp[key]), key
@@ -107,9 +119,11 @@ def test_params_from_jax_is_bit_exact():
 def test_params_from_jax_checks_shapes():
     jp = _np_tree(jl.init_weights(DEBUG, seed=5))
     with pytest.raises(ValueError):                  # layer count
-        convert.params_from_jax(jp, dataclasses.replace(DEBUG, n_layers=1))
+        convert.params_from_jax(jp, dataclasses.replace(TDEBUG, n_layers=1),
+                                device="cpu")
     with pytest.raises(ValueError):                  # widths
-        convert.params_from_jax(jp, dataclasses.replace(DEBUG, dim=512))
+        convert.params_from_jax(jp, dataclasses.replace(TDEBUG, dim=512),
+                                device="cpu")
 
 
 def test_quantized_tree_dequant_bit_equal_debug(debug_params):
@@ -162,10 +176,11 @@ def test_reproduces_golden_file():
     """tests/data/golden_debug.tensor: seed 1234, prompt 1..8, q4_k."""
     want, name = load_tensor(GOLDEN)
     assert name.startswith("debug_q4k_seed1234")
-    cfg = PRESETS["debug"]
+    cfg = TPRESETS["debug"]
     params = tl.quantize_params(convert.params_from_jax(
-        _np_tree(jl.init_weights(cfg, seed=1234)), cfg), "q4_k")
-    cache = tl.KVCache.create(cfg, 1, 256)
+        _np_tree(jl.init_weights(PRESETS["debug"], seed=1234)), cfg,
+        device="cpu"), "q4_k")
+    cache = tl.KVCache.create(cfg, 1, 256, device="cpu")
     logits, cache = tl.prefill(params, cfg,
                                torch.arange(1, 9, dtype=torch.int32)[None],
                                cache)
@@ -183,42 +198,55 @@ def test_reproduces_golden_file():
 def test_decode_matches_prefill():
     """logits(prefill t0..tN) == logits(prefill t0..tN-1, decode tN) on the
     port alone: cache writes, RoPE positions and lengths at once."""
-    params = tl.quantize_params(tl.init_weights(DEBUG, seed=3), "q4_k")
+    params = tl.quantize_params(tl.init_weights(TDEBUG, seed=3, device="cpu"),
+                                "q4_k")
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, DEBUG.vocab_size, size=(2, 8)).astype(np.int64))
-    full, _ = tl.prefill(params, DEBUG, toks, tl.KVCache.create(DEBUG, 2, 256))
-    cache = tl.KVCache.create(DEBUG, 2, 256)
-    _, cache = tl.prefill(params, DEBUG, toks[:, :-1], cache)
-    inc, cache = tl.decode_step(params, DEBUG, toks[:, -1], cache)
+    full, _ = tl.prefill(params, TDEBUG, toks,
+                         tl.KVCache.create(TDEBUG, 2, 256, device="cpu"))
+    cache = tl.KVCache.create(TDEBUG, 2, 256, device="cpu")
+    _, cache = tl.prefill(params, TDEBUG, toks[:, :-1], cache)
+    inc, cache = tl.decode_step(params, TDEBUG, toks[:, -1], cache)
     assert cache.lengths.tolist() == [8, 8]
     _assert_close(inc.numpy(), full.numpy())
 
 
 def test_generate_is_deterministic_greedy():
-    params = tl.quantize_params(tl.init_weights(DEBUG, seed=2), "q4_k")
+    params = tl.quantize_params(tl.init_weights(TDEBUG, seed=2, device="cpu"),
+                                "q4_k")
     prompt = torch.arange(1, 9)[None]
-    out1 = tl.generate(params, DEBUG, prompt, steps=5)
-    out2 = tl.generate(params, DEBUG, prompt, steps=5)
+    out1 = tl.generate(params, TDEBUG, prompt, steps=5)
+    out2 = tl.generate(params, TDEBUG, prompt, steps=5)
     assert out1.shape == (1, 5) and np.array_equal(out1, out2)
     assert ((out1 >= 0) & (out1 < DEBUG.vocab_size)).all()
 
 
-@pytest.mark.parametrize("case", ["x_quant8", "hperm", "quantized_kv",
-                                  "q8_0", "xq8", "x_prepermuted"])
+@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache",
+                                  "quantized_kv", "q8_0", "x_prepermuted",
+                                  "hperm_moe"])
 def test_unported_options_raise(case):
-    params = tl.quantize_params(tl.init_weights(DEBUG, seed=1), "q4_k")
+    params = tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
+                                "q4_k")
     prompt = torch.arange(1, 5)[None]
     with pytest.raises(NotImplementedError):
-        if case in ("x_quant8", "hperm"):
-            cfg = dataclasses.replace(DEBUG, **{case: True})
-            tl.prefill(params, cfg, prompt, tl.KVCache.create(cfg, 1, 256))
+        if case in ("moe", "xla_attn_max_cache"):
+            cfg = dataclasses.replace(
+                TDEBUG, **({"n_experts": 4} if case == "moe"
+                           else {case: 256}))
+            tl.prefill(params, cfg, prompt,
+                       tl.KVCache.create(cfg, 1, 256, device="cpu"))
         elif case == "quantized_kv":
-            tl.KVCache.create(DEBUG, 1, 256, quantized=True)
-        elif case in ("xq8", "x_prepermuted"):
+            tl.KVCache.create(TDEBUG, 1, 256, quantized=True, device="cpu")
+        elif case == "x_prepermuted":
             tl.apply_linear(torch.zeros((1, 256)), params["lm_head"],
-                            **{case: True})
+                            x_prepermuted=True)
+        elif case == "hperm_moe":
+            moe = dict(params, layers=[dict(params["layers"][0],
+                                            router=torch.zeros(4, 256))])
+            tl.permute_hidden_params(moe, TDEBUG)
         else:
-            tl.quantize_params(tl.init_weights(DEBUG, seed=1), "q8_0")
+            tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
+                               "q8_0")
 
 
 def _run(args, **env):

@@ -5,6 +5,8 @@ outputs of unit-normal inputs, as tests/test_prefill_fuse.py holds the JAX
 kernel against its jnp reference; against the port's own unfused RoPE the
 plain version is exact (same f32 tables, same rounding points)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,8 @@ from ggml_cuda_experiments_tpu.models.config import ModelConfig
 from ggml_cuda_experiments_tpu.ops.prefill_fuse import (
     rope_pack_prefill as jrp)
 from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models.config import (
+    ModelConfig as TModelConfig)
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as tpf
 
@@ -24,6 +28,7 @@ CFG = ModelConfig(name="pf-test", vocab_size=512, dim=512, n_layers=2,
                   n_heads=4, n_kv_heads=2, intermediate=512, head_dim=128,
                   max_seq_len=512, fuse_mlp=False, fuse_attn=False,
                   fuse_layer=False)
+TCFG = TModelConfig(**dataclasses.asdict(CFG))      # the port's twin
 
 
 def _y(T, nh, nkv, seed=3):
@@ -64,7 +69,7 @@ def test_rope_pack_equals_unfused_rope_exactly():
 def params():
     jp = jl.init_weights(CFG, seed=9)
     tp = convert.params_from_jax(jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32), jp), CFG)
+        lambda a: np.asarray(a, np.float32), jp), TCFG, device="cpu")
     return jl.quantize_params(jp, "q4_k"), tl.quantize_params(tp, "q4_k")
 
 
@@ -82,8 +87,8 @@ def test_prefill_takes_rope_pack_at_t128_only(params, monkeypatch):
     monkeypatch.setattr(tl, "rope_pack_prefill", spy)
     prompt = np.random.default_rng(1).integers(
         1, CFG.vocab_size, size=(1, 128)).astype(np.int32)
-    got, _ = tl.prefill(tq, CFG, torch.from_numpy(prompt),
-                        tl.KVCache.create(CFG, 1, 256))
+    got, _ = tl.prefill(tq, TCFG, torch.from_numpy(prompt),
+                        tl.KVCache.create(TCFG, 1, 256, device="cpu"))
     assert len(calls) == CFG.n_layers
     want, _ = jl.prefill(jq, CFG, jnp.asarray(prompt),
                          jl.KVCache.create(CFG, 1, 256))
@@ -91,9 +96,10 @@ def test_prefill_takes_rope_pack_at_t128_only(params, monkeypatch):
     err = np.abs(got.numpy() - want).max()
     assert err <= 2e-2 * np.abs(want).max(), err
     calls.clear()
-    tl.prefill(tq, CFG, torch.from_numpy(prompt[:, :8]),
-               tl.KVCache.create(CFG, 1, 256))
+    tl.prefill(tq, TCFG, torch.from_numpy(prompt[:, :8]),
+               tl.KVCache.create(TCFG, 1, 256, device="cpu"))
     assert not calls
-    tl.prefill(tq, CFG, torch.from_numpy(
-        np.concatenate([prompt, prompt])), tl.KVCache.create(CFG, 2, 256))
+    tl.prefill(tq, TCFG, torch.from_numpy(
+        np.concatenate([prompt, prompt])),
+        tl.KVCache.create(TCFG, 2, 256, device="cpu"))
     assert not calls                     # B = 2 stays unfused

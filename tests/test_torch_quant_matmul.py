@@ -30,7 +30,7 @@ def test_quantize_bit_equal_to_oracle(shape):
     w[1, :256] = 0.25                     # constant superblock
     t = quant_ref.quantize_q4_k(w)
     got = tqm.quantize(torch.from_numpy(w))
-    want = tqm.from_oracle(t)
+    want = tqm.from_oracle(t, device="cpu")
     for f in ("qs", "es", "em"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert np.array_equal(got.qs.numpy(), t.qs)
@@ -43,7 +43,7 @@ def test_quantize_bit_equal_to_oracle(shape):
 def test_dequant_bit_equal_to_dequantize_jnp(layout):
     t = quant_ref.quantize_q4_k(_weight(1, 64, 512))
     want = np.asarray(jqm.dequantize_jnp(jqm.from_oracle(t, layout=layout)))
-    got = tqm.dequantize(tqm.from_oracle(t)).numpy()
+    got = tqm.dequantize(tqm.from_oracle(t, device="cpu")).numpy()
     assert np.array_equal(got, want)
 
 
@@ -53,7 +53,8 @@ def test_matvec_matches_jax(k):
     t = quant_ref.quantize_q4_k(_weight(2, n, k))
     x = np.random.default_rng(3).normal(size=(1, k)).astype(np.float32)
     want = np.asarray(jqm.qmatmul(jnp.asarray(x), jqm.from_oracle(t)))
-    got = tqm.qmatmul(torch.from_numpy(x), tqm.from_oracle(t)).numpy()
+    got = tqm.qmatmul(torch.from_numpy(x),
+                      tqm.from_oracle(t, device="cpu")).numpy()
     scale = np.abs(want).max()
     assert np.abs(got - want).max() < 1e-4 * scale
 
@@ -66,7 +67,8 @@ def test_gemm_matches_jax(batch, pipelined):
     x = np.random.default_rng(5).normal(size=(batch, k)).astype(np.float32)
     want = np.asarray(jqm.qmatmul(jnp.asarray(x), jqm.from_oracle(t),
                                   pipelined=pipelined))
-    got = tqm.qmatmul(torch.from_numpy(x), tqm.from_oracle(t)).numpy()
+    got = tqm.qmatmul(torch.from_numpy(x),
+                      tqm.from_oracle(t, device="cpu")).numpy()
     scale = np.abs(want).max()
     assert np.abs(got - want).max() < 2e-2 * scale
 
@@ -75,7 +77,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the kernel wrappers run their plain versions and
     launch nothing."""
     t = quant_ref.quantize_q4_k(_weight(6, 32, 512))
-    ql = tqm.from_oracle(t)
+    ql = tqm.from_oracle(t, device="cpu")
     x = torch.from_numpy(
         np.random.default_rng(7).normal(size=(3, 512)).astype(np.float32))
     before = dict(tqm.LAUNCHES)
@@ -92,4 +94,5 @@ def test_other_formats_raise():
         tqm.quantize(torch.zeros((8, 256)), "q8_0")
     with pytest.raises(NotImplementedError):
         tqm.from_oracle(quant_ref.quantize_q8_0(np.zeros((8, 256),
-                                                         np.float32)))
+                                                         np.float32)),
+                        device="cpu")

@@ -80,7 +80,7 @@ def test_temperature_one_frequencies_follow_softmax():
 
 def test_generate_with_sampling_runs_and_is_reproducible():
     cfg = dataclasses.replace(PRESETS["debug"], n_layers=1)
-    params = tl.init_weights(cfg, seed=4)
+    params = tl.init_weights(cfg, seed=4, device="cpu")
     prompt = torch.arange(1, 9)[None]
     params_s = ts.SamplingParams(temperature=0.9, top_k=20, top_p=0.9)
     a = tl.generate(params, cfg, prompt, steps=6, sampling=params_s, seed=3)
