@@ -16,7 +16,10 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      one exists; 4b. the engine path's kernels (paged decode over bf16,
      int8 and fp8 pools, masked flash attention, rope_pack); 4c. the fused
      batch-1 decode kernels (int8-activation matvec, fused MLP, fused
-     attention, one layer of the layer kernel) at the 7B shapes;
+     attention, one layer of the layer kernel) at the 7B shapes; 4d. the
+     Q4_K_M head's q6_k matvecs (exact f32 at tinyllama's 32000 x 2048,
+     hybrid int8 at 7B's 32000 x 4096) and flash decode on int8 / fp8
+     caches at length 1024 (7B and tinyllama);
   5. the generate path: llama2-7b at full width and all 32 layers, random
      weights from a seed, quantized to q4_k on the card, the preset's
      default decode (fused MLP), three greedy requests through
@@ -31,12 +34,21 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      counts; every layer_step against its plain version at its forced
      input (5e-3 * max), model_step against the chained layer_step
      launches (equal), logits within 2e-2 * max;
+  5c. the Q4_K_M mix: phase 5's layers with a q6_k head, through generate
+     in the preset's configuration, bench.py's and on an int8 cache (each
+     with launch counts, TTFT / decode rate), the int8-cache path forced
+     layer by layer, and 4 requests through the Engine;
   6. the engine path on the same weights: 12 greedy requests through an
      int8-pool ``Engine`` of 8 slots, then three 512-token prompts in
      128-token chunks, each run with its launch counts asserted; TTFT,
      steady-state tok/s, pool bytes, peak memory and the device's busy
      share of one engine step; one batched decode step forced layer by
-     layer against the plain versions (within 2e-2 * max).
+     layer against the plain versions (within 2e-2 * max);
+  5d. (after 6, on its own weights) tinyllama-1.1b at full width and 22
+     layers with a q6_k head: three requests through generate, the counts
+     asserted (q6k_matvec per prefill and step, q4k_matvec launches by K,
+     w_down at K = 5632), TTFT / decode rate, and request 1 forced layer by
+     layer against the plain versions.
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
 object with every kernel's route, source, launches per path, error,
@@ -127,7 +139,8 @@ class Results:
 KERNELS = {
     "q4k_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
                    "ggml_cuda_experiments_tpu/ops/quant_matmul.py:670",
-                   ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1034"]),
+                   ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1034",
+                    "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
     "q4k_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
                  ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
@@ -154,6 +167,15 @@ KERNELS = {
     "fused_attention": (
         "ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
         "ggml_cuda_experiments_tpu/ops/fused_attention.py:76", []),
+    "q6k_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q6k_matvec.cu",
+                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:734", []),
+    "q6k_q8_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q6k_matvec.cu",
+                      "ggml_cuda_experiments_tpu/ops/quant_matmul.py:841",
+                      []),
+    # the scale path of flash_decode_partials (an int8 / fp8 cache)
+    "flash_decode_q": ("ggml_cuda_experiments_tpu_torch/csrc/flash_decode.cu",
+                       "ggml_cuda_experiments_tpu/ops/flash_decode.py:49",
+                       ["ggml_cuda_experiments_tpu/ops/flash_decode.py:143"]),
     # one kernel, two entries: model_step (every layer) and layer_step
     "layer_kernel": ("ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
                      "ggml_cuda_experiments_tpu/ops/layer_kernel.py:113", []),
@@ -263,9 +285,12 @@ def phase_kernels(dev, seed, res: Results):
         return qm.quantize(randn(n, k, scale=k ** -0.5))
 
     # q4k_matvec at every decode linear of llama2-7b (wqkv, wo, w_gu,
-    # w_down, lm_head)
+    # w_down, lm_head), then at K/32 outside the reference's repeat-aligned
+    # counts (its _vpu_e_kernel): tinyllama's w_down (K = 5632) and the
+    # unpadded 7B w_down (K = 11008, 50.9 KB of shared memory: the limit is
+    # raised past 48 KB after the smaller calls)
     for n, k in ((12288, 4096), (4096, 4096), (24576, 4096), (4096, 12288),
-                 (32000, 4096)):
+                 (32000, 4096), (2048, 5632), (4096, 11008)):
         ws = _rotating(lambda i: weight(n, k), weight(8, k).nbytes * n // 8)
         x = randn(1, k)
         y = qm.q4k_matvec(x, ws[0])
@@ -500,6 +525,30 @@ def phase_engine_kernels(dev, seed, res: Results):
                        "f32"), headline=True)
 
 
+def _versus_plain(res: Results, name, case, fn, tol, bound, headline=False,
+                  calls=20):
+    """fn(i) on the kernel against its plain versions (the first output
+    within ``tol``; any further ones, k_new / v_new, within 2e-2 *
+    max(1, max)), then both timed (the plain one with a tenth of the
+    calls); returns the kernel's ms."""
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    got = fn(0)
+    with plain_versions():
+        ref = fn(0)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err, sc = rel_err(got[0], ref[0])
+    for gk, rk in zip(got[1:], ref[1:]):
+        e2, s2 = rel_err(gk, rk)
+        if e2 > 2e-2 * max(1.0, s2):
+            raise AssertionError(f"{name} {case}: k/v error {e2}")
+    ms = time_ms(fn, calls=calls)
+    with plain_versions():
+        pms = time_ms(fn, calls=max(1, calls // 10), replays=3)
+    res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
+    return ms
+
+
 def phase_fused_kernels(dev, seed, res: Results):
     """The fused batch-1 decode kernels against their plain versions at the
     llama2-7b shapes (weights rotated past the L2 where one copy fits)."""
@@ -507,7 +556,6 @@ def phase_fused_kernels(dev, seed, res: Results):
     from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
     from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
-    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
     log("== 4c. fused batch-1 decode kernels vs plain versions on the card")
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     spec = _spec()
@@ -518,21 +566,8 @@ def phase_fused_kernels(dev, seed, res: Results):
     def weight(n, k):
         return qm.quantize(randn(n, k, scale=k ** -0.5))
 
-    def both(name, case, fn, tol, bound, headline=False, calls=20):
-        got = fn(0)
-        with plain_versions():
-            ref = fn(0)
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err, sc = rel_err(got[0], ref[0])
-        for gk, rk in zip(got[1:], ref[1:]):      # k_new / v_new
-            e2, s2 = rel_err(gk, rk)
-            if e2 > 2e-2 * max(1.0, s2):
-                raise AssertionError(f"{name} {case}: k/v error {e2}")
-        ms = time_ms(fn, calls=calls)
-        with plain_versions():
-            pms = time_ms(fn, calls=max(1, calls // 10), replays=3)
-        res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
+    def both(*a, **kw):
+        _versus_plain(res, *a, **kw)
 
     # q4k_q8_matvec at wqkv, w_gu, w_down and the lm_head
     for n, k in ((12288, 4096), (24576, 4096), (4096, 12288), (32000, 4096)):
@@ -591,6 +626,81 @@ def phase_fused_kernels(dev, seed, res: Results):
          lambda i: lk.layer_step(h, pack, kc, vc, lens, i % 2, n_heads=32,
                                  n_kv_heads=32, head_dim=128), 5e-3,
          spec.bound_ms(nbytes, ops, "int8"))
+
+
+def phase_q4km_kernels(dev, seed, res: Results):
+    """The Q4_K_M head's q6_k matvecs and the quantized cache's flash decode
+    against their plain versions, at the shapes of their paths."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    log("== 4d. Q4_K_M head (q6_k) and quantized-cache kernels vs plain "
+        "versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    spec = _spec()
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    # the exact-f32 q6_k matvec at tinyllama's head, the hybrid at 7B's;
+    # each weight quantized on the card from its own draw
+    for name, (n, k), ops in (("q6k_matvec", (32000, 2048), "f32"),
+                              ("q6k_q8_matvec", (32000, 4096), "int8")):
+        ws = _rotating(lambda i, n=n, k=k: qm.quantize(
+            randn(n, k, scale=k ** -0.5), "q6_k"), n * k * 7 // 8)
+        x = randn(1, k)
+        nbytes = ws[0].nbytes + 4 * (k + n)
+        fn = getattr(qm, name)
+        ms = _versus_plain(res, name, f"N={n} K={k} ({len(ws)} weight copies)",
+                           lambda i: fn(x, ws[i % len(ws)]), 1e-4,
+                           spec.bound_ms(nbytes, 2 * n * k, ops),
+                           headline=True)
+        log(f"    {ws[0].nbytes / 1e6:.1f} MB of weight, "
+            f"{_rate(nbytes, 2 * n * k, ms)}")
+        del ws
+
+    # flash_decode on int8 / fp8 caches at length 1024: the 7B cache (MHA
+    # 32/32, D = 128, all 32 layers, rotated) and tinyllama's (GQA 32/4,
+    # D = 64, 22 layers)
+    for (L, Hq, Hkv, D) in ((32, 32, 32, 128), (22, 32, 4, 64)):
+        S = length = 1024
+        q = randn(1, Hq, D, dtype=torch.bfloat16)
+        kf, vf = randn(L, 1, Hkv, S, D), randn(L, 1, Hkv, S, D)
+        lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+        n = fd.pick_splits(1, Hkv, S, fd._sm_count(0))
+        # GQA rounds p * v_scale to bf16 (the reference's numerics), where
+        # one ulp of expf may flip a rounding: 2^-8 of one term
+        tol = 2e-3 if Hq == Hkv else 1e-2
+        for fmt in ("int8", "fp8"):
+            kc, ks = llama._quantize_rowwise(kf, fmt)
+            vc, vs = llama._quantize_rowwise(vf, fmt)
+            kv_bytes = 2 * Hkv * length * (D + 4)      # payload and scales
+            part_bytes = n * Hq * (D + 2) * 4
+            # the error of the whole attention (partials + merge), the time
+            # of the partials kernel (the merge is lse_merge's, phase 4)
+            kw = dict(layer=L - 1, k_scale=ks, v_scale=vs)
+            got = fd.flash_decode(q, kc, vc, lens, **kw)
+            with plain_versions():
+                ref = fd.flash_decode(q, kc, vc, lens, **kw)
+            err, sc = rel_err(got, ref)
+
+            def partials(i):
+                return fd.flash_decode_partials(
+                    q, kc, vc, lens, scale=D ** -0.5, n_splits=n,
+                    layer=i % L, k_scale=ks, v_scale=vs)
+            ms = time_ms(partials)
+            with plain_versions():
+                pms = time_ms(partials, calls=2, replays=3)
+            res.add("flash_decode_q",
+                    f"[{L},1,{Hkv},{S},{D}] {fmt} Hq={Hq} len={length} "
+                    f"splits={n}", err, sc, tol, ms, pms,
+                    spec.bound_ms(kv_bytes + Hq * D * 2 + part_bytes,
+                                  4 * Hq * length * D, "bf16"),
+                    headline=(Hkv == 32 and fmt == "int8"))
+            del kc, vc, ks, vs
+        del kf, vf
 
 
 def _tables():
@@ -714,17 +824,28 @@ def _profile_decode(params, cfg, prompt, dev, trace_dir, tag="generate",
     log(f"  trace: {path}")
 
 
-def _drive_generate(params, cfg, prompts, requests, path):
+def _cache(cfg, p, n, dev, cache_kw):
+    """A cache for a request of prompt p and n generated tokens, as
+    ``generate`` sizes it; ``cache_kw`` e.g. quantized="int8"."""
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    return llama.KVCache.create(cfg, 1, llama._round_up(p + n, 256),
+                                device=dev, **cache_kw)
+
+
+def _drive_generate(params, cfg, prompts, requests, path, cache_kw=None):
     """One greedy ``generate`` per request, the launch counts set to 0 just
-    before and read just after. Returns (tokens per request, counts)."""
+    before and read just after (the caches of ``cache_kw`` are made before
+    that). Returns (tokens per request, counts)."""
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
+    caches = [_cache(cfg, p, n, prompt.device, cache_kw) if cache_kw else None
+              for (p, n), prompt in zip(requests, prompts)]
     torch.cuda.synchronize()
     _reset_counts()
     outs = []
-    for (p, n), prompt in zip(requests, prompts):
+    for (p, n), prompt, cache in zip(requests, prompts, caches):
         ts = time.perf_counter()
-        toks = llama.generate(params, cfg, prompt, steps=n)
+        toks = llama.generate(params, cfg, prompt, steps=n, cache=cache)
         te = time.perf_counter()
         if toks.shape != (1, n) or not ((toks >= 0)
                                         & (toks < cfg.vocab_size)).all():
@@ -736,15 +857,16 @@ def _drive_generate(params, cfg, prompts, requests, path):
     return outs, _counts()
 
 
-def _prefill_counts(L, requests):
+def _prefill_counts(L, requests, rope=True):
     """Launches of the prefills of ``requests`` (prompts of 2-512 tokens):
     4 q4k_gemm and one flash_attention per layer, rope_pack per layer at
-    prompts of a multiple of 128 tokens; every other kernel 0."""
+    prompts of a multiple of 128 tokens where its gate is open (``rope``:
+    head_dim 128 and a bf16 cache); every other kernel 0."""
     want = {k: 0 for k in _counts()}
     want.update(
         q4k_gemm=sum(4 * L for p, _ in requests if 2 <= p <= 512),
         flash_attention=L * len(requests),
-        rope_pack=sum(L for p, _ in requests if p % 128 == 0))
+        rope_pack=sum(L for p, _ in requests if rope and p % 128 == 0))
     return want
 
 
@@ -755,7 +877,7 @@ def _assert_counts(path, counts, want):
                              f"{want}")
 
 
-def _time_requests(params, cfg, prompts, requests, outs, dev):
+def _time_requests(params, cfg, prompts, requests, outs, dev, cache_kw=None):
     """TTFT and decode rate per request through ``prefill`` and
     ``decode_step`` (host clock around work that ends in a device sync);
     the tokens must be ``generate``'s."""
@@ -763,8 +885,7 @@ def _time_requests(params, cfg, prompts, requests, outs, dev):
     from ggml_cuda_experiments_tpu_torch.models import llama
     timing = []
     for (p, n), prompt, toks in zip(requests, prompts, outs):
-        cache = llama.KVCache.create(cfg, 1, llama._round_up(p + n, 256),
-                                     device=dev)
+        cache = _cache(cfg, p, n, dev, cache_kw or {})
         torch.cuda.synchronize()
         ts = time.perf_counter()
         logits, cache = llama.prefill(params, cfg, prompt, cache)
@@ -792,6 +913,37 @@ def _time_requests(params, cfg, prompts, requests, outs, dev):
     return timing
 
 
+def _check_forced(params, cfg, prompt, forced, dev, cache_kw=None):
+    """The prompt, then each token of ``forced`` as a decode step, through
+    ``_forced_forward``: every layer and the head against the plain
+    versions on the kernel path's own input (2e-2 * max), on two caches
+    made with ``cache_kw``."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    caches = [llama.KVCache.create(cfg, 1, 256, device=dev, **(cache_kw or {}))
+              for _ in "kp"]
+    failed = []
+    for step in range(len(forced) + 1):
+        decode = step > 0
+        toks = forced[step - 1:step, None] if decode else prompt
+        worst, (lk, lp) = _forced_forward(params, cfg, toks, caches, decode)
+        if lk.shape != (1, cfg.vocab_size) or not torch.isfinite(lk).all():
+            raise AssertionError(f"logits shape {tuple(lk.shape)} or "
+                                 "non-finite")
+        err, sc = float((lk - lp).abs().max()), float(lp.abs().max())
+        tag = "prefill" if step == 0 else f"decode {step}"
+        li, lerr = max(enumerate(worst), key=lambda t: t[1])
+        ok = err <= 2e-2 * sc and lerr <= 2e-2
+        log(f"  teacher-forced {tag:9s} logits max_abs_err {err:.4e} vs "
+            f"2e-2*{sc:.4e}; worst layer {li}: {lerr:.3e} of max "
+            f"(bound 2e-2); argmax {int(lk.argmax())} / {int(lp.argmax())} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{tag}: logits {err} vs {sc}, layer {li} {lerr}")
+    if failed:
+        raise AssertionError(f"teacher-forced check: {failed}")
+
+
 def phase_model(dev, seed, profile=None):
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
@@ -809,6 +961,7 @@ def phase_model(dev, seed, profile=None):
     params = llama.quantize_params(dense, "q4_k")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    head_dense = dense["lm_head"]            # requantized to q6_k in 5c
     del dense
     torch.cuda.empty_cache()
     qbytes = sum(w.nbytes for layer in params["layers"]
@@ -844,27 +997,7 @@ def phase_model(dev, seed, profile=None):
     # kernels' error at that stage, not 32 layers of compounded bf16
     # rounding flips (those are printed below, free-running).
     forced = torch.from_numpy(outs[0][0, :4]).to(dev, torch.int32)
-    caches = [llama.KVCache.create(cfg, 1, 256, device=dev) for _ in "kp"]
-    failed = []
-    for step in range(5):
-        decode = step > 0
-        toks = forced[step - 1:step, None] if decode else prompts[0]
-        worst, (lk, lp) = _forced_forward(params, cfg, toks, caches, decode)
-        if lk.shape != (1, cfg.vocab_size) or not torch.isfinite(lk).all():
-            raise AssertionError(f"logits shape {tuple(lk.shape)} or "
-                                 "non-finite")
-        err, sc = float((lk - lp).abs().max()), float(lp.abs().max())
-        tag = "prefill" if step == 0 else f"decode {step}"
-        li, lerr = max(enumerate(worst), key=lambda t: t[1])
-        ok = err <= 2e-2 * sc and lerr <= 2e-2
-        log(f"  teacher-forced {tag:9s} logits max_abs_err {err:.4e} vs "
-            f"2e-2*{sc:.4e}; worst layer {li}: {lerr:.3e} of max "
-            f"(bound 2e-2); argmax {int(lk.argmax())} / {int(lp.argmax())} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(f"{tag}: logits {err} vs {sc}, layer {li} {lerr}")
-    if failed:
-        raise AssertionError(f"teacher-forced check: {failed}")
+    _check_forced(params, cfg, prompts[0], forced, dev)
 
     def free_run():
         cache = llama.KVCache.create(cfg, 1, 256, device=dev)
@@ -884,7 +1017,7 @@ def phase_model(dev, seed, profile=None):
     if profile:
         _profile_decode(params, cfg, prompts[0], dev, profile)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, timing, params, prompts
+    return counts, timing, params, prompts, head_dense
 
 
 def _forced_fused(params, m_pack, cfg, tok, cache):
@@ -1043,6 +1176,133 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
     return paths, timing
 
 
+def _log_stream(params):
+    """The quantized weights a batch-1 decode step reads (every layer's
+    linears and the head), and the rate they cap decode at."""
+    wbytes = params["lm_head"].nbytes + sum(
+        w.nbytes for layer in params["layers"] for w in layer.values()
+        if hasattr(w, "nbytes"))
+    log(f"  weights per decode token {wbytes / 1e9:.4f} GB: at most "
+        f"{_spec().hbm_bytes_per_s / wbytes:.0f} tok/s at the HBM rate")
+
+
+def phase_q4km(dev, seed, params, head_dense, prompts):
+    """The Q4_K_M mix on llama2-7b: phase 5's q4_k layers with the head
+    requantized to q6_k (what ``quantize_params(.., "q4_k",
+    head_fmt="q6_k")`` makes of it), through ``generate`` in the preset's
+    configuration, in bench.py's, and on an int8 cache, then through the
+    ``Engine``."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    base = PRESETS["llama2-7b"]
+    L, R = base.n_layers, len(REQUESTS)
+    steps = sum(n for _, n in REQUESTS)
+    log(f"== 5c. the Q4_K_M mix: {base.name}, q4_k layers, q6_k head")
+    t0 = time.perf_counter()
+    pq = dict(params, lm_head=qm.quantize(head_dense.float(), "q6_k"))
+    torch.cuda.synchronize()
+    log(f"  lm_head to q6_k in {time.perf_counter() - t0:.3f} s: "
+        f"{pq['lm_head'].nbytes} bytes (q4_k: {params['lm_head'].nbytes})")
+    _log_stream(pq)
+    head = dict(q6k_q8_matvec=R + steps)      # per prefill, per step
+    preset_step = dict(q4k_matvec=steps * 2 * L, fused_mlp=steps * L,
+                       lse_merge=steps * L)
+    bench = dataclasses.replace(base, x_quant8=True, hperm=True)
+    int8 = dict(quantized="int8")
+    paths, timing = {}, {}
+    for path, tree, cfg, cache_kw, per_path in (
+            ("generate_q4km", pq, base, {},
+             dict(flash_decode=steps * L, **preset_step)),
+            ("generate_q4km_xq8_hperm",
+             llama.permute_hidden_params(pq, bench), bench, {},
+             dict(model_step=steps)),
+            ("generate_q4km_int8_cache", pq, base, int8,
+             dict(flash_decode_q=steps * L, **preset_step))):
+        outs, counts = _drive_generate(tree, cfg, prompts, REQUESTS,
+                                       path.replace("_", " "), cache_kw)
+        # a quantized cache closes the RoPE + repack kernel
+        want = _prefill_counts(L, REQUESTS, rope=not cache_kw)
+        want.update(**head, **per_path)
+        _assert_counts(path, counts, want)
+        paths[path] = counts
+        timing[path] = _time_requests(tree, cfg, prompts, REQUESTS, outs,
+                                      dev, cache_kw)
+    log("  launch counts equal what the paths imply (the head: one "
+        "q6k_q8_matvec per prefill and per decode step; the int8 cache: "
+        "flash_decode_q, no rope_pack)")
+    # the int8-cache path forced layer by layer against the plain versions:
+    # request 1's prompt and its first 2 generated tokens
+    forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
+    _check_forced(pq, base, prompts[0], forced, dev, int8)
+    # the engine: 4 requests of phase 6's shape
+    g = torch.Generator().manual_seed(seed + 7)
+    reqs = [torch.randint(1, base.vocab_size, (n,), generator=g).tolist()
+            for n in (16, 100, 300, 512)]
+    _, paths["engine_q4km"], _ = _drive_engine(
+        pq, base, reqs, 8, "engine q4_k_m", **ENGINE_KW)
+    return paths, timing
+
+
+def phase_tinyllama(dev, seed):
+    """tinyllama-1.1b at full width and depth (22 layers, dim 2048, GQA
+    32/4, head_dim 64, intermediate 5632), q4_k layers and a q6_k head:
+    every fused gate and rope_pack stay closed, w_down (K = 5632) takes
+    q4k_matvec at one row and the head q6k_matvec."""
+    import contextlib
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    cfg = PRESETS["tinyllama-1.1b"]
+    L, R = cfg.n_layers, len(REQUESTS)
+    steps = sum(n for _, n in REQUESTS)
+    log(f"== 5d. {cfg.name}: dim {cfg.dim}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, "
+        f"intermediate {cfg.intermediate}, q4_k layers, q6_k head, bf16 cache")
+    t0 = time.perf_counter()
+    dense = llama.init_weights(cfg, seed=seed + 8, device=dev)
+    params = llama.quantize_params(dense, "q4_k", head_fmt="q6_k")
+    del dense
+    torch.cuda.synchronize()
+    log(f"  init_weights + quantize_params {time.perf_counter() - t0:.3f} s;"
+        f" w_down {params['layers'][0]['w_down'].array_shape}, lm_head "
+        f"{params['lm_head'].fmt} {params['lm_head'].array_shape}")
+    _log_stream(params)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
+                             device=dev, dtype=torch.int64)
+               for p, _ in REQUESTS]
+    by_k = {}
+    matvec = qm.q4k_matvec
+
+    def tallied(x, w):                   # launches of q4k_matvec, by K
+        y = matvec(x, w)
+        by_k[w.array_shape[1]] = by_k.get(w.array_shape[1], 0) + 1
+        return y
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, qm, "q4k_matvec", matvec)
+        qm.q4k_matvec = tallied
+        outs, counts = _drive_generate(params, cfg, prompts, REQUESTS,
+                                       "generate tinyllama")
+    want = _prefill_counts(L, REQUESTS, rope=False)
+    want.update(q6k_matvec=R + steps, q4k_matvec=steps * 4 * L,
+                flash_decode=steps * L, lse_merge=steps * L)
+    _assert_counts("generate tinyllama", counts, want)
+    log(f"  q4k_matvec launches by K: {by_k} (w_down at K = 5632: "
+        f"{steps * L} expected)")
+    if by_k != {2048: steps * 3 * L, 5632: steps * L}:
+        raise AssertionError(f"q4k_matvec by K {by_k}")
+    timing = _time_requests(params, cfg, prompts, REQUESTS, outs, dev)
+    forced = torch.from_numpy(outs[0][0, :4]).to(dev, torch.int32)
+    _check_forced(params, cfg, prompts[0], forced, dev)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"generate_tinyllama": counts}, timing
+
+
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
 ENGINE_GEN = 32
 ENGINE_KW = dict(max_batch=8, page_size=64, n_pages=96, max_seq_len=1024,
@@ -1106,9 +1366,14 @@ def _drive_engine(params, cfg, prompts, gen, path, **kw):
     fills = calls["_paged_prefill"] + calls["_paged_prefill_chunk"]
     heads = calls["_paged_prefill"] + calls["_paged_prefill_chunk+logits"]
     want = {k: 0 for k in counts}
-    want.update(q4k_matvec=heads,
-                q4k_gemm=steps * (4 * L + 1) + fills * 4 * L,
-                flash_attention=fills * L, paged_decode=steps * L)
+    want.update(flash_attention=fills * L, paged_decode=steps * L)
+    if params["lm_head"].fmt == "q6_k":
+        # a one-row head takes the hybrid q6_k matvec, the batch's head the
+        # reference's dense bf16 route (no kernel)
+        want.update(q6k_q8_matvec=heads, q4k_gemm=(steps + fills) * 4 * L)
+    else:
+        want.update(q4k_matvec=heads,
+                    q4k_gemm=steps * (4 * L + 1) + fills * 4 * L)
     log(f"  {path}: {len(prompts)} requests, {calls['_paged_prefill']} "
         f"prefills, {calls['_paged_prefill_chunk']} chunks, {steps} decode "
         f"steps in {wall:.2f} s; launches {counts}")
@@ -1294,17 +1559,25 @@ def main() -> int:
     phase_kernels(dev, args.seed, res)
     phase_engine_kernels(dev, args.seed, res)
     phase_fused_kernels(dev, args.seed, res)
+    phase_q4km_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
-    counts, timing, params, prompts = phase_model(dev, args.seed,
-                                                  args.profile)
+    counts, timing, params, prompts, head_dense = phase_model(
+        dev, args.seed, args.profile)
     fused_paths, fused_timing = phase_fused_decode(
         dev, args.seed, params, prompts, res, card, args.profile)
+    q4km_paths, q4km_timing = phase_q4km(dev, args.seed, params, head_dense,
+                                         prompts)
+    del head_dense
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     paths, engine_metrics = phase_engine(dev, args.seed, params,
                                          PRESETS["llama2-7b"], card)
-    paths = {"generate": counts, **fused_paths, **paths}
+    del params
+    torch.cuda.empty_cache()
+    tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed)
+    paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
+             **tiny_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -1329,6 +1602,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "requests": timing,
                       "requests_bench_decode": fused_timing,
+                      "requests_by_path": {**q4km_timing,
+                                           "generate_tinyllama": tiny_timing},
                       "engine": engine_metrics}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,17 @@
 //   lse_merge folds the n_splits partials of every (sequence, head) with the
 //   guarded combine of ops/lse.py (an empty split weighs 0, never NaN) and
 //   writes o / s in bf16.
+//
+// flash_decode_partials_q is the quantized cache's variant (the k_scale /
+// v_scale path of the same two TPU kernels): int8 or fp8 (e4m3) K / V with
+// f32 per-token scales [L, B, Hkv, S]. As the reference does, the k scale
+// multiplies each score row (s = (q . k) * (k_scale * scale)) and the v
+// scale each probability row in P.V (the row sum l takes p unscaled), and
+// with GQA groups (G > 1, its _decode_kernel) p * v_scale is rounded to
+// bf16 before the product; its MHA kernel (_decode_kernel_ht) keeps it in
+// f32. Bound: bytes, half the bf16 cache's plus 8 bytes of scales per key
+// and head.
+#include <cuda_fp8.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -29,16 +40,35 @@ constexpr int FD_MAXG = 16;         // query heads per KV head
 constexpr int FD_MAXD = 128;
 constexpr int FD_PER_THREAD = FD_MAXG * FD_MAXD / FD_THREADS;
 
+enum { FD_BF16 = 0, FD_INT8 = 1, FD_FP8 = 2 };
+
+// element i of a K / V array of the given kind, as f32
+template <int KIND>
+__device__ __forceinline__ float fd_load(const void* p, size_t i) {
+  if constexpr (KIND == FD_BF16) {
+    return __bfloat162float(static_cast<const bf16*>(p)[i]);
+  } else if constexpr (KIND == FD_INT8) {
+    return (float)static_cast<const int8_t*>(p)[i];
+  } else {
+    __nv_fp8_e4m3 e;
+    e.__x = static_cast<const __nv_fp8_storage_t*>(p)[i];
+    return static_cast<float>(e);
+  }
+}
+
+template <int KIND>
 __global__ void __launch_bounds__(FD_THREADS)
 flash_decode_partials_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
+                             const void* __restrict__ k,
+                             const void* __restrict__ v,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
                              const int* __restrict__ lengths,
                              float* __restrict__ o_part,
                              float* __restrict__ m_part,
                              float* __restrict__ s_part, int B, int Hq,
                              int Hkv, int S, int D, int layer, int n_splits,
-                             float scale) {
+                             int round_pv, float scale) {
   __shared__ float q_sm[FD_MAXG * FD_MAXD];
   __shared__ float p_sm[FD_MAXG][FD_CHUNK];
   __shared__ float m_sm[FD_MAXG], l_sm[FD_MAXG], a_sm[FD_MAXG];
@@ -47,9 +77,9 @@ flash_decode_partials_kernel(const bf16* __restrict__ q,
   const int b = bh / Hkv, h = bh % Hkv;
   const int G = Hq / Hkv, GD = G * D;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t head_off = (((size_t)layer * B + b) * Hkv + h) * (size_t)S * D;
-  const bf16* kh = k + head_off;
-  const bf16* vh = v + head_off;
+  // the (layer, sequence, head) row of keys, in scale and element units
+  const size_t key_off = (((size_t)layer * B + b) * Hkv + h) * (size_t)S;
+  const size_t head_off = key_off * D;
   const bf16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
 
   for (int i = tid; i < GD; i += FD_THREADS) q_sm[i] = __bfloat162float(qg[i]);
@@ -73,11 +103,13 @@ flash_decode_partials_kernel(const bf16* __restrict__ q,
     for (int j = warp; j < FD_CHUNK; j += FD_WARPS) {
       const int key = c0 + j;
       if (key < hi) {
-        const bf16* kr = kh + (size_t)key * D + lane * dpl;
+        const size_t kr = head_off + (size_t)key * D + lane * dpl;
         float kv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          kv[e] = e < dpl ? __bfloat162float(kr[e]) : 0.f;
+          kv[e] = e < dpl ? fd_load<KIND>(k, kr + e) : 0.f;
+        const float ks =
+            KIND == FD_BF16 ? scale : k_scale[key_off + key] * scale;
         for (int g = 0; g < G; ++g) {
           const float* qr = q_sm + g * D + lane * dpl;
           float part = 0.f;
@@ -85,7 +117,7 @@ flash_decode_partials_kernel(const bf16* __restrict__ q,
           for (int e = 0; e < 4; ++e)
             if (e < dpl) part += qr[e] * kv[e];
           part = warp_sum(part);
-          if (lane == 0) p_sm[g][j] = part * scale;
+          if (lane == 0) p_sm[g][j] = part * ks;
         }
       } else if (lane < G) {
         p_sm[lane][j] = -INFINITY;
@@ -93,14 +125,24 @@ flash_decode_partials_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     // online-softmax update, one warp per query head; the chunk holds at
-    // least one valid key, so m_new is finite
+    // least one valid key, so m_new is finite. l takes p; P.V takes
+    // p * v_scale on a quantized cache.
     for (int g = warp; g < G; g += FD_WARPS) {
       const float s0 = p_sm[g][lane], s1 = p_sm[g][lane + 32];
       const float m_old = m_sm[g];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
       const float psum = warp_sum(p0 + p1);
+      if (KIND != FD_BF16) {
+        p0 = c0 + lane < hi ? p0 * v_scale[key_off + c0 + lane] : 0.f;
+        p1 = c0 + lane + 32 < hi ? p1 * v_scale[key_off + c0 + lane + 32]
+                                 : 0.f;
+        if (round_pv) {
+          p0 = __bfloat162float(__float2bfloat16(p0));
+          p1 = __bfloat162float(__float2bfloat16(p1));
+        }
+      }
       p_sm[g][lane] = p0;
       p_sm[g][lane + 32] = p1;
       if (lane == 0) {
@@ -117,10 +159,10 @@ flash_decode_partials_kernel(const bf16* __restrict__ q,
       const int idx = tid + i * FD_THREADS;
       if (idx < GD) {
         const int g = idx / D, d = idx % D;
-        const bf16* vc = vh + (size_t)c0 * D + d;
+        const size_t vc = head_off + (size_t)c0 * D + d;
         float a = acc[i] * a_sm[g];
         for (int j = 0; j < nk; ++j)
-          a += p_sm[g][j] * __bfloat162float(vc[(size_t)j * D]);
+          a += p_sm[g][j] * fd_load<KIND>(v, vc + (size_t)j * D);
         acc[i] = a;
       }
     }
@@ -160,18 +202,52 @@ __global__ void lse_merge_kernel(const float* __restrict__ o,
   out[(size_t)row * D + d] = __float2bfloat16(ot / (st == 0.f ? 1.f : st));
 }
 
+template <int KIND>
+static int launch_partials(const bf16* q, const void* k, const void* v,
+                           const float* ks, const float* vs,
+                           const int* lengths, float* o, float* m, float* s,
+                           int B, int Hq, int Hkv, int S, int D, int layer,
+                           int n_splits, int round_pv, float scale,
+                           void* stream) {
+  if ((D != 64 && D != 128) || Hq % Hkv || Hq / Hkv > FD_MAXG ||
+      n_splits < 1 || (KIND != FD_BF16 && (!ks || !vs)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * Hkv, n_splits);
+  flash_decode_partials_kernel<KIND>
+      <<<grid, FD_THREADS, 0, (cudaStream_t)stream>>>(
+          q, k, v, ks, vs, lengths, o, m, s, B, Hq, Hkv, S, D, layer,
+          n_splits, round_pv, scale);
+  return (int)cudaGetLastError();
+}
+
 GCT_EXPORT int flash_decode_partials(const bf16* q, const bf16* k,
                                      const bf16* v, const int* lengths,
                                      float* o, float* m, float* s, int B,
                                      int Hq, int Hkv, int S, int D, int layer,
                                      int n_splits, float scale, void* stream) {
-  if ((D != 64 && D != 128) || Hq % Hkv || Hq / Hkv > FD_MAXG ||
-      n_splits < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * Hkv, n_splits);
-  flash_decode_partials_kernel<<<grid, FD_THREADS, 0, (cudaStream_t)stream>>>(
-      q, k, v, lengths, o, m, s, B, Hq, Hkv, S, D, layer, n_splits, scale);
-  return (int)cudaGetLastError();
+  return launch_partials<FD_BF16>(q, k, v, nullptr, nullptr, lengths, o, m, s,
+                                  B, Hq, Hkv, S, D, layer, n_splits, 0, scale,
+                                  stream);
+}
+
+// kv_kind: 1 int8, 2 fp8 e4m3; round_pv: round p * v_scale to bf16
+GCT_EXPORT int flash_decode_partials_q(const bf16* q, const void* k,
+                                       const void* v, const float* k_scale,
+                                       const float* v_scale,
+                                       const int* lengths, float* o, float* m,
+                                       float* s, int B, int Hq, int Hkv, int S,
+                                       int D, int layer, int n_splits,
+                                       int kv_kind, int round_pv, float scale,
+                                       void* stream) {
+  if (kv_kind == FD_INT8)
+    return launch_partials<FD_INT8>(q, k, v, k_scale, v_scale, lengths, o, m,
+                                    s, B, Hq, Hkv, S, D, layer, n_splits,
+                                    round_pv, scale, stream);
+  if (kv_kind == FD_FP8)
+    return launch_partials<FD_FP8>(q, k, v, k_scale, v_scale, lengths, o, m,
+                                   s, B, Hq, Hkv, S, D, layer, n_splits,
+                                   round_pv, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 GCT_EXPORT int lse_merge(const float* o, const float* m, const float* s,

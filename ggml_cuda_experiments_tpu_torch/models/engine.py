@@ -97,9 +97,7 @@ class PagedKVPool:
                            v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _bytes(t: torch.Tensor) -> torch.Tensor:
-    """A one-byte pool as uint8, so index writes take int8 and fp8 alike."""
-    return t.view(torch.uint8) if t.element_size() == 1 else t
+_bytes = llama._bytes        # one-byte pools as uint8 for index writes
 
 
 def _pool_write(pool, li, pages_b, offs_b, val):

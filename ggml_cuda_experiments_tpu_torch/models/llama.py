@@ -1,5 +1,6 @@
-"""Llama-family model in PyTorch: Q4_K-E linears, a bf16 contiguous KV
-cache, flash prefill and split-KV decode; greedy or sampled generation.
+"""Llama-family model in PyTorch: Q4_K-E linears (a Q6_K-E head for the
+Q4_K_M mix), a bf16, int8 or fp8 contiguous KV cache, flash prefill and
+split-KV decode; greedy or sampled generation.
 
 Port of the reference's ``models/llama.py``, same function names,
 signatures and public layouts (KV cache [L, B, Hkv, S, D]; logits f32).
@@ -10,17 +11,21 @@ same shapes: the batch-1 decode runs ``model_step`` (every layer in one
 launch), ``layer_step`` per layer, ``attention_fused`` and ``mlp_fused``,
 or the unfused blocks, and the matvecs take int8 activations under
 ``x_quant8``. The prefill takes the fused RoPE + repack kernel
-(``ops/prefill_fuse.py``) under the reference's own gate. What differs, on
+(``ops/prefill_fuse.py``) under the reference's own gate. A quantized cache
+(int8 / fp8 with per-token scales) closes the fused attention, the RoPE +
+repack kernel and the layer kernel, as in the reference. What differs, on
 purpose:
 
 - Weights stay in logical column order: ``w_gu`` stands where the
   reference builds ``w_gu_f``, W_o has no ``wof`` layout, and
   ``permute_hidden_params`` permutes nothing: it attaches the model pack
   (a device table of weight pointers, no copy) that picks ``model_step``.
+  So a q6_k head takes the same call with or without ``hperm`` (the
+  reference un-permutes the hidden vector for it).
 - Not ported yet, and raised, never computed another way:
-  ``cfg.xla_attn_max_cache``, MoE layers, a quantized contiguous KV cache
-  (the paged pool of ``models/engine.py`` is int8 / fp8 capable), the
-  ``x_prepermuted`` argument (no interleaved order exists here).
+  ``cfg.xla_attn_max_cache``, MoE layers, formats other than q4_k (and a
+  q6_k head), the ``x_prepermuted`` argument (no interleaved order exists
+  here).
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
@@ -55,11 +60,15 @@ from ggml_cuda_experiments_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
-# Up to this many rows a linear runs the fused kernels (the matvec at one
-# row, the GEMM from two); above it, dequantize + torch.matmul, the
-# reference's qmatmul_xla fallback: a plain product, no kernel. The
-# reference's second cutoff (_QMATVEC_MAX_ROWS = 32) chose between two
-# Pallas GEMMs that are one kernel here. To be measured again on the H100.
+# The reference's two cutoffs. Up to _QMATVEC_MAX_ROWS rows a linear goes
+# through ``qmatmul`` (q4_k: the matvec at one row, the GEMM from two; q6_k:
+# its matvecs at one row, else a bf16 dequantize + matmul); up to
+# _QPIPE_MAX_ROWS a q4_k linear runs the GEMM too (the reference's
+# pipelined GEMM, the same function as its small-batch one, so one kernel
+# here); above, and for a q6_k weight above _QMATVEC_MAX_ROWS, f32
+# dequantize + torch.matmul, the reference's qmatmul_xla: a plain product,
+# no kernel. To be measured again on the H100.
+_QMATVEC_MAX_ROWS = 32
 _QPIPE_MAX_ROWS = 512
 
 
@@ -82,7 +91,9 @@ def apply_linear(x: torch.Tensor, w, xq8: bool = False,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QuantLinear):
-        if x2.shape[0] <= _QPIPE_MAX_ROWS:
+        rows = x2.shape[0]
+        if rows <= _QMATVEC_MAX_ROWS or (rows <= _QPIPE_MAX_ROWS
+                                         and w.fmt != "q6_k"):
             y = qmatmul(x2, w, x_quant8=xq8)
         else:
             # the reference's qmatmul_xla: f32 dequantize + a plain matmul
@@ -142,36 +153,82 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 @dataclasses.dataclass
 class KVCache:
-    """Contiguous per-layer KV cache: k, v [n_layers, B, Hkv, S, D] bf16;
-    lengths int32 [B] valid prefix length, on the same device."""
+    """Contiguous per-layer KV cache: k, v [n_layers, B, Hkv, S, D] (bf16;
+    int8 or float8_e4m3fn when quantized); k_scale, v_scale
+    [n_layers, B, Hkv, S] f32 per-token dequantization scales (None for the
+    bf16 cache); lengths int32 [B] valid prefix length, on the same
+    device."""
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def quant_fmt(self) -> str | None:
+        if not self.quantized:
+            return None
+        return "int8" if self.k.dtype == torch.int8 else "fp8"
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, quantized: bool | str = False,
                device=None) -> "KVCache":
-        if quantized:
-            raise NotImplementedError("int8/fp8 KV cache: not ported yet")
+        """``quantized``: False, True / "int8", or "fp8" (a float8_e4m3fn
+        payload with the same per-token f32 scales)."""
         device = resolve_device(device)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-        return KVCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-            lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if quantized:
+            if quantized not in (True, "int8", "fp8"):
+                raise ValueError(f"quantized={quantized!r}: False, True, "
+                                 "'int8' or 'fp8'")
+            qdt = torch.float8_e4m3fn if quantized == "fp8" else torch.int8
+            return KVCache(
+                k=torch.zeros(shape, dtype=qdt, device=device),
+                v=torch.zeros(shape, dtype=qdt, device=device),
+                lengths=lengths,
+                k_scale=torch.zeros(shape[:-1], device=device),
+                v_scale=torch.zeros(shape[:-1], device=device))
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       lengths=lengths)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte array as uint8, so index writes take int8 and fp8 alike."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
 def _write_cache_layer(cache: torch.Tensor, li: int, new: torch.Tensor,
                        pos: torch.Tensor) -> torch.Tensor:
-    """Write new [B, Hkv, T, D] into the full cache [L, B, Hkv, S, D] at
-    (li, b, :, pos[b] + t), in place, with one device-side index op (pos
-    stays on the device)."""
+    """Write new [B, Hkv, T, ...] into the full cache [L, B, Hkv, S, ...]
+    at (li, b, :, pos[b] + t), in place, with one device-side index op (pos
+    stays on the device). Serves k / v and their scale arrays."""
     B, _, T = new.shape[:3]
     t = pos[:, None].long() + torch.arange(T, device=pos.device)     # [B, T]
     b = torch.arange(B, device=pos.device)[:, None].expand(B, T)
-    cache[li][b, :, t] = new.transpose(1, 2).to(cache.dtype)
+    _bytes(cache)[li][b, :, t] = _bytes(new.transpose(1, 2).to(cache.dtype))
     return cache
+
+
+def _write_kv(cache: "KVCache", li: int, kt: torch.Tensor, vt: torch.Tensor,
+              pos: torch.Tensor) -> None:
+    """Write layer li's fresh K / V [B, Hkv, T, D] at pos, quantized per
+    token first when the cache is (the reference's _quantize_rowwise)."""
+    if cache.quantized:
+        for arr, scales, x in ((cache.k, cache.k_scale, kt),
+                               (cache.v, cache.v_scale, vt)):
+            q, sc = _quantize_rowwise(x, cache.quant_fmt)
+            _write_cache_layer(arr, li, q, pos)
+            _write_cache_layer(scales, li, sc, pos)
+    else:
+        _write_cache_layer(cache.k, li, kt, pos)
+        _write_cache_layer(cache.v, li, vt, pos)
 
 
 def _quantize_rowwise(x: torch.Tensor, fmt: str = "int8"
@@ -209,9 +266,10 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
                      decode: bool):
     B, T, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    quantized = cache.quantized
     x = rms_norm(h, layer["attn_norm"], cfg.rms_eps)
-    if (decode and cfg.fuse_attn and B == 1 and T == 1 and cfg.x_quant8
-            and "wqkv" in layer
+    if (decode and cfg.fuse_attn and B == 1 and T == 1 and not quantized
+            and cfg.x_quant8 and "wqkv" in layer
             and attention_fused_supported(layer["wqkv"], layer["wo"], Hq, Hkv,
                                           D, cache.k.dtype)):
         # the whole block in one launch; its k / v go to the cache after
@@ -222,9 +280,9 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         _append_kv(cache, li, kn, vn, positions[:, 0])
         return o[:, None].to(h.dtype), cache
     if (not decode and B == 1 and T % 128 == 0 and D == 128
-            and "wqkv" in layer):
-        # the reference's fuse_rope gate (its cache is bf16 here): one
-        # kernel ropes q / k and repacks q / k / v head-major
+            and "wqkv" in layer and not quantized):
+        # the reference's fuse_rope gate: one kernel ropes q / k and
+        # repacks q / k / v head-major
         qt, kt, vt = rope_pack_prefill(
             apply_linear(x, layer["wqkv"])[0], positions[0], n_heads=Hq,
             n_kv_heads=Hkv, head_dim=D, rope_theta=cfg.rope_theta)
@@ -236,15 +294,15 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         k = rope(k.reshape(B, T, Hkv, D), positions, cfg.rope_theta)
         kt = k.transpose(1, 2)                   # [B, Hkv, T, D]
         vt = v.reshape(B, T, Hkv, D).transpose(1, 2)
-    pos0 = positions[:, 0]
-    _write_cache_layer(cache.k, li, kt, pos0)
-    _write_cache_layer(cache.v, li, vt, pos0)
+    _write_kv(cache, li, kt, vt, positions[:, 0])
     if decode:
         # the full stacked cache goes in; the kernel offsets by the layer
         o = flash_decode(q[:, 0].contiguous(), cache.k, cache.v,
-                         cache.lengths + 1, layer=li)[:, None]
+                         cache.lengths + 1, layer=li, k_scale=cache.k_scale,
+                         v_scale=cache.v_scale)[:, None]
     else:
-        # prefill attends over the fresh K/V
+        # prefill attends over the fresh bf16 K/V, even for a quantized
+        # cache (it starts empty at the prefill)
         o = flash_attention(q.transpose(1, 2).contiguous(), kt.contiguous(),
                             vt.contiguous(), causal=True).transpose(1, 2)
     o = o.reshape(B, T, Hq * D).to(h.dtype)
@@ -283,7 +341,8 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
               rms_eps=cfg.rms_eps)
     use_layer_kernel = (decode and cfg.fuse_layer and cfg.hperm
-                        and cfg.x_quant8 and B == 1 and T == 1)
+                        and cfg.x_quant8 and B == 1 and T == 1
+                        and not cache.quantized)
     pack = params.get("m_pack")
     # the pack's layers share one shape (build_model_pack), so the
     # reference's gate over every layer is its gate over the first
@@ -427,14 +486,17 @@ def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
                     pad_intermediate: bool = True, fuse: bool = True,
                     head_fmt: str | None = None) -> Params:
     """Quantize every big linear to ``fmt`` on its own device (embed and
-    norms stay dense). ``fuse`` stores wq|wk|wv as one ``wqkv`` and
+    norms stay dense). ``head_fmt``: another format for the lm_head
+    (llama.cpp's Q4_K_M mix stores it as Q6_K: fmt="q4_k",
+    head_fmt="q6_k"). ``fuse`` stores wq|wk|wv as one ``wqkv`` and
     w_gate|w_up as one ``w_gu``. ``pad_intermediate`` zero-pads the MLP
     intermediate up to a multiple of 4096 when that costs < 15% more bytes
     (7B: 11008 -> 12288), here at quantize time so the step never pads;
     silu(0) * 0 == 0 keeps the padded lanes inert."""
-    if fmt != "q4_k" or head_fmt not in (None, "q4_k"):
+    if fmt != "q4_k" or head_fmt not in (None, "q4_k", "q6_k"):
         raise NotImplementedError(f"fmt {fmt!r} / head_fmt {head_fmt!r}: "
-                                  "the port has q4_k only so far")
+                                  "the port has q4_k layers and a q4_k or "
+                                  "q6_k head only so far")
     out = dict(params)
     out["layers"] = []
     for layer in params["layers"]:
@@ -469,7 +531,7 @@ def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
                 ql[key] = quantize(get(key), fmt)
         out["layers"].append(ql)
     if quantize_head:
-        out["lm_head"] = quantize(params["lm_head"].float(), fmt)
+        out["lm_head"] = quantize(params["lm_head"].float(), head_fmt or fmt)
     return out
 
 

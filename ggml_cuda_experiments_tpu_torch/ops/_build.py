@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
            "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
-           "fused_decode.cu")
+           "fused_decode.cu", "q6k_matvec.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -45,6 +45,10 @@ SIGNATURES = {
     # scale, stream
     "flash_decode_partials": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P),
+    # q, k, v (int8 / fp8), k_scale, v_scale, lengths, o, m, s, B, Hq, Hkv,
+    # S, D, layer, n_splits, kv_kind, round_pv, scale, stream
+    "flash_decode_partials_q": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # o, m, s, out, B, Hq, Hkv, D, n_splits, stream
     "lse_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, mask, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, mask
@@ -71,6 +75,9 @@ SIGNATURES = {
     # v_new, stream
     "layer_kernel": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    # x, qs, qh, es, y, N, K, stream (both q6_k matvecs)
+    "q6k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "q6k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),
 }

@@ -13,6 +13,14 @@ Port of the reference's ``ops/flash_decode.py`` (``flash_decode`` with its
 n_splits depends only on the padded cache length and the SM count, so the
 launch needs nothing from the device: ``lengths`` stays on the card, and a
 split wholly past a sequence's length emits the LSE identity.
+
+A quantized cache (int8 or ``float8_e4m3fn`` K / V with f32 per-token
+``k_scale`` / ``v_scale`` [(L,) B, Hkv, S]) takes the reference's scale
+path: the k scale multiplies the score rows, the v scale the probability
+rows of P.V (the row sums stay unscaled), and ``p * v_scale`` is rounded to
+bf16 before the product where a KV head serves G > 1 query heads (the
+reference's ``_decode_kernel``; its MHA ``_decode_kernel_ht`` keeps f32).
+Its kernel is ``flash_decode_partials_q``, counted as ``flash_decode_q``.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from ggml_cuda_experiments_tpu_torch.ops.lse import (
     AttnPartial, lse_combine_stacked, lse_finalize)
 from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
 
-LAUNCHES = {"flash_decode": 0, "lse_merge": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_q": 0, "lse_merge": 0}
+_KV_KIND = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 _KEYS_PER_CHUNK = 64       # keys per online-softmax step of the kernel
 _MAX_GROUP = 16            # query heads per KV head the kernel takes
@@ -44,25 +53,37 @@ def pick_splits(batch: int, n_kv_heads: int, seq: int, sms: int) -> int:
     return max(1, min(want, -(-seq // _KEYS_PER_CHUNK)))
 
 
-def _layer_view(k, v, layer):
-    """(k, v) of one layer as [B, Hkv, S, D] views, and the layer index."""
+def _layer_view(k, v, layer, k_scale=None, v_scale=None):
+    """(k, v, k_scale, v_scale) of one layer as [B, Hkv, S(, D)] views, and
+    the layer index."""
     if (k.dim() == 5) != (layer is not None):
         raise ValueError("pass `layer` iff k/v carry a leading layer dim")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
     if layer is None:
-        return k, v, 0
+        return k, v, k_scale, v_scale, 0
     layer = int(layer)
     if not 0 <= layer < k.shape[0]:
         raise ValueError(f"layer {layer} out of range [0, {k.shape[0]})")
-    return k[layer], v[layer], layer
+    if k_scale is not None:
+        k_scale, v_scale = k_scale[layer], v_scale[layer]
+    return k[layer], v[layer], k_scale, v_scale, layer
 
 
-def _partials_ref(q, k, v, lengths, scale, n_splits):
+def _partials_ref(q, k, v, lengths, scale, n_splits, k_scale=None,
+                  v_scale=None):
     """Plain per-split partials: o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1]
-    f32, splitting S into n spans of ceil(S / n) keys like the kernel."""
+    f32, splitting S into n spans of ceil(S / n) keys like the kernel. With
+    scales (a quantized cache), the scale path of the module docstring."""
     B, Hq, D = q.shape
     _, Hkv, S, _ = k.shape
-    qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bhgd,bhsd->bhgs", qf, k.float()) * scale
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k.float())
+    if k_scale is None:
+        s = s * scale
+    else:
+        s = s * (k_scale * scale)[:, :, None, :]
     valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
     s = torch.where(valid[:, None, None, :], s, -torch.inf)
     span = -(-S // n_splits)
@@ -73,7 +94,12 @@ def _partials_ref(q, k, v, lengths, scale, n_splits):
             s[..., :1], -torch.inf)
         p = torch.where(m == -torch.inf, torch.zeros_like(sc),
                         torch.exp(sc - m))
-        os_.append(torch.einsum("bhgs,bhsd->bhgd", p,
+        pv = p
+        if v_scale is not None:
+            pv = p * v_scale[:, :, None, lo:lo + span]
+            if G > 1:
+                pv = pv.to(torch.bfloat16).float()
+        os_.append(torch.einsum("bhgs,bhsd->bhgd", pv,
                                 v[:, :, lo:lo + span].float()))
         ms.append(m)
         ss.append(p.sum(-1, keepdim=True))
@@ -88,34 +114,46 @@ def _merge_ref(parts: AttnPartial, out_dtype) -> torch.Tensor:
 
 
 def flash_decode_ref(q, k, v, lengths=None, *, scale=None, kv_splits=1,
-                     layer=None):
+                     layer=None, k_scale=None, v_scale=None):
     """Plain version: per-split (o, m, s) partials in f32, merged with
     ``lse_combine_stacked`` and normalized with ``lse_finalize``. Same
     arguments as ``flash_decode``; returns [B, Hq, D] in q's dtype."""
-    k, v, _ = _layer_view(k, v, layer)
+    k, v, k_scale, v_scale, _ = _layer_view(k, v, layer, k_scale, v_scale)
     B, _, D = q.shape
     S = k.shape[2]
     if scale is None:
         scale = float(1.0 / D ** 0.5)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    return _merge_ref(_partials_ref(q, k, v, lengths, scale, kv_splits),
-                      q.dtype)
+    return _merge_ref(_partials_ref(q, k, v, lengths, scale, kv_splits,
+                                    k_scale, v_scale), q.dtype)
 
 
-def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None
-                          ) -> AttnPartial:
+def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None,
+                          k_scale=None, v_scale=None) -> AttnPartial:
     """Kernel 1 of ``flash_decode``: the per-split partials,
-    o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1] f32."""
-    kl, vl, li = _layer_view(k, v, layer)
+    o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1] f32. With ``k_scale`` /
+    ``v_scale`` the cache is int8 or fp8 (``flash_decode_partials_q``)."""
+    kl, vl, ksl, vsl, li = _layer_view(k, v, layer, k_scale, v_scale)
     if not kernels_for(q):
-        return _partials_ref(q, kl, vl, lengths, scale, n_splits)
+        return _partials_ref(q, kl, vl, lengths, scale, n_splits, ksl, vsl)
     B, Hkv, S, D = kl.shape
     Bq, Hq, Dq = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: need contiguous bf16 on {q.device}")
+    quantized = k_scale is not None
+    kv_dtype = k.dtype if quantized else torch.bfloat16
+    if quantized and kv_dtype not in _KV_KIND:
+        raise ValueError(f"k/v: a quantized cache is int8 or float8_e4m3fn, "
+                         f"got {kv_dtype}")
+    for name, t, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
+                        ("v", v, kv_dtype)):
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need contiguous {dt} on {q.device}")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device or t.dtype != torch.float32 \
+                    or t.shape != k.shape[:-1] or not t.is_contiguous():
+                raise ValueError(f"{name}: need contiguous f32 "
+                                 f"{tuple(k.shape[:-1])} on {q.device}")
     if v.shape != k.shape or Bq != B or Dq != D or Hq % Hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -132,6 +170,15 @@ def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None
     m = torch.empty((B, Hkv, n_splits, G, 1), dtype=torch.float32,
                     device=q.device)
     s = torch.empty_like(m)
+    if quantized:
+        rc = _build.lib().flash_decode_partials_q(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            m.data_ptr(), s.data_ptr(), B, Hq, Hkv, S, D, li, n_splits,
+            _KV_KIND[kv_dtype], int(G > 1), scale, _build.stream_of(q))
+        _build.check(rc, "flash_decode_partials_q")
+        LAUNCHES["flash_decode_q"] += 1
+        return AttnPartial(o, m, s)
     rc = _build.lib().flash_decode_partials(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), m.data_ptr(), s.data_ptr(),
@@ -164,17 +211,20 @@ def lse_merge(parts: AttnPartial) -> torch.Tensor:
 
 
 def flash_decode(q, k, v, lengths=None, *, scale=None, kv_splits=None,
-                 layer=None):
+                 layer=None, k_scale=None, v_scale=None):
     """Single-token attention against a KV cache, split-KV parallel.
 
     q: [B, Hq, D] bf16; k, v: [B, Hkv, S, D] bf16, or the full stacked
     cache [L, B, Hkv, S, D] with ``layer`` (an int): the kernel offsets its
     pointers by the layer, so no per-layer copy is made. lengths: int32 [B]
-    valid prefix per sequence (default S). Returns [B, Hq, D] bf16.
-    ``kv_splits``: None picks the split count from S and the SM count."""
+    valid prefix per sequence (default S). ``k_scale`` / ``v_scale``: f32
+    per-token scales of an int8 / float8_e4m3fn cache, shaped as k without
+    its last dim. Returns [B, Hq, D] bf16. ``kv_splits``: None picks the
+    split count from S and the SM count."""
     if not kernels_for(q):
         return flash_decode_ref(q, k, v, lengths, scale=scale,
-                                kv_splits=kv_splits or 1, layer=layer)
+                                kv_splits=kv_splits or 1, layer=layer,
+                                k_scale=k_scale, v_scale=v_scale)
     B, Hq, D = q.shape
     Hkv, S = k.shape[-3], k.shape[-2]
     if scale is None:
@@ -183,5 +233,6 @@ def flash_decode(q, k, v, lengths=None, *, scale=None, kv_splits=None,
         lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
     n = kv_splits or pick_splits(B, Hkv, S, _sm_count(q.device.index or 0))
     parts = flash_decode_partials(q, k, v, lengths, scale=scale,
-                                  n_splits=n, layer=layer)
+                                  n_splits=n, layer=layer, k_scale=k_scale,
+                                  v_scale=v_scale)
     return lse_merge(parts)

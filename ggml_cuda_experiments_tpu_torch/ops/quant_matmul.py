@@ -1,19 +1,24 @@
-"""Q4_K-E quantized linears: the container, the device quantizer, and the
-fused dequant matvec / GEMM wrappers.
+"""Q4_K-E and Q6_K-E quantized linears: the container, the device
+quantizers, and the fused dequant matvec / GEMM wrappers.
 
 Port of the reference's ``ops/quant_matmul.py`` for ``fmt="q4_k"`` with the
 Q4_K-E encoding (per-32-block effective scales ``es = bf16(f32(d) * sc)`` and
-mins ``em = bf16(f32(dmin) * mn)``). The weights stay in LOGICAL column
-order: the reference's interleaved lane orders exist only because Mosaic has
-no consecutive-element expand, and Hopper has no such limit. The payload is
-the oracle's per-32-block planar nibble packing (``oracle/quant.py``): byte j
-of a block holds element j in its low nibble and element j + 16 in its high
-nibble. Dequantization is ``w = q * f32(es) - f32(em)``, bit-equal to the
-reference's ``dequantize_jnp`` for the same oracle blocks.
+mins ``em = bf16(f32(dmin) * mn)``) and ``fmt="q6_k"`` with the Q6_K-E
+encoding (per-16-block ``es = bf16(f32(d) * sc)``). The weights stay in
+LOGICAL column order: the reference's interleaved lane orders and its
+signed-friendly nibbles exist only because Mosaic has no consecutive-element
+expand, and Hopper has no such limit. The q4_k payload is the oracle's
+per-32-block planar nibble packing (``oracle/quant.py``): byte j of a block
+holds element j in its low nibble and element j + 16 in its high nibble.
+Dequantization is ``w = q * f32(es) - f32(em)`` (q4_k) and
+``w = f32(es) * (q - 32)`` (q6_k), bit-equal to the reference's
+``dequantize_jnp`` for the same oracle blocks.
 
 Kernels:
 - ``q4k_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact f32 activations;
-  replaces the reference's ``_chunk_kernel`` and ``_vpu2_kernel``.
+  replaces the reference's ``_chunk_kernel``, ``_vpu2_kernel`` and, for
+  q4_k at K/32 outside its repeat-aligned counts (tinyllama's w_down),
+  ``_vpu_e_kernel``.
 - ``q4k_gemm`` (``csrc/q4k_matmul.cu``) — B >= 2, bf16 operands with f32
   accumulation (the reference's numerics); replaces ``_mxu_kernel``,
   ``_pipe_sub_kernel`` and ``_pipe_kernel``.
@@ -21,6 +26,11 @@ Kernels:
   (``x_quant8``); replaces ``_chunk8_kernel`` / ``_chunk8_compute``.
 - ``mlp_fused`` (``csrc/fused_decode.cu``) — the whole batch-1 silu MLP in
   one launch; replaces ``_fused_mlp_kernel``.
+- ``q6k_matvec`` (``csrc/q6k_matvec.cu``) — q6_k, B = 1, exact f32
+  activations, (K/16) % 128 == 0; replaces ``_chunk6_kernel``.
+- ``q6k_q8_matvec`` (``csrc/q6k_matvec.cu``) — q6_k, B = 1, K % 4096 == 0,
+  the hybrid int8 / f32 numerics of ``_chunk6h_kernel``, reproduced
+  exactly (``quantize_activations_q6``).
 
 The int8-activation numerics are the reference's, reproduced exactly: per
 32-block, with xl / xh the block's elements 0-15 / 16-31 (the two nibbles
@@ -42,13 +52,13 @@ import numpy as np
 import torch
 
 from ggml_cuda_experiments_tpu_torch.ops import _build
-from ggml_cuda_experiments_tpu_torch.oracle.quant import QK, QK_K
+from ggml_cuda_experiments_tpu_torch.oracle.quant import QK, QK6, QK_K
 from ggml_cuda_experiments_tpu_torch.utils.platform import (
     kernels_for, resolve_device)
 
 # kernel launches, counted by the wrappers right after each launch
 LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0, "q4k_q8_matvec": 0,
-            "fused_mlp": 0}
+            "fused_mlp": 0, "q6k_matvec": 0, "q6k_q8_matvec": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +67,19 @@ class QuantLinear:
 
     q4_k ("Q4_K-E"): qs uint8 [N, K/2] (per-32-block planar nibbles),
     es bf16 [N, K/32], em bf16 [N, K/32].
+    q6_k ("Q6_K-E"): per 16-element block b, qs uint8 [N, K/2] bytes
+    8b..8b+7 (byte j: the low 4 bits of element j, those of element j + 8
+    in the high nibble), qh uint8 [N, K/4] bytes 4b..4b+3 (byte i: the high
+    2 bits of elements i, i + 4, i + 8, i + 12 at bits 0-1, 2-3, 4-5,
+    6-7), es bf16 [N, K/16]; em is None. 0.875 bytes per weight.
     """
 
     fmt: str
     shape: tuple[int, int]
     qs: torch.Tensor
     es: torch.Tensor
-    em: torch.Tensor
+    em: torch.Tensor | None = None
+    qh: torch.Tensor | None = None
 
     @property
     def array_shape(self) -> tuple[int, int]:
@@ -73,17 +89,19 @@ class QuantLinear:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.qs, self.es, self.em))
+                   for t in (self.qs, self.es, self.em, self.qh)
+                   if t is not None)
 
 
 def _fmt_check(fmt: str) -> None:
-    if fmt != "q4_k":
+    if fmt not in ("q4_k", "q6_k"):
         raise NotImplementedError(
-            f"format {fmt!r}: the port has q4_k (Q4_K-E) only so far")
+            f"format {fmt!r}: the port has q4_k and q6_k only so far")
 
 
 # ---------------------------------------------------------------------------
-# quantization (torch transcription of oracle.quantize_q4_k + q4_k_effective)
+# quantization (torch transcriptions of the oracle's quantize_q4_k and
+# quantize_q6_k, with the reference's effective-scale folding)
 # ---------------------------------------------------------------------------
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -128,49 +146,113 @@ def _quantize_q4_k_rows(w: torch.Tensor):
     return qs, es, em
 
 
+def _pack_q6(q: torch.Tensor):
+    """6-bit values q uint8 [n, K] (0..63) -> the Q6_K-E (qs [n, K/2],
+    qh [n, K/4]) of the container's docstring."""
+    n, k = q.shape
+    b = q.reshape(n, k // QK6, QK6)
+    lo = b & 0x0F
+    qs = (lo[..., :8] | (lo[..., 8:] << 4)).reshape(n, k // 2)
+    hi = (b >> 4).reshape(n, k // QK6, 4, 4)      # [.., s, i]: element 4s + i
+    qh = (hi[..., 0, :] | (hi[..., 1, :] << 2) | (hi[..., 2, :] << 4)
+          | (hi[..., 3, :] << 6))
+    return qs, qh.reshape(n, k // 4)
+
+
+def _q6_high(qh: torch.Tensor) -> torch.Tensor:
+    """qh uint8 [n, K/4] -> the high 2 bits uint8 [n, K/16, 16]."""
+    u = qh.reshape(qh.shape[0], -1, 4)
+    return torch.stack([(u >> s) & 3 for s in (0, 2, 4, 6)],
+                       dim=-2).reshape(qh.shape[0], -1, QK6)
+
+
+def _q6_values(qs: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """Q6_K-E bytes -> q uint8 [n, K/16, 16], values 0..63."""
+    p = qs.reshape(qs.shape[0], -1, 8)
+    return torch.cat([p & 0x0F, p >> 4], dim=-1) | (_q6_high(qh) << 4)
+
+
+def _quantize_q6_k_rows(w: torch.Tensor):
+    """Oracle Q6_K quantization of w [n, K] -> (qs uint8 [n, K/2],
+    qh uint8 [n, K/4], es bf16 [n, K/16]) in the Q6_K-E encoding."""
+    x = w.float()
+    n, k = x.shape
+    xb = x.reshape(n, k // QK_K, QK_K // QK6, QK6)
+    ax = xb.abs()
+    # np.argmax's rule, spelled out: the first index of the largest |x|
+    first = torch.where(ax == ax.amax(-1, keepdim=True),
+                        torch.arange(QK6, device=x.device), QK6)
+    maxv = xb.gather(-1, first.amin(-1, keepdim=True))[..., 0]
+    scale_f = _div(maxv, -32.0)                              # [n, nsb, 16]
+    d = _f16_round(_div(scale_f.abs().amax(-1), 127.0))      # [n, nsb]
+    sc = torch.clamp(torch.round(scale_f * _recip0(d)[..., None]),
+                     -127, 127).to(torch.int8)
+    eff = d[..., None] * sc.float()                          # exact
+    q = torch.clamp(torch.round(xb * _recip0(eff)[..., None]), -32, 31) + 32
+    qs, qh = _pack_q6(q.to(torch.uint8).reshape(n, k))
+    return qs, qh, eff.reshape(n, k // QK6).to(torch.bfloat16)
+
+
 _QUANT_ROWS = 2048          # rows per chunk of the device quantizer
 
 
 def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
     """Quantize a float [N, K] weight on its own device. Bit-equal to the
-    oracle's ``quantize_q4_k`` followed by the reference's
-    ``q4_k_effective``. Works in row chunks to bound the f32 temporaries."""
+    oracle's ``quantize_q4_k`` / ``quantize_q6_k`` followed by the
+    reference's Q4_K-E / Q6_K-E scale folding. Works in row chunks to bound
+    the f32 temporaries."""
     _fmt_check(fmt)
     n, k = w.shape
     if k % QK_K:
-        raise ValueError(f"q4_k needs K % {QK_K} == 0 (got K={k})")
-    parts = [_quantize_q4_k_rows(w[r:r + _QUANT_ROWS])
-             for r in range(0, n, _QUANT_ROWS)]
-    qs, es, em = (torch.cat(f) for f in zip(*parts))
-    return QuantLinear(fmt="q4_k", shape=(n, k), qs=qs, es=es, em=em)
+        raise ValueError(f"{fmt} needs K % {QK_K} == 0 (got K={k})")
+    rows = _quantize_q4_k_rows if fmt == "q4_k" else _quantize_q6_k_rows
+    parts = [rows(w[r:r + _QUANT_ROWS]) for r in range(0, n, _QUANT_ROWS)]
+    fields = [torch.cat(f) for f in zip(*parts)]
+    if fmt == "q4_k":
+        qs, es, em = fields
+        return QuantLinear(fmt=fmt, shape=(n, k), qs=qs, es=es, em=em)
+    qs, qh, es = fields
+    return QuantLinear(fmt=fmt, shape=(n, k), qs=qs, es=es, qh=qh)
 
 
 _Q4K_FIELDS = ("qs", "sc", "mn", "d", "dmin", "shape")
+_Q6K_FIELDS = ("qs", "sc", "d", "shape")
 
 
 def from_oracle(t, device=None) -> QuantLinear:
-    """Port container from planar Q4_K blocks (the same bytes, plus the
-    Q4_K-E bf16 effective scales), on the card unless ``device`` says
-    otherwise. ``t`` is read by its fields (qs, sc, mn, d, dmin, shape), so
-    the blocks of ``oracle.quant.quantize_q4_k`` and of any oracle with the
-    same layout are taken alike."""
-    if not all(hasattr(t, f) for f in _Q4K_FIELDS):
-        raise NotImplementedError(f"from_oracle: {type(t).__name__} "
-                                  "(the port has q4_k only so far)")
+    """Port container from planar Q4_K or Q6_K blocks (the same values,
+    plus the bf16 effective scales), on the card unless ``device`` says
+    otherwise. ``t`` is read by its fields (Q4_K: qs, sc, mn, d, dmin,
+    shape; Q6_K: qs, sc, d, shape), so the blocks of the port's oracle and
+    of any oracle with the same layout are taken alike."""
     device = resolve_device(device)
     n, k = t.shape
-    d8 = torch.from_numpy(np.repeat(t.d, 8, axis=-1))       # [N, K/32] f32
-    dm8 = torch.from_numpy(np.repeat(t.dmin, 8, axis=-1))
-    es = (d8 * torch.from_numpy(t.sc).float()).to(torch.bfloat16)
-    em = (dm8 * torch.from_numpy(t.mn).float()).to(torch.bfloat16)
-    qs = torch.from_numpy(np.ascontiguousarray(t.qs, np.uint8))
-    return QuantLinear(fmt="q4_k", shape=(n, k), qs=qs.to(device),
-                       es=es.to(device), em=em.to(device))
+    if all(hasattr(t, f) for f in _Q4K_FIELDS):
+        d8 = torch.from_numpy(np.repeat(t.d, 8, axis=-1))   # [N, K/32] f32
+        dm8 = torch.from_numpy(np.repeat(t.dmin, 8, axis=-1))
+        es = (d8 * torch.from_numpy(t.sc).float()).to(torch.bfloat16)
+        em = (dm8 * torch.from_numpy(t.mn).float()).to(torch.bfloat16)
+        qs = torch.from_numpy(np.ascontiguousarray(t.qs, np.uint8))
+        return QuantLinear(fmt="q4_k", shape=(n, k), qs=qs.to(device),
+                           es=es.to(device), em=em.to(device))
+    if all(hasattr(t, f) for f in _Q6K_FIELDS):
+        d16 = torch.from_numpy(np.repeat(t.d, QK_K // QK6, axis=-1))
+        es = (d16 * torch.from_numpy(t.sc).float()).to(torch.bfloat16)
+        qs, qh = _pack_q6(torch.from_numpy(
+            np.ascontiguousarray(t.qs, np.uint8)).reshape(n, k))
+        return QuantLinear(fmt="q6_k", shape=(n, k), qs=qs.to(device),
+                           es=es.to(device), qh=qh.to(device))
+    raise NotImplementedError(f"from_oracle: {type(t).__name__} "
+                              "(the port has q4_k and q6_k only so far)")
 
 
 def dequantize(ql: QuantLinear, dtype=torch.float32) -> torch.Tensor:
-    """Dense logical-order [N, K]: w = q * f32(es) - f32(em)."""
+    """Dense logical-order [N, K]: w = q * f32(es) - f32(em) (q4_k),
+    w = f32(es) * (q - 32) (q6_k)."""
     n, k = ql.array_shape
+    if ql.fmt == "q6_k":
+        q = _q6_values(ql.qs, ql.qh).float() - 32.0         # [N, K/16, 16]
+        return (ql.es.float()[..., None] * q).reshape(n, k).to(dtype)
     p = ql.qs.reshape(n, k // QK, QK // 2)
     q = torch.cat([p & 0x0F, p >> 4], dim=-1).float()       # [N, K/32, 32]
     w = q * ql.es.float()[..., None] - ql.em.float()[..., None]
@@ -192,7 +274,7 @@ def qmatmul_ref(x: torch.Tensor, ql: QuantLinear,
 # ---------------------------------------------------------------------------
 
 def _block_scale(v: torch.Tensor) -> torch.Tensor:
-    """Per-block int8 scale of v [..., 16]: amax / 127, or 1 where amax is
+    """Per-block int8 scale of v [..., n]: amax / 127, or 1 where amax is
     0 (IEEE division, as the kernels compute it)."""
     amax = v.abs().amax(-1)
     return torch.where(amax == 0, torch.ones_like(amax), _div(amax, 127.0))
@@ -225,7 +307,7 @@ def qmatmul_q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """Plain version of the int8-activation matvec: y f32 [1, N] for
     x [1, K] (see the module docstring for the formula). The integer
     block dots are exact in f32 (|sum| < 2^24)."""
-    _fmt_check(ql.fmt)
+    _need(ql, "q4_k")
     n, k = ql.array_shape
     aq, bq, (c, xs, sa, sb) = quantize_activations_q8(x.reshape(-1))
     aqf, bqf = aq.float(), bq.float()
@@ -238,6 +320,71 @@ def qmatmul_q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
         z = sa * zl + sb * zp + c
         ys.append((ql.es[r:r + _Q8_ROWS].float() * z
                    - ql.em[r:r + _Q8_ROWS].float() * xs).sum(-1))
+    return torch.cat(ys)[None]
+
+
+def _need(ql: QuantLinear, fmt: str) -> None:
+    if ql.fmt != fmt:
+        raise ValueError(f"a {fmt} weight is needed here, got {ql.fmt}")
+
+
+# ---------------------------------------------------------------------------
+# q6_k products (the reference's _chunk6_kernel and _chunk6h_kernel)
+# ---------------------------------------------------------------------------
+
+def qmatmul_q6_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """Plain version of ``q6k_matvec``: y f32 [1, N] for x [1, K] f32,
+    y_n = sum_b es_b * sum_j x_j (q_j - 32) over the 16-blocks, in f32."""
+    _need(ql, "q6_k")
+    n, k = ql.array_shape
+    xb = x.float().reshape(k // QK6, QK6)
+    ys = []
+    for r in range(0, n, _Q8_ROWS):
+        q = _q6_values(ql.qs[r:r + _Q8_ROWS], ql.qh[r:r + _Q8_ROWS])
+        z = torch.einsum("nbj,bj->nb", q.float() - 32.0, xb)
+        ys.append((ql.es[r:r + _Q8_ROWS].float() * z).sum(-1))
+    return torch.cat(ys)[None]
+
+
+def quantize_activations_q6(x: torch.Tensor):
+    """Per-16-block int8 operands of x [K] for the hybrid q6_k matvec:
+    (aq, bq) int8 [K/16, 8], the quantized a = xl - xh/16 and b = xh/16 of
+    each block (xl, xh: its elements 0-7 and 8-15, the two nibbles of one
+    weight byte; scale amax / 127 over the block's 8 values), and sc f32
+    [3, K/16] holding sa, sb and cc = 8*sum(xh) - 32*sum(xl + xh). The int8
+    operands and scales are bit-equal to the reference's
+    ``_quant_rows_blockwise`` in ``_qmatmul_chunk6h`` for the same x."""
+    xb = x.float().reshape(-1, QK6)
+    xl, xh = xb[:, :QK6 // 2], xb[:, QK6 // 2:]
+    b = xh / 16.0                                # exact: a power of two
+    a = xl - b
+    sa, sb = _block_scale(a), _block_scale(b)
+    cc = 8.0 * xh.sum(-1) - 32.0 * (xl + xh).sum(-1)
+    return _q8(a, sa), _q8(b, sb), torch.stack([sa, sb, cc])
+
+
+def qmatmul_q6q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """Plain version of ``q6k_q8_matvec`` (the reference's
+    ``_chunk6h_kernel``): y f32 [1, N] for x [1, K] f32. Per 16-block,
+    z1 = sum(lo * aq) over the low nibbles and z2 = sum(p * bq) over the
+    bytes XOR 0x80 read as int8 (p = lo + 16*hi - 128) are exact integer
+    dots, zbit = sum(h * x) over the high 2 bits is f32, and
+    y = sum_b es * (sa*z1 + sb*z2 + cc + 16*zbit)."""
+    _need(ql, "q6_k")
+    n, k = ql.array_shape
+    xb = x.float().reshape(k // QK6, QK6)
+    aq, bq, (sa, sb, cc) = quantize_activations_q6(x.reshape(-1))
+    aqf, bqf = aq.float(), bq.float()
+    ys = []
+    for r in range(0, n, _Q8_ROWS):
+        p = ql.qs[r:r + _Q8_ROWS].reshape(-1, k // QK6, QK6 // 2)
+        z1 = torch.einsum("nbt,bt->nb", (p & 0x0F).float(), aqf)
+        z2 = torch.einsum("nbt,bt->nb", (p ^ 0x80).view(torch.int8).float(),
+                          bqf)
+        zbit = torch.einsum("nbj,bj->nb",
+                            _q6_high(ql.qh[r:r + _Q8_ROWS]).float(), xb)
+        ys.append((ql.es[r:r + _Q8_ROWS].float()
+                   * (sa * z1 + sb * z2 + cc + 16.0 * zbit)).sum(-1))
     return torch.cat(ys)[None]
 
 
@@ -257,21 +404,29 @@ def mlp_fused_ref(x: torch.Tensor, w_gu: QuantLinear,
 
 def _check_ql(ql: QuantLinear, device: torch.device) -> tuple[int, int]:
     """Raise unless the weight's arrays are what the kernels read."""
-    _fmt_check(ql.fmt)
+    _need(ql, "q4_k")
     n, k = ql.array_shape
     if k % QK_K:
         raise ValueError(f"q4_k kernels need K % {QK_K} == 0 (got {k})")
-    for name, t, dt, shape in (("qs", ql.qs, torch.uint8, (n, k // 2)),
-                               ("es", ql.es, torch.bfloat16, (n, k // QK)),
-                               ("em", ql.em, torch.bfloat16, (n, k // QK))):
-        if t.device != device or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: need contiguous {dt} {shape} on {device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if ql.qs.data_ptr() % 16:
-        raise ValueError("qs must be 16-byte aligned")
+    _check_arrays(device, (("qs", ql.qs, torch.uint8, (n, k // 2), 16),
+                           ("es", ql.es, torch.bfloat16, (n, k // QK), 2),
+                           ("em", ql.em, torch.bfloat16, (n, k // QK), 2)))
     return n, k
+
+
+def _check_arrays(device, arrays) -> None:
+    """Raise unless each (name, tensor, dtype, shape, alignment) is a
+    contiguous tensor of that dtype and shape on ``device`` whose data
+    starts at a multiple of the alignment."""
+    for name, t, dt, shape, align in arrays:
+        if t is None or t.device != device or t.dtype != dt \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            got = "None" if t is None else (
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{name}: need contiguous {dt} {shape} on "
+                             f"{device}, got {got}")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _check_weight(ql: QuantLinear, x: torch.Tensor) -> tuple[int, int]:
@@ -344,16 +499,85 @@ def q4k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return y
 
 
+def q6_hybrid_ok(k: int) -> bool:
+    """The reference's gate of its hybrid q6_k matvec (B == 1)."""
+    return k % 4096 == 0
+
+
+def q6_exact_ok(k: int) -> bool:
+    """The reference's gate of its exact-f32 q6_k matvec (B == 1)."""
+    return (k // QK6) % 128 == 0
+
+
+def _check_q6(x: torch.Tensor, ql: QuantLinear, name: str, ok
+              ) -> tuple[int, int]:
+    _need(ql, "q6_k")
+    n, k = ql.array_shape
+    _check_arrays(x.device, (
+        ("qs", ql.qs, torch.uint8, (n, k // 2), 16),
+        ("qh", ql.qh, torch.uint8, (n, k // 4), 8),
+        ("es", ql.es, torch.bfloat16, (n, k // QK6), 4)))
+    if x.dtype != torch.float32 or tuple(x.shape) != (1, k) \
+            or not x.is_contiguous() or not ok(k):
+        raise ValueError(f"{name}: x must be contiguous f32 [1, {k}] and K "
+                         f"inside the kernel's gate, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    return n, k
+
+
+def _q6_launch(name: str, x: torch.Tensor, ql: QuantLinear, ok
+               ) -> torch.Tensor:
+    n, k = _check_q6(x, ql, name, ok)
+    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
+    rc = getattr(_build.lib(), name)(
+        x.data_ptr(), ql.qs.data_ptr(), ql.qh.data_ptr(), ql.es.data_ptr(),
+        y.data_ptr(), n, k, _build.stream_of(x))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def q6k_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """y [1, N] f32 = x [1, K] f32 . deq(W)^T for a q6_k W with
+    (K/16) % 128 == 0, exact f32 activations."""
+    if not kernels_for(x):
+        return qmatmul_q6_ref(x, ql)
+    return _q6_launch("q6k_matvec", x, ql, q6_exact_ok)
+
+
+def q6k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """y [1, N] f32 = the hybrid int8 / f32 matvec of x [1, K] f32 with a
+    q6_k W, K % 4096 == 0."""
+    if not kernels_for(x):
+        return qmatmul_q6q8_ref(x, ql)
+    return _q6_launch("q6k_q8_matvec", x, ql, q6_hybrid_ok)
+
+
 def qmatmul(x: torch.Tensor, ql: QuantLinear,
             x_quant8: bool = False) -> torch.Tensor:
     """y [B, N] = x [B, K] @ deq(W)^T in x's dtype, x in logical order.
 
-    B == 1 runs the int8-activation matvec when ``x_quant8`` and the
+    q4_k: B == 1 runs the int8-activation matvec when ``x_quant8`` and the
     reference's gate allow it (its ``_chunk8_kernel``), else the exact-f32
-    matvec (its ``_chunk_kernel`` / ``_vpu2_kernel``); B >= 2 the bf16 GEMM
-    (its ``_mxu_kernel`` and, for its ``pipelined`` prefill range,
-    ``_pipe_sub_kernel``: the same function, so the port has one kernel and
-    no ``pipelined`` flag)."""
+    matvec (its ``_chunk_kernel`` / ``_vpu2_kernel`` / ``_vpu_e_kernel``);
+    B >= 2 the bf16 GEMM (its ``_mxu_kernel`` and, for its ``pipelined``
+    prefill range, ``_pipe_sub_kernel``: the same function, so the port has
+    one kernel and no ``pipelined`` flag).
+
+    q6_k, as the reference dispatches it (``x_quant8`` has no effect): B == 1
+    runs the hybrid matvec at K % 4096 == 0 (its ``_chunk6h_kernel``), else
+    the exact-f32 one at (K/16) % 128 == 0 (its ``_chunk6_kernel``); every
+    other shape takes its ``qmatmul_xla`` with bf16 compute, a plain
+    dequantize + matmul and no kernel in the JAX package either."""
+    if ql.fmt == "q6_k":
+        k = ql.array_shape[1]
+        if x.shape[0] == 1 and q6_hybrid_ok(k):
+            y = q6k_q8_matvec(x.float().contiguous(), ql)
+        elif x.shape[0] == 1 and q6_exact_ok(k):
+            y = q6k_matvec(x.float().contiguous(), ql)
+        else:
+            y = qmatmul_ref(x, ql, torch.bfloat16)
+        return y.to(x.dtype)
     if x.shape[0] == 1:
         if x_quant8 and q8_matvec_supported(ql):
             y = q4k_q8_matvec(x.float().contiguous(), ql)

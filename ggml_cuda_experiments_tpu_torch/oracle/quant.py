@@ -1,9 +1,11 @@
-"""GGML Q4_K block quantization in NumPy: the executable specification the
-port's device quantizer and kernels are held to.
+"""GGML Q4_K and Q6_K block quantization in NumPy: the executable
+specification the port's device quantizers and kernels are held to.
 
-The port's own copy of the Q4_K part of the JAX package's
-``oracle/quant.py`` (same arithmetic, same planar layout), so the port
-imports nothing of that package. Layout, per-32-block planar nibbles:
+The port's own copy of the Q4_K and Q6_K parts of the JAX package's
+``oracle/quant.py`` (same arithmetic, same planar layouts), so the port
+imports nothing of that package.
+
+Q4_K, per-32-block planar nibbles:
 
     qs   uint8 [..., N/2]    byte j of a block: element j (low nibble),
                              element j + 16 (high nibble)
@@ -13,6 +15,15 @@ imports nothing of that package. Layout, per-32-block planar nibbles:
     dmin f32   [..., N/256]  superblock min scale (fp16-rounded)
 
 Dequantization: x = (d * sc) * q - (dmin * mn), q in [0, 15].
+
+Q6_K, one byte per element (GGML's ql / qh bit packing is a storage
+detail the port's container makes its own):
+
+    qs   uint8 [..., N]      q + 32, values 0..63
+    sc   int8  [..., N/16]   signed sub-scales
+    d    f32   [..., N/256]  superblock scale (fp16-rounded)
+
+Dequantization: x = (d * sc) * (q - 32), per 16-element sub-block.
 """
 
 from __future__ import annotations
@@ -97,3 +108,47 @@ def dequantize_q4_k(t: Q4_K) -> np.ndarray:
     eff_scale = (t.d[..., None] * sc).reshape(*lead, n // QK)
     eff_min = (t.dmin[..., None] * mn).reshape(*lead, n // QK)
     return (q * eff_scale[..., None] - eff_min[..., None]).reshape(t.shape)
+
+
+QK6 = 16         # elements per Q6_K scale block (16 per 256-superblock)
+
+
+@dataclasses.dataclass
+class Q6_K:
+    """Planar Q6_K tensor: symmetric 6-bit, int8 scales per 16-element
+    sub-block of a 256-element superblock; x ~ (d * sc_j) * (q - 32)."""
+    qs: np.ndarray
+    sc: np.ndarray
+    d: np.ndarray
+    shape: tuple
+
+
+def quantize_q6_k(x: np.ndarray) -> Q6_K:
+    x = np.asarray(x, np.float32)
+    *lead, n = x.shape
+    assert n % QK_K == 0, f"last dim {n} must be a multiple of {QK_K}"
+    nsb = n // QK_K
+    xb = x.reshape(*lead, nsb, QK_K // QK6, QK6)
+    # per-sub-block signed scale: the value of largest |x| (the first such
+    # index on ties) maps to q = -32 exactly
+    idx = np.argmax(np.abs(xb), axis=-1, keepdims=True)
+    maxv = np.take_along_axis(xb, idx, axis=-1)[..., 0]
+    scale_f = maxv / -32.0
+    d = _f16_round(np.max(np.abs(scale_f), axis=-1) / 127.0)
+    sc = np.clip(np.round(scale_f * np_div(np.ones_like(d), d)[..., None]),
+                 -127, 127).astype(np.int8)
+    # quantize against the decoded scale, so dequantization inverts exactly
+    eff = d[..., None] * sc.astype(np.float32)
+    inv_s = np_div(np.ones_like(eff), eff)
+    q = np.clip(np.round(xb * inv_s[..., None]), -32, 31) + 32
+    return Q6_K(qs=q.astype(np.uint8).reshape(*lead, n),
+                sc=sc.reshape(*lead, n // QK6), d=d, shape=tuple(x.shape))
+
+
+def dequantize_q6_k(t: Q6_K) -> np.ndarray:
+    *lead, n = t.shape
+    nsb = n // QK_K
+    q = t.qs.reshape(*lead, n // QK6, QK6).astype(np.float32) - 32.0
+    sc = t.sc.reshape(*lead, nsb, QK_K // QK6).astype(np.float32)
+    eff = (t.d[..., None] * sc).reshape(*lead, n // QK6)
+    return (q * eff[..., None]).reshape(t.shape)

@@ -14,7 +14,11 @@ are exact and its operands equal the plain version's), the fused MLP,
 attention and layer kernels 5e-3 * max (the JAX package's bound for its
 fused kernels: an f32 ulp in a value before its int8 quantization may move
 one step), k_new / v_new 2e-2 * max(1, max); model_step equals chained
-layer_step launches."""
+layer_step launches. The q6_k matvecs 1e-4 * max (exact f32, and the hybrid
+whose int8 operands equal the plain version's); flash_decode on an int8 /
+fp8 cache 2e-3 * max in MHA (the kernel and its plain version share the
+quantization; only f32 sums differ in order) and 1e-2 * max with GQA
+groups, whose p * v_scale is rounded to bf16 as in the reference."""
 
 import dataclasses
 
@@ -69,6 +73,55 @@ def test_q4k_matvec(dev, n, k):
     assert qm.LAUNCHES["q4k_matvec"] == before + 1
 
 
+def test_q4k_matvec_any_k_after_a_smaller_call(dev):
+    """K = 5632 (tinyllama's w_down, K/32 = 176) and 11008 (llama2-7b's
+    unpadded w_down: 50.9 KB of shared memory, above the 48 KB default, so
+    the kernel's limit is raised as the calls grow) after K = 4096."""
+    for k in (4096, 5632, 11008):
+        ql = qm.quantize(_randn(40, 96, k, scale=k ** -0.5).to(dev))
+        before = qm.LAUNCHES["q4k_matvec"]
+        _check(qm.q4k_matvec, _randn(41, 1, k).to(dev), ql, tol=1e-4)
+        assert qm.LAUNCHES["q4k_matvec"] == before + 1
+
+
+def _q6_weight(seed, n, k, dev):
+    w = _randn(seed, n, k, scale=k ** -0.5)
+    w[0, :16] = 0.01
+    w[0, 3], w[0, 9] = 0.5, -0.5             # a +/- tie, + first
+    w[1, 16:32] = -0.02
+    w[1, 20], w[1, 21] = -0.25, 0.25         # a -/+ tie, - first
+    w[2, :16] = 0.0
+    return w.to(dev)
+
+
+def test_q6k_quantizer_on_the_card_is_bit_equal(dev):
+    """The device quantizer on the card (rows with ties for the largest |x|
+    included) against the NumPy oracle."""
+    from ggml_cuda_experiments_tpu_torch.oracle import quant as quant_ref
+    w = _q6_weight(42, 64, 4096, dev)
+    got = qm.quantize(w, "q6_k")
+    want = qm.from_oracle(quant_ref.quantize_q6_k(w.cpu().numpy()),
+                          device="cpu")
+    for f in ("qs", "qh", "es"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("n,k", [(300, 2048), (37, 6144), (4096, 2048)])
+def test_q6k_matvec(dev, n, k):
+    ql = qm.quantize(_q6_weight(43, n, k, dev), "q6_k")
+    before = qm.LAUNCHES["q6k_matvec"]
+    _check(qm.q6k_matvec, _randn(44, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES["q6k_matvec"] == before + 1
+
+
+@pytest.mark.parametrize("n,k", [(300, 4096), (37, 8192), (4096, 4096)])
+def test_q6k_q8_matvec(dev, n, k):
+    ql = qm.quantize(_q6_weight(45, n, k, dev), "q6_k")
+    before = qm.LAUNCHES["q6k_q8_matvec"]
+    _check(qm.q6k_q8_matvec, _randn(46, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES["q6k_q8_matvec"] == before + 1
+
+
 @pytest.mark.parametrize("m", [2, 17, 70])
 def test_q4k_gemm(dev, m):
     ql = qm.quantize(_randn(2, 130, 512, scale=512 ** -0.5).to(dev))
@@ -86,6 +139,24 @@ def test_flash_decode(dev, hq, hkv, d, splits):
     lengths = torch.tensor([0, 37, 320], dtype=torch.int32, device=dev)
     _check(fd.flash_decode, q, k, v, lengths, layer=2, kv_splits=splits,
            tol=1e-2)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 4, 64)])
+@pytest.mark.parametrize("splits", [None, 1, 5])
+def test_flash_decode_quantized(dev, fmt, hq, hkv, d, splits):
+    L, B, S = 3, 3, 320
+    q = _randn(47, B, hq, d).to(dev, torch.bfloat16)
+    k, ks = llama._quantize_rowwise(_randn(48, L, B, hkv, S, d).to(dev), fmt)
+    v, vs = llama._quantize_rowwise(_randn(49, L, B, hkv, S, d).to(dev), fmt)
+    lengths = torch.tensor([0, 37, 320], dtype=torch.int32, device=dev)
+    before = dict(fd.LAUNCHES)
+    # a GQA group rounds p * v_scale to bf16: one ulp of expf between the
+    # kernel and its plain version can flip that rounding (2^-8 of a term)
+    _check(fd.flash_decode, q, k, v, lengths, layer=2, kv_splits=splits,
+           k_scale=ks, v_scale=vs, tol=2e-3 if hq == hkv else 1e-2)
+    assert fd.LAUNCHES["flash_decode_q"] == before["flash_decode_q"] + 1
+    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"]
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (2, 2, 128)])
@@ -298,9 +369,31 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q[:, :, None], kv, kv)              # D = 96
     with pytest.raises(ValueError):                           # K % 4096
         qm.q4k_q8_matvec(torch.zeros((1, 256), device=dev), ql)
+    q6 = qm.quantize(_randn(0, 64, 1024).to(dev), "q6_k")
+    with pytest.raises(ValueError):                   # (K/16) % 128, K % 4096
+        qm.q6k_matvec(torch.zeros((1, 1024), device=dev), q6)
+    with pytest.raises(ValueError):
+        qm.q6k_q8_matvec(torch.zeros((1, 1024), device=dev), q6)
+    with pytest.raises(ValueError):                   # a q4_k weight
+        qm.q6k_matvec(torch.zeros((1, 256), device=dev), ql)
+    kq = torch.zeros((1, 2, 64, 64), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 2, 64), device=dev)
+    q64 = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
+    fd.flash_decode(q64, kq, kq, k_scale=sc, v_scale=sc)       # taken
+    with pytest.raises(ValueError):                   # bf16 scales
+        fd.flash_decode(q64, kq, kq, k_scale=sc.bfloat16(),
+                        v_scale=sc.bfloat16())
 
 
 def test_debug_model_on_the_card_matches_the_cpu(dev):
+    _model_on_the_card_matches_the_cpu(dev, False)
+
+
+def test_int8_cache_model_on_the_card_matches_the_cpu(dev):
+    _model_on_the_card_matches_the_cpu(dev, "int8")
+
+
+def _model_on_the_card_matches_the_cpu(dev, quantized):
     cfg = dataclasses.replace(PRESETS["debug"], n_layers=2)
     params = llama.quantize_params(
         llama.init_weights(cfg, seed=0, device="cpu"), "q4_k")
@@ -308,7 +401,8 @@ def test_debug_model_on_the_card_matches_the_cpu(dev):
     prompt = torch.arange(1, 9)[None]
     outs = []
     for p, device in ((params, "cpu"), (moved, dev)):
-        cache = llama.KVCache.create(cfg, 1, 256, device=device)
+        cache = llama.KVCache.create(cfg, 1, 256, quantized=quantized,
+                                     device=device)
         logits, cache = llama.prefill(p, cfg, prompt.to(device), cache)
         seq = [logits.cpu()]
         for t in (3, 5, 7):
@@ -323,8 +417,9 @@ def test_debug_model_on_the_card_matches_the_cpu(dev):
 def _to(params, dev):
     def mv(w):
         if isinstance(w, qm.QuantLinear):
-            return dataclasses.replace(w, qs=w.qs.to(dev), es=w.es.to(dev),
-                                       em=w.em.to(dev))
+            return dataclasses.replace(w, **{
+                f: getattr(w, f).to(dev) for f in ("qs", "es", "em", "qh")
+                if getattr(w, f) is not None})
         return w.to(dev)
     out = {k: mv(v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: mv(v) for k, v in layer.items()}

@@ -86,7 +86,7 @@ def _jax_tree(cfg, monkeypatch):
                                   quantize_head=False)
 
 
-def _jax_step(params, cfg, monkeypatch):
+def _jax_step(params, cfg, monkeypatch, quantized=False):
     calls = []
     D = cfg.head_dim
 
@@ -117,7 +117,7 @@ def _jax_step(params, cfg, monkeypatch):
         m.setattr(jlk, "layer_step", record("layer_step", lambda: (
             jnp.zeros((1, cfg.dim)), jnp.zeros((hkv, D)),
             jnp.zeros((hkv, D)))))
-        cache = jl.KVCache.create(cfg, 1, 256)
+        cache = jl.KVCache.create(cfg, 1, 256, quantized=quantized)
         jl._forward(params, cfg, jnp.zeros((1, 1), jnp.int32), cache,
                     cache.lengths[:, None], decode=True)
     return calls
@@ -159,7 +159,7 @@ def _port_tree(cfg, monkeypatch):
     return params
 
 
-def _port_step(params, cfg, monkeypatch):
+def _port_step(params, cfg, monkeypatch, quantized=False):
     calls = []
     D = cfg.head_dim
 
@@ -191,18 +191,18 @@ def _port_step(params, cfg, monkeypatch):
         m.setattr(tlk, "layer_step", record("layer_step", lambda: (
             torch.zeros((1, cfg.dim)), torch.zeros((hkv, D)),
             torch.zeros((hkv, D)))))
-        cache = tl.KVCache.create(cfg, 1, 256, device="cpu")
+        cache = tl.KVCache.create(cfg, 1, 256, quantized=quantized,
+                                  device="cpu")
         tl._forward(params, cfg, torch.zeros((1, 1), dtype=torch.int64),
                     cache, cache.lengths[:, None].clone(), decode=True)
     return calls
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_decode_branches_match_jax(shape, monkeypatch):
+def _trees(shape, monkeypatch):
+    """(JAX, port) configs, and the trees by name: quantized, hperm (the
+    deploy layout) and per_layer (the per-layer packs, no model pack)."""
     jcfg, tcfg = _cut(JPRESETS[shape]), _cut(PRESETS[shape])
     jq, tq = _jax_tree(jcfg, monkeypatch), _port_tree(tcfg, monkeypatch)
-    # the deploy layout (permute_hidden_params) and, without the model
-    # pack, the per-layer packs
     jh = jl.permute_hidden_params(jq, jcfg)
     th = tl.permute_hidden_params(tq, tcfg)
     assert ("m_pack" in jh) == ("m_pack" in th)
@@ -212,8 +212,15 @@ def test_decode_branches_match_jax(shape, monkeypatch):
         if "w_gu_f" in lay else lay for lay in jh["layers"]])
     tlay = dict({k: v for k, v in th.items() if k != "m_pack"}, layers=[
         dict(lay, w_pack=tlk.pack_layers([lay])) for lay in th["layers"]])
-    trees = {"quantized": (jq, tq), "hperm": (jh, th),
-             "per_layer": (jlay, tlay)}
+    return jcfg, tcfg, {"quantized": (jq, tq), "hperm": (jh, th),
+                        "per_layer": (jlay, tlay)}
+
+
+def _branches(shape, monkeypatch, quantized=False):
+    """Every flag combination through both packages' decode step (asserted
+    equal); returns the set of branches taken (the calls other than the
+    linears)."""
+    jcfg, tcfg, trees = _trees(shape, monkeypatch)
     branches = set()
     for values in itertools.product((False, True), repeat=len(FLAGS)):
         flags = dict(zip(FLAGS, values))
@@ -222,11 +229,28 @@ def test_decode_branches_match_jax(shape, monkeypatch):
         for name, (jp, tp) in trees.items():
             if name != "quantized" and not flags["hperm"]:
                 continue
-            want = _jax_step(jp, jc, monkeypatch)
-            got = _port_step(tp, tc, monkeypatch)
-            assert got == want, (shape, flags, name)
+            want = _jax_step(jp, jc, monkeypatch, quantized)
+            got = _port_step(tp, tc, monkeypatch, quantized)
+            assert got == want, (shape, flags, name, quantized)
             branches.add(tuple(c[0] for c in want if c[0] != "linear"))
+    return branches
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_decode_branches_match_jax(shape, monkeypatch):
+    branches = _branches(shape, monkeypatch)
     # dim 4096 reaches all six: unfused, fused MLP, fused attention, both,
     # model_step, layer_step; the small shapes stay unfused
     assert len(branches) == (1 if shape in ("debug", "tinyllama-1.1b")
                              else 6), branches
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_cache_closes_the_fused_gates(fmt, monkeypatch):
+    """An int8 / fp8 cache closes the fused attention and the layer kernel
+    in both packages (their kernels read a bf16 cache); the fused MLP stays
+    open. At llama2-7b's shape every flag combination then takes the
+    unfused attention (flash_decode with scales), with or without the
+    fused MLP."""
+    branches = _branches("llama2-7b", monkeypatch, quantized=fmt)
+    assert branches == {("flash_decode",), ("flash_decode", "mlp_fused")}

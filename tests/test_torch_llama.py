@@ -221,9 +221,8 @@ def test_generate_is_deterministic_greedy():
     assert ((out1 >= 0) & (out1 < DEBUG.vocab_size)).all()
 
 
-@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache",
-                                  "quantized_kv", "q8_0", "x_prepermuted",
-                                  "hperm_moe"])
+@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache", "q8_0",
+                                  "x_prepermuted", "hperm_moe"])
 def test_unported_options_raise(case):
     params = tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
                                 "q4_k")
@@ -235,8 +234,6 @@ def test_unported_options_raise(case):
                            else {case: 256}))
             tl.prefill(params, cfg, prompt,
                        tl.KVCache.create(cfg, 1, 256, device="cpu"))
-        elif case == "quantized_kv":
-            tl.KVCache.create(TDEBUG, 1, 256, quantized=True, device="cpu")
         elif case == "x_prepermuted":
             tl.apply_linear(torch.zeros((1, 256)), params["lm_head"],
                             x_prepermuted=True)

@@ -1,0 +1,280 @@
+"""The port's Q6_K-E container and q6_k products against the JAX package:
+the port's own Q6_K oracle against the JAX one, the device quantizer (ties
+included) against the oracle, dequantization against ``dequantize_jnp``,
+the two matvec plain versions and the dense routes against the JAX
+``qmatmul`` (Pallas in interpret mode), and the Q4_K_M mix (q4_k layers, a
+q6_k head) through ``generate`` and the ``Engine``.
+
+Tolerances: the quantizer and dequantization bit-exact; the exact-f32
+matvec (``_chunk6_kernel``, K = 2048) 1e-4 * max (the JAX test holds its
+kernel to 5e-4 against the dense product, tests/test_quant_matmul.py::
+test_q6_chunk_kernel_matvec); the hybrid matvec (``_chunk6h_kernel``,
+K % 4096 == 0) 1e-3 * max, since its int8 operands are reproduced exactly
+(asserted) and only f32 sums differ in order (the JAX test's own bound is
+2e-2 against the dense product); the dense bf16 / f32 routes 3e-2 * max
+(test_q6_fallback_paths). Model logits 2e-2 * max, 3e-2 with x_quant8;
+greedy tokens exact."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ggml_cuda_experiments_tpu.models import engine as je
+from ggml_cuda_experiments_tpu.models import llama as jl
+from ggml_cuda_experiments_tpu.models.config import PRESETS
+from ggml_cuda_experiments_tpu.oracle import quant as jquant
+from ggml_cuda_experiments_tpu.ops import quant_matmul as jqm
+from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models import engine as te
+from ggml_cuda_experiments_tpu_torch.models import llama as tl
+from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
+from ggml_cuda_experiments_tpu_torch.oracle import quant as tquant
+from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as tqm
+
+
+def _weight(seed, n, k):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+
+
+def _with_ties(w):
+    """Rows whose 16-blocks tie +v and -v for the largest |x| (either sign
+    first), an all-zero block, a constant block and one outlier."""
+    w = w.copy()
+    w[0, :16] = 0.01
+    w[0, 3], w[0, 9] = 0.5, -0.5            # + first
+    w[1, 16:32] = -0.02
+    w[1, 20], w[1, 21] = -0.25, 0.25        # - first
+    w[2, :16] = 0.0
+    w[3, :16] = 0.125
+    w[4, 40] = 8.0
+    return w
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= tol * scale, f"err {err} vs {tol} * {scale}"
+
+
+def test_port_oracle_equals_the_jax_oracle():
+    w = _with_ties(_weight(0, 8, 512))
+    got, want = tquant.quantize_q6_k(w), jquant.quantize_q6_k(w)
+    for f in ("qs", "sc", "d"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        assert getattr(got, f).dtype == getattr(want, f).dtype, f
+    assert got.shape == want.shape
+    assert np.array_equal(tquant.dequantize_q6_k(got),
+                          jquant.dequantize_q6_k(want))
+
+
+@pytest.mark.parametrize("shape", [(16, 512), (8, 4096)])
+def test_quantize_bit_equal_to_oracle(shape):
+    w = _with_ties(_weight(1, *shape))
+    t = jquant.quantize_q6_k(w)
+    assert t.sc[0, 0] < 0 and t.sc[1, 1] > 0        # the ties kept the sign
+    got = tqm.quantize(torch.from_numpy(w), "q6_k")
+    want = tqm.from_oracle(t, device="cpu")
+    assert got.fmt == want.fmt == "q6_k" and got.em is None
+    for f in ("qs", "qh", "es"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    es = (np.repeat(t.d, 16, axis=-1) * t.sc.astype(np.float32))
+    assert np.array_equal(got.es.float().numpy(),
+                          es.astype(jnp.bfloat16).astype(np.float32))
+    assert got.nbytes == shape[0] * shape[1] * 7 // 8
+
+
+@pytest.mark.parametrize("k", [512, 4096])     # global and segment-local
+def test_dequant_bit_equal_to_dequantize_jnp(k):
+    t = jquant.quantize_q6_k(_with_ties(_weight(2, 16, k)))
+    want = np.asarray(jqm.dequantize_jnp(jqm.from_oracle(t)))
+    got = tqm.dequantize(tqm.from_oracle(t, device="cpu")).numpy()
+    assert np.array_equal(got, want)
+
+
+def _pair(seed, n, k, batch=1):
+    t = jquant.quantize_q6_k(_weight(seed, n, k))
+    x = np.random.default_rng(seed + 1).normal(size=(batch, k)).astype(
+        np.float32)
+    return jqm.from_oracle(t), tqm.from_oracle(t, device="cpu"), x
+
+
+def test_exact_matvec_matches_jax():
+    """K = 2048 (tinyllama's head width): _chunk6_kernel."""
+    jw, tw, x = _pair(3, 256, 2048)
+    want = np.asarray(jqm.qmatmul(jnp.asarray(x), jw))
+    got = tqm.qmatmul_q6_ref(torch.from_numpy(x), tw)
+    _close(got, want, 1e-4)
+    assert torch.equal(tqm.qmatmul(torch.from_numpy(x), tw), got)
+
+
+@pytest.mark.parametrize("k", [4096, 8192])
+def test_hybrid_matvec_matches_jax(k):
+    """K % 4096 == 0 (the llama2-7b head width): _chunk6h_kernel."""
+    jw, tw, x = _pair(4, 256, k)
+    want = np.asarray(jqm.qmatmul(jnp.asarray(x), jw))
+    got = tqm.qmatmul_q6q8_ref(torch.from_numpy(x), tw)
+    _close(got, want, 1e-3)
+    assert torch.equal(tqm.qmatmul(torch.from_numpy(x), tw, x_quant8=True),
+                       got)
+
+
+def test_hybrid_int8_operands_bit_equal():
+    """The hybrid's int8 activations and their scales are the reference's,
+    read back from its segment-local byte-lane order (byte-lane i carries
+    16-block (i // 1024) * 128 + i % 128, elements (i % 1024) // 128 and
+    that + 8)."""
+    k = 8192
+    x = np.random.default_rng(5).normal(size=(k,)).astype(np.float32)
+    x[:16] = 0.0                                  # a zero block: scale 1
+    xp = np.asarray(jqm.permute_activations_q6(jnp.asarray(x[None])))[0]
+    kh, n_segs = k // 2, k // 2048
+    xl, xh = jnp.asarray(xp[:kh]), jnp.asarray(xp[kh:])
+    jaq, jsa = jqm._quant_rows_blockwise(xl - xh / 16.0, k // 16, n_segs)
+    jbq, jsb = jqm._quant_rows_blockwise(xh / 16.0, k // 16, n_segs)
+    aq, bq, (sa, sb, cc) = tqm.quantize_activations_q6(torch.from_numpy(x))
+    i = np.arange(kh)
+    blk, u = (i // 1024) * 128 + i % 128, (i % 1024) // 128
+    assert np.array_equal(aq.numpy()[blk, u], np.asarray(jaq))
+    assert np.array_equal(bq.numpy()[blk, u], np.asarray(jbq))
+    assert np.array_equal(sa.numpy(), np.asarray(jsa))
+    assert np.array_equal(sb.numpy(), np.asarray(jsb))
+    assert sa[0] == sb[0] == 1.0
+    want_cc = (8.0 * jqm._block_sums(xh, k // 16, n_segs)
+               - 32.0 * jqm._block_sums(xl + xh, k // 16, n_segs))
+    _close(cc, want_cc, 1e-6)
+
+
+@pytest.mark.parametrize("rows,k", [(1, 1024), (8, 2048), (64, 2048)])
+def test_dense_routes(rows, k):
+    """B = 1 at K = 1024 and 2-32 rows: the reference's qmatmul_xla with bf16
+    compute (through qmatmul); 33 rows and more: with f32 compute (through
+    apply_linear, which keeps q6_k out of the GEMM)."""
+    jw, tw, x = _pair(6, 128, k, rows)
+    xt = torch.from_numpy(x)
+    want = np.asarray(jl.apply_linear(jnp.asarray(x), jw))
+    before = dict(tqm.LAUNCHES)
+    got = tl.apply_linear(xt, tw)
+    assert tqm.LAUNCHES == before
+    _close(got, want, 3e-2)
+    dtype = torch.bfloat16 if rows <= 32 else torch.float32
+    assert torch.equal(got, tqm.qmatmul_ref(xt, tw, dtype))
+
+
+def test_other_head_formats_raise():
+    dense = tl.init_weights(ModelConfig(**_cfg_kw(PRESETS["debug"])),
+                            seed=0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tl.quantize_params(dense, "q4_k", head_fmt="q8_0")
+    with pytest.raises(NotImplementedError):
+        tl.quantize_params(dense, "q6_k")
+
+
+# ---------------------------------------------------------------- models
+
+def _cfg_kw(cfg, **over):
+    return {**dataclasses.asdict(cfg), **over}
+
+
+# llama2-7b widths (the intermediate padded to 12288, so the fused MLP's
+# gate is open), one layer, vocab 512: the head is [512, 4096], so the
+# hybrid q6_k matvec
+KW_7B = _cfg_kw(PRESETS["llama2-7b"], n_layers=1, vocab_size=512,
+                max_seq_len=512)
+
+
+@pytest.fixture(scope="module")
+def q4km_7b():
+    jcfg = type(PRESETS["debug"])(**KW_7B)
+    jp = jl.init_weights(jcfg, seed=1, as_numpy=True)
+    dense = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
+    jq = jl.quantize_params(jp, "q4_k", head_fmt="q6_k")
+    tq = tl.quantize_params(convert.params_from_jax(
+        dense, ModelConfig(**KW_7B), device="cpu"), "q4_k", head_fmt="q6_k")
+    return jq, tq
+
+
+def _decode_pair(jq, tq, jc, tc, steps, cache_kw=None):
+    """Prefill of an 8-token prompt and ``steps`` greedy steps in both
+    packages; returns (JAX logits, port logits) stacked, tokens asserted
+    equal at every step."""
+    cache_kw = cache_kw or {}
+    prompt = np.arange(1, 9, dtype=np.int32)[None]
+    jcache = jl.KVCache.create(jc, 1, 256, **cache_kw)
+    tcache = tl.KVCache.create(tc, 1, 256, device="cpu", **cache_kw)
+    jlog, jcache = jl.prefill(jq, jc, jnp.asarray(prompt), jcache)
+    tlog, tcache = tl.prefill(tq, tc, torch.from_numpy(prompt), tcache)
+    jlogs, tlogs = [np.asarray(jlog)], [tlog.numpy()]
+    for _ in range(steps):
+        jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
+        ttok = torch.argmax(tlog, -1).to(torch.int32)
+        assert int(jtok[0]) == int(ttok[0])
+        jlog, jcache = jl.decode_step(jq, jc, jtok, jcache)
+        tlog, tcache = tl.decode_step(tq, tc, ttok, tcache)
+        jlogs.append(np.asarray(jlog))
+        tlogs.append(tlog.numpy())
+    j, t = np.stack(jlogs), np.stack(tlogs)
+    assert np.array_equal(j.argmax(-1), t.argmax(-1))
+    return j, t
+
+
+@pytest.mark.parametrize("config", ["preset", "bench"])
+def test_q4km_generate_7b_width_matches_jax(q4km_7b, config, monkeypatch):
+    """The preset's decode (fused MLP) and bench.py's (x_quant8 + hperm:
+    model_step, then the head in logical order); the head runs the hybrid
+    q6_k matvec once per prefill and per decode step. The fused MLP's int8
+    activations move a whole step on a one-ulp flip of h, so the error is
+    seed-dependent (1.6-2.7% of max over seeds 1-12 in the preset's
+    configuration, the q6_k head or not): seed 1 keeps it under the bounds
+    and is free of ties (JAX's top-2 logit gap >= 0.1, seven bf16 steps,
+    at every step, asserted)."""
+    jq, tq = q4km_7b
+    flags = {} if config == "preset" else dict(x_quant8=True, hperm=True)
+    jc = type(PRESETS["debug"])(**{**KW_7B, **flags})
+    tc = ModelConfig(**{**KW_7B, **flags})
+    if config == "bench":
+        jq = jax.device_put(jl.permute_hidden_params(jq, jc))
+        tq = tl.permute_hidden_params(tq, tc)
+        assert "m_pack" in jq and "m_pack" in tq
+    heads = []
+    hybrid = tqm.q6k_q8_matvec
+    monkeypatch.setattr(tqm, "q6k_q8_matvec",
+                        lambda *a: heads.append(1) or hybrid(*a))
+    steps = 3
+    j, t = _decode_pair(jq, tq, jc, tc, steps)
+    assert len(heads) == 1 + steps
+    top2 = np.sort(j, -1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0]).min() >= 0.1
+    _close(t, j, 2e-2 if config == "preset" else 3e-2)
+
+
+def test_q4km_engine_matches_jax():
+    """The Engine with q4_k layers and a q6_k head at debug size (the head
+    [512, 256] takes the dense bf16 route at every batch), token-exact
+    against the JAX Engine and the port's own generate."""
+    cfg = dataclasses.replace(PRESETS["debug"], fuse_mlp=False,
+                              fuse_attn=False, fuse_layer=False)
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    jp = jl.init_weights(cfg, seed=11)
+    tp = convert.params_from_jax(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jp), tcfg, device="cpu")
+    jq = jl.quantize_params(jp, "q4_k", head_fmt="q6_k")
+    tq = tl.quantize_params(tp, "q4_k", head_fmt="q6_k")
+    assert tq["lm_head"].fmt == "q6_k"
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 12, 9)]
+    kw = dict(max_batch=4, page_size=32, n_pages=64, max_seq_len=256)
+    outs = []
+    for eng in (te.Engine(tq, tcfg, **kw), je.Engine(jq, cfg, **kw)):
+        rids = [eng.add_request(p, max_new_tokens=5) for p in prompts]
+        done = eng.run_to_completion()
+        outs.append([done[r] for r in rids])
+    assert outs[0] == outs[1]
+    assert outs[0] == [tl.generate(tq, tcfg, torch.tensor([p]), 5)[0].tolist()
+                       for p in prompts]
