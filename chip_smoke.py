@@ -44,11 +44,27 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      steady-state tok/s, pool bytes, peak memory and the device's busy
      share of one engine step; one batched decode step forced layer by
      layer against the plain versions (within 2e-2 * max);
-  5d. (after 6, on its own weights) tinyllama-1.1b at full width and 22
-     layers with a q6_k head: three requests through generate, the counts
-     asserted (q6k_matvec per prefill and step, q4k_matvec launches by K,
-     w_down at K = 5632), TTFT / decode rate, and request 1 forced layer by
-     layer against the plain versions.
+  4e. the Q8_0 / Q4_0 kernels (q80_matvec, q40_matvec, q40_q8_matvec,
+     q80_gemm, q40_gemm) at the 7B and tinyllama shapes, and the device
+     quantizer of both formats against the oracle;
+  5e. (after 6, on the same seed's dense weights, made again) llama2-7b in
+     Q8_0: the three requests through generate in the preset's
+     configuration (unfused: q80_matvec per decode linear and the head,
+     q80_gemm per prefill linear), counts asserted, TTFT / decode rate,
+     request 1 forced layer by layer;
+  5f. the same in Q4_0, in the preset's configuration (q40_matvec,
+     q40_gemm; forced layer by layer) and bench.py's (q40_q8_matvec on
+     every decode linear and the head);
+  6b. the Engine on the Q4_0 weights over an int8 pool: 4 ragged requests
+     through 8 slots, prefills in 128-token chunks, q40_gemm at M = 8 in
+     every decode step, counts asserted, one batched decode step forced;
+  5d. (on its own weights) tinyllama-1.1b at full width and 22 layers with
+     a q6_k head: three requests through generate, the counts asserted
+     (q6k_matvec per prefill and step, q4k_matvec launches by K, w_down at
+     K = 5632), TTFT / decode rate, and request 1 forced layer by layer
+     against the plain versions;
+  5g. the same tinyllama weights in Q8_0 and in Q4_0 (w_down at K = 5632
+     on q80_matvec / q40_matvec, asserted by K), each forced.
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
 object with every kernel's route, source, launches per path, error,
@@ -179,7 +195,32 @@ KERNELS = {
     # one kernel, two entries: model_step (every layer) and layer_step
     "layer_kernel": ("ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
                      "ggml_cuda_experiments_tpu/ops/layer_kernel.py:113", []),
+    # the Q8_0 / Q4_0 routes of #1-#7
+    "q80_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q80_matvec.cu",
+                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
+                   ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
+    "q40_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:670",
+                   ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1034",
+                    "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
+    "q40_q8_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_q8.cu",
+                      "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1465",
+                      ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1540"]),
+    "q80_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+                 "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
+                 ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
+                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115",
+                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
+    "q40_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+                 "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
+                 ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
+                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115",
+                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
 }
+# the wrappers of each weight format's linears: (one-row matvec, GEMM)
+FORMAT_KERNELS = {"q4_k": ("q4k_matvec", "q4k_gemm"),
+                  "q8_0": ("q80_matvec", "q80_gemm"),
+                  "q4_0": ("q40_matvec", "q40_gemm")}
 # launch-count keys of each kernel above (one wrapper each, but two for
 # the layer kernel)
 COUNT_KEYS = {"layer_kernel": ("model_step", "layer_step")}
@@ -703,6 +744,76 @@ def phase_q4km_kernels(dev, seed, res: Results):
         del kf, vf
 
 
+def phase_format_kernels(dev, seed, res: Results):
+    """The Q8_0 / Q4_0 kernels against their plain versions at the shapes
+    of their paths, each weight quantized on the card from its own draw
+    (rotated past the L2 where one copy fits in it), and the device
+    quantizer of both formats against the oracle."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.oracle import quant as quant_ref
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    log("== 4e. Q8_0 / Q4_0 kernels vs plain versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    spec = _spec()
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    w = randn(256, 5632, scale=5632 ** -0.5)
+    for fmt in ("q8_0", "q4_0"):
+        got = qm.quantize(w, fmt)
+        want = qm.from_oracle(getattr(quant_ref, f"quantize_{fmt}")(
+            w.cpu().numpy()), device="cpu")
+        if not all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("qs", "d")):
+            raise AssertionError(f"device {fmt} quantizer differs from the "
+                                 "oracle")
+    log("  device quantizer: q8_0 and q4_0 [256, 5632] bit-equal to the "
+        "oracle (qs, d)")
+
+    # the matvecs: (name, format, (N, K), tolerance, operation type,
+    # headline). q80_matvec reproduces its plain version's rounding
+    # (bf16(x) * bf16(q d) summed in f32), so it is held to 1e-4 as the
+    # exact-f32 ones are; the int8 one's operands equal its plain version's.
+    for name, fmt, (n, k), kind, head in (
+            ("q80_matvec", "q8_0", (24576, 4096), "bf16", True),
+            ("q80_matvec", "q8_0", (32000, 4096), "bf16", False),
+            ("q80_matvec", "q8_0", (2048, 5632), "bf16", False),
+            ("q40_matvec", "q4_0", (24576, 4096), "f32", True),
+            ("q40_matvec", "q4_0", (2048, 5632), "f32", False),
+            ("q40_q8_matvec", "q4_0", (32000, 4096), "int8", True),
+            ("q40_q8_matvec", "q4_0", (24576, 4096), "int8", False)):
+        per = 1.0625 if fmt == "q8_0" else 0.5625
+        ws = _rotating(lambda i, n=n, k=k, fmt=fmt: qm.quantize(
+            randn(n, k, scale=k ** -0.5), fmt), int(n * k * per))
+        x = randn(1, k)
+        nbytes = ws[0].nbytes + 4 * (k + n)
+        fn = getattr(qm, name)
+        ms = _versus_plain(res, name, f"N={n} K={k} ({len(ws)} weight copies)",
+                           lambda i: fn(x, ws[i % len(ws)]), 1e-4,
+                           spec.bound_ms(nbytes, 2 * n * k, kind),
+                           headline=head)
+        log(f"    {ws[0].nbytes / 1e6:.1f} MB of weight, "
+            f"{_rate(nbytes, 2 * n * k, ms)}")
+        del ws
+
+    # the GEMMs at the engine's decode batch (M = 8) and a 512-token
+    # prefill, w_gu [24576, 4096]
+    n, k = 24576, 4096
+    for name, fmt in (("q80_gemm", "q8_0"), ("q40_gemm", "q4_0")):
+        wq = qm.quantize(randn(n, k, scale=k ** -0.5), fmt)
+        fn = getattr(qm, name)
+        for m in (8, 512):
+            x = randn(m, k, dtype=torch.bfloat16)
+            nbytes = wq.nbytes + 2 * m * k + 4 * m * n
+            ms = _versus_plain(res, name, f"M={m} N={n} K={k}",
+                               lambda i: fn(x, wq), 2e-2,
+                               spec.bound_ms(nbytes, 2 * m * n * k, "bf16"),
+                               headline=m == 512)
+            log(f"    {_rate(nbytes, 2 * m * n * k, ms)}")
+        del wq
+
+
 def _tables():
     from ggml_cuda_experiments_tpu_torch.ops import (
         flash_attention as fa, flash_decode as fd, fused_attention as fat,
@@ -755,9 +866,9 @@ def _forced_forward(params, cfg, tokens, caches, decode):
                            / hp.float().abs().max()))
         h = hk
     hn = llama.rms_norm(h, params["final_norm"], cfg.rms_eps)[:, -1]
-    lk = llama.apply_linear(hn, params["lm_head"]).float()
+    lk = llama.apply_linear(hn, params["lm_head"], cfg.x_quant8).float()
     with plain_versions():
-        lp = llama.apply_linear(hn, params["lm_head"]).float()
+        lp = llama.apply_linear(hn, params["lm_head"], cfg.x_quant8).float()
     for c in caches:
         c.lengths += T
     return worst, (lk, lp)
@@ -857,14 +968,15 @@ def _drive_generate(params, cfg, prompts, requests, path, cache_kw=None):
     return outs, _counts()
 
 
-def _prefill_counts(L, requests, rope=True):
+def _prefill_counts(L, requests, rope=True, gemm="q4k_gemm"):
     """Launches of the prefills of ``requests`` (prompts of 2-512 tokens):
-    4 q4k_gemm and one flash_attention per layer, rope_pack per layer at
-    prompts of a multiple of 128 tokens where its gate is open (``rope``:
-    head_dim 128 and a bf16 cache); every other kernel 0."""
+    4 ``gemm`` (the layers' format's) and one flash_attention per layer,
+    rope_pack per layer at prompts of a multiple of 128 tokens where its
+    gate is open (``rope``: head_dim 128 and a bf16 cache); every other
+    kernel 0."""
     want = {k: 0 for k in _counts()}
     want.update(
-        q4k_gemm=sum(4 * L for p, _ in requests if 2 <= p <= 512),
+        {gemm: sum(4 * L for p, _ in requests if 2 <= p <= 512)},
         flash_attention=L * len(requests),
         rope_pack=sum(L for p, _ in requests if rope and p % 128 == 0))
     return want
@@ -1246,12 +1358,125 @@ def phase_q4km(dev, seed, params, head_dense, prompts):
     return paths, timing
 
 
+def _format_path(params, cfg, prompts, path, fmt, matvec, dev, L):
+    """The three requests through ``generate`` on ``fmt`` layers and head
+    with unfused decode: ``matvec`` per decode linear and per head row, the
+    format's GEMM per prefill linear; counts asserted, then TTFT / decode
+    rate. Returns (tokens per request, counts, timing)."""
+    steps = sum(n for _, n in REQUESTS)
+    outs, counts = _drive_generate(params, cfg, prompts, REQUESTS, path)
+    want = _prefill_counts(L, REQUESTS, gemm=FORMAT_KERNELS[fmt][1])
+    want.update({matvec: len(REQUESTS) + steps * (4 * L + 1)},
+                flash_decode=steps * L, lse_merge=steps * L)
+    _assert_counts(path, counts, want)
+    log(f"  launch counts equal what the path implies (per decode step "
+        f"{4 * L + 1} {matvec}, {L} flash_decode; per prefill "
+        f"{4 * L} {FORMAT_KERNELS[fmt][1]} and 1 {matvec} for the head)")
+    return outs, counts, _time_requests(params, cfg, prompts, REQUESTS, outs,
+                                        dev)
+
+
+def phase_formats(dev, seed, prompts, card):
+    """llama2-7b in Q8_0 (5e) and Q4_0 (5f), quantized on the card from
+    phase 5's dense weights (made again from the seed, then freed), through
+    ``generate`` in the preset's configuration and, for Q4_0, bench.py's;
+    then the Engine on the Q4_0 weights over an int8 pool (6b)."""
+    import collections
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    base = PRESETS["llama2-7b"]
+    L = base.n_layers
+    t0 = time.perf_counter()
+    dense = llama.init_weights(base, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pq = {}
+    for fmt in ("q8_0", "q4_0"):
+        pq[fmt] = llama.quantize_params(dense, fmt)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del dense
+    torch.cuda.empty_cache()
+    log(f"== 5e. {base.name} in Q8_0, the preset's configuration (unfused "
+        "decode: no fused kernel takes q8_0)")
+    log(f"  init_weights {t1 - t0:.3f} s, quantize_params q8_0 + q4_0 "
+        f"{t2 - t1:.3f} s; [{card}]")
+    paths, timing = {}, {}
+    p8 = pq.pop("q8_0")
+    _log_stream(p8)
+    outs, paths["generate_q8_0"], timing["generate_q8_0"] = _format_path(
+        p8, base, prompts, "generate q8_0", "q8_0", "q80_matvec", dev, L)
+    forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
+    _check_forced(p8, base, prompts[0], forced, dev)
+    del p8, outs
+    torch.cuda.empty_cache()
+
+    log(f"== 5f. {base.name} in Q4_0: the preset's configuration and "
+        "bench.py's (x_quant8 + permute_hidden_params: no model pack, int8 "
+        "activations on every linear)")
+    p4 = pq.pop("q4_0")
+    _log_stream(p4)
+    outs, paths["generate_q4_0"], timing["generate_q4_0"] = _format_path(
+        p4, base, prompts, "generate q4_0", "q4_0", "q40_matvec", dev, L)
+    # forced in the preset's configuration: under x_quant8 a one-ulp
+    # difference before an int8 rounding moves a whole step, so there the
+    # per-layer bound measures the activation quantization, not the
+    # kernels (q40_q8_matvec is held to its plain version in phase 4e)
+    forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
+    _check_forced(p4, base, prompts[0], forced, dev)
+    bench = dataclasses.replace(base, x_quant8=True, hperm=True)
+    pb = llama.permute_hidden_params(p4, bench)
+    if "m_pack" in pb:
+        raise AssertionError("q4_0: permute_hidden_params built a model pack")
+    _, paths["generate_q4_0_xq8_hperm"], \
+        timing["generate_q4_0_xq8_hperm"] = _format_path(
+            pb, bench, prompts, "generate q4_0 bench config", "q4_0",
+            "q40_q8_matvec", dev, L)
+
+    log(f"== 6b. engine on the Q4_0 weights: int8 pool, 8 slots, prefill in "
+        "128-token chunks")
+    g = torch.Generator().manual_seed(seed + 11)
+    reqs = [torch.randint(1, base.vocab_size, (n,), generator=g).tolist()
+            for n in (16, 100, 300, 512)]
+    rows = collections.Counter()
+    gemm = qm.q40_gemm
+
+    def tallied(x, w):                   # q40_gemm launches by rows
+        rows[x.shape[0]] += 1
+        return gemm(x, w)
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, qm, "q40_gemm", gemm)
+        qm.q40_gemm = tallied
+        _, paths["engine_q4_0"], wall = _drive_engine(
+            p4, base, reqs, 16, "engine q4_0", prefill_chunk=128,
+            **ENGINE_KW)
+    steps = paths["engine_q4_0"]["paged_decode"] // L
+    log(f"  q40_gemm launches by rows: {dict(sorted(rows.items()))} "
+        f"(M = 8 in each of the {steps} decode steps: {steps * (4 * L + 1)}"
+        f" expected); {wall:.2f} s wall")
+    if rows[8] != steps * (4 * L + 1):
+        raise AssertionError(f"q40_gemm at M = 8: {rows[8]}")
+    _check_forced_engine(p4, base, [torch.randint(
+        1, base.vocab_size, (n,), generator=g).tolist()
+        for n in ENGINE_PROMPTS[-8:]], dev)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    del p4, pb
+    torch.cuda.empty_cache()
+    return paths, timing
+
+
 def phase_tinyllama(dev, seed):
     """tinyllama-1.1b at full width and depth (22 layers, dim 2048, GQA
     32/4, head_dim 64, intermediate 5632), q4_k layers and a q6_k head:
     every fused gate and rope_pack stay closed, w_down (K = 5632) takes
-    q4k_matvec at one row and the head q6k_matvec."""
-    import contextlib
+    q4k_matvec at one row and the head q6k_matvec; then (5g) the same
+    dense weights in Q8_0 and in Q4_0."""
+    import collections
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
@@ -1265,7 +1490,6 @@ def phase_tinyllama(dev, seed):
     t0 = time.perf_counter()
     dense = llama.init_weights(cfg, seed=seed + 8, device=dev)
     params = llama.quantize_params(dense, "q4_k", head_fmt="q6_k")
-    del dense
     torch.cuda.synchronize()
     log(f"  init_weights + quantize_params {time.perf_counter() - t0:.3f} s;"
         f" w_down {params['layers'][0]['w_down'].array_shape}, lm_head "
@@ -1275,32 +1499,66 @@ def phase_tinyllama(dev, seed):
     prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
                              device=dev, dtype=torch.int64)
                for p, _ in REQUESTS]
-    by_k = {}
-    matvec = qm.q4k_matvec
+    def by_k_run(params, name, path):
+        """generate on the three requests, with the launches of the
+        wrapper ``name`` tallied by K."""
+        by_k = collections.Counter()
+        matvec = getattr(qm, name)
 
-    def tallied(x, w):                   # launches of q4k_matvec, by K
-        y = matvec(x, w)
-        by_k[w.array_shape[1]] = by_k.get(w.array_shape[1], 0) + 1
-        return y
+        def tallied(x, w):
+            y = matvec(x, w)
+            by_k[w.array_shape[1]] += 1
+            return y
 
-    with contextlib.ExitStack() as stack:
-        stack.callback(setattr, qm, "q4k_matvec", matvec)
-        qm.q4k_matvec = tallied
-        outs, counts = _drive_generate(params, cfg, prompts, REQUESTS,
-                                       "generate tinyllama")
+        with contextlib.ExitStack() as stack:
+            stack.callback(setattr, qm, name, matvec)
+            setattr(qm, name, tallied)
+            outs, counts = _drive_generate(params, cfg, prompts, REQUESTS,
+                                           path)
+        log(f"  {name} launches by K: {dict(by_k)} (w_down at K = 5632: "
+            f"{steps * L} expected)")
+        return outs, counts, by_k
+
+    outs, counts, by_k = by_k_run(params, "q4k_matvec", "generate tinyllama")
     want = _prefill_counts(L, REQUESTS, rope=False)
     want.update(q6k_matvec=R + steps, q4k_matvec=steps * 4 * L,
                 flash_decode=steps * L, lse_merge=steps * L)
     _assert_counts("generate tinyllama", counts, want)
-    log(f"  q4k_matvec launches by K: {by_k} (w_down at K = 5632: "
-        f"{steps * L} expected)")
     if by_k != {2048: steps * 3 * L, 5632: steps * L}:
         raise AssertionError(f"q4k_matvec by K {by_k}")
-    timing = _time_requests(params, cfg, prompts, REQUESTS, outs, dev)
+    timing = {"generate_tinyllama": _time_requests(params, cfg, prompts,
+                                                   REQUESTS, outs, dev)}
     forced = torch.from_numpy(outs[0][0, :4]).to(dev, torch.int32)
     _check_forced(params, cfg, prompts[0], forced, dev)
+    paths = {"generate_tinyllama": counts}
+    del params
+    torch.cuda.empty_cache()
+
+    # 5g: the same weights in Q8_0 and in Q4_0, the head too: every decode
+    # linear and the head on the format's exact matvec (K = 2048 closes
+    # x_quant8's gate, and the preset has it off), w_down at K = 5632
+    for fmt in ("q8_0", "q4_0"):
+        matvec, gemm = FORMAT_KERNELS[fmt]
+        log(f"== 5g. {cfg.name} in {fmt.upper()}: w_down at K = 5632 on "
+            f"{matvec}")
+        pf = llama.quantize_params(dense, fmt)
+        _log_stream(pf)
+        path = f"generate_tinyllama_{fmt}"
+        outs, counts, by_k = by_k_run(pf, matvec, f"generate tinyllama {fmt}")
+        want = _prefill_counts(L, REQUESTS, rope=False, gemm=gemm)
+        want.update({matvec: steps * (4 * L + 1) + R},
+                    flash_decode=steps * L, lse_merge=steps * L)
+        _assert_counts(path, counts, want)
+        if by_k != {2048: steps * (3 * L + 1) + R, 5632: steps * L}:
+            raise AssertionError(f"{matvec} by K {by_k}")
+        paths[path] = counts
+        timing[path] = _time_requests(pf, cfg, prompts, REQUESTS, outs, dev)
+        forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
+        _check_forced(pf, cfg, prompts[0], forced, dev)
+        del pf
+    del dense
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"generate_tinyllama": counts}, timing
+    return paths, timing
 
 
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
@@ -1367,13 +1625,16 @@ def _drive_engine(params, cfg, prompts, gen, path, **kw):
     heads = calls["_paged_prefill"] + calls["_paged_prefill_chunk+logits"]
     want = {k: 0 for k in counts}
     want.update(flash_attention=fills * L, paged_decode=steps * L)
-    if params["lm_head"].fmt == "q6_k":
+    gemm = FORMAT_KERNELS[params["layers"][0]["wqkv"].fmt][1]
+    head = params["lm_head"].fmt
+    if head == "q6_k":
         # a one-row head takes the hybrid q6_k matvec, the batch's head the
         # reference's dense bf16 route (no kernel)
-        want.update(q6k_q8_matvec=heads, q4k_gemm=(steps + fills) * 4 * L)
+        want.update({"q6k_q8_matvec": heads, gemm: (steps + fills) * 4 * L})
     else:
-        want.update(q4k_matvec=heads,
-                    q4k_gemm=steps * (4 * L + 1) + fills * 4 * L)
+        want[FORMAT_KERNELS[head][0]] = heads
+        want[FORMAT_KERNELS[head][1]] += steps
+        want[gemm] += (steps + fills) * 4 * L
     log(f"  {path}: {len(prompts)} requests, {calls['_paged_prefill']} "
         f"prefills, {calls['_paged_prefill_chunk']} chunks, {steps} decode "
         f"steps in {wall:.2f} s; launches {counts}")
@@ -1410,12 +1671,43 @@ def _forced_paged_step(params, cfg, state, pools):
     return worst, (lk, lp)
 
 
-def phase_engine(dev, seed, params, cfg, card):
-    """The serving engine at llama2-7b width on the main path's params."""
+def _check_forced_engine(params, cfg, prompts, dev):
+    """Admit 8 ``prompts`` into an int8-pool engine and force its first
+    batched decode step layer by layer against the plain versions (logits
+    and every layer within 2e-2 * max)."""
     import dataclasses
     import torch
     from ggml_cuda_experiments_tpu_torch.models import engine
-    L = cfg.n_layers
+    eng = engine.Engine(params, cfg, **ENGINE_KW)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=ENGINE_GEN)
+    eng._admit()
+    state = (eng._tokens_dev.clone(),
+             torch.from_numpy(eng.lengths).to(dev),
+             torch.from_numpy(eng.page_table).to(dev),
+             torch.ones(8, dtype=torch.bool, device=dev))
+    plain_pool = dataclasses.replace(
+        eng.pool, **{f: getattr(eng.pool, f).clone()
+                     for f in ("k", "v", "k_scale", "v_scale")})
+    worst, (lk, lp) = _forced_paged_step(params, cfg, state,
+                                         (eng.pool, plain_pool))
+    err, sc = float((lk - lp).abs().max()), float(lp.abs().max())
+    li, lerr = max(enumerate(worst), key=lambda t: t[1])
+    ok = (lk.shape == (8, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+          and err <= 2e-2 * sc and lerr <= 2e-2)
+    log(f"  forced batched decode step (int8 pool, B=8, lengths "
+        f"{[len(p) for p in prompts]}): logits max_abs_err {err:.4e} vs "
+        f"2e-2*{sc:.4e}; worst layer {li}: {lerr:.3e} of max (bound 2e-2); "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"forced paged decode step: logits {err} vs "
+                             f"{sc}, layer {li} {lerr}")
+
+
+def phase_engine(dev, seed, params, cfg, card):
+    """The serving engine at llama2-7b width on the main path's params."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import engine
     log(f"== 6. engine: {cfg.name}, continuous batching, "
         f"{', '.join(f'{k}={v}' for k, v in ENGINE_KW.items())}")
     g = torch.Generator().manual_seed(seed + 4)
@@ -1505,31 +1797,8 @@ def phase_engine(dev, seed, params, cfg, card):
     eng.run_to_completion()
 
     # one batched decode step of the int8 pool, forced layer by layer
-    eng = engine.Engine(params, cfg, **ENGINE_KW)
-    for n in ENGINE_PROMPTS[-8:]:
-        eng.add_request(prompt(n), max_new_tokens=ENGINE_GEN)
-    eng._admit()
-    state = (eng._tokens_dev.clone(),
-             torch.from_numpy(eng.lengths).to(dev),
-             torch.from_numpy(eng.page_table).to(dev),
-             torch.ones(8, dtype=torch.bool, device=dev))
-    plain_pool = dataclasses.replace(
-        eng.pool, **{f: getattr(eng.pool, f).clone()
-                     for f in ("k", "v", "k_scale", "v_scale")})
-    worst, (lk, lp) = _forced_paged_step(params, cfg, state,
-                                         (eng.pool, plain_pool))
-    err, sc = float((lk - lp).abs().max()), float(lp.abs().max())
-    li, lerr = max(enumerate(worst), key=lambda t: t[1])
-    ok = (lk.shape == (8, cfg.vocab_size) and bool(torch.isfinite(lk).all())
-          and err <= 2e-2 * sc and lerr <= 2e-2)
-    log(f"  forced batched decode step (int8 pool, B=8, lengths "
-        f"{ENGINE_PROMPTS[-8:]}): logits max_abs_err {err:.4e} vs "
-        f"2e-2*{sc:.4e}; worst layer {li}: {lerr:.3e} of max (bound 2e-2); "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"forced paged decode step: logits {err} vs "
-                             f"{sc}, layer {li} {lerr}")
-    del eng, plain_pool
+    _check_forced_engine(params, cfg, [prompt(n) for n in
+                                       ENGINE_PROMPTS[-8:]], dev)
     peak = torch.cuda.max_memory_allocated()
     log(f"  [{card}] peak device memory in the engine phase {peak / 2**30:.2f}"
         f" GiB (weights, pool and activations)")
@@ -1560,6 +1829,7 @@ def main() -> int:
     phase_engine_kernels(dev, args.seed, res)
     phase_fused_kernels(dev, args.seed, res)
     phase_q4km_kernels(dev, args.seed, res)
+    phase_format_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
@@ -1575,9 +1845,10 @@ def main() -> int:
                                          PRESETS["llama2-7b"], card)
     del params
     torch.cuda.empty_cache()
+    fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
     tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
-             **tiny_paths}
+             **fmt_paths, **tiny_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -1602,8 +1873,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "requests": timing,
                       "requests_bench_decode": fused_timing,
-                      "requests_by_path": {**q4km_timing,
-                                           "generate_tinyllama": tiny_timing},
+                      "requests_by_path": {**q4km_timing, **fmt_timing,
+                                           **tiny_timing},
                       "engine": engine_metrics}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
-// Q4_K-E fused dequant matvec and GEMM for Hopper (sm_90a).
+// Q4_K-E, Q4_0 and Q8_0 fused dequant matvec and GEMM for Hopper (sm_90a).
 //
-// Weights (logical column order, oracle/quant.py packing): qs uint8 [N, K/2]
-// where byte j of each 32-block holds element j (low nibble) and element
-// j + 16 (high nibble); es, em bf16 [N, K/32] effective per-block scale and
-// min. Dequantization: w = q * f32(es) - f32(em).
+// Weights (logical column order, oracle/quant.py packing): the 4-bit
+// formats' qs uint8 [N, K/2], where byte j of each 32-block holds element j
+// (low nibble) and element j + 16 (high nibble); Q8_0's qs int8 [N, K]; and
+// each format's scale arrays, read through its trait (quant_formats.cuh):
+// w = q * scale - min per 32-block, with (scale, min) = (es, em) bf16 for
+// Q4_K-E, (d, 8 d) fp16 for Q4_0 and (d, 0) for Q8_0.
 //
-// q4k_matvec replaces ops/quant_matmul.py::_chunk_kernel (and
-// ::_vpu2_kernel) of the JAX package: B = 1, exact f32 activations.
+// q4k_matvec / q40_matvec (one template, two instances) replace
+// ops/quant_matmul.py::_chunk_kernel (and ::_vpu2_kernel, and at K/32
+// outside its repeat-aligned counts ::_vpu_e_kernel) of the JAX package:
+// B = 1, exact f32 activations.
 //   Bound on the H100: bytes. A 4096 x 4096 weight is 10.5 MB of payload and
 //   scales against ~16 KB of x. Design: one warp per row (two rows in turn),
 //   each lane streams one 32-block (16 bytes) per load, so a warp reads 512
@@ -15,15 +19,20 @@
 //   the per-block sums of x. The row is sum_b es_b * dot_b - em_b * xsum_b,
 //   with each block dot in f32 (the JAX kernel's exact fold).
 //
-// q4k_gemm replaces ::_mxu_kernel, ::_pipe_sub_kernel and ::_pipe_kernel:
+//   The row is sum_b scale_b * dot_b - min_b * xsum_b: for Q4_0,
+//   d_b * dot_b - 8 d_b * xsum_b, the JAX kernel's es = d, em = 8 d.
+//
+// q4k_gemm / q40_gemm / q80_gemm (one template, three instances) replace
+// ::_mxu_kernel, ::_pipe_sub_kernel and ::_pipe_kernel:
 //   y[M, N] = bf16(x) . bf16(deq(W))^T with f32 accumulation, M >= 2.
 //   Bound: bytes at small M, the tensor cores at M = 512. Design: 64 x 64
 //   output tiles, 4 warps of 32 x 32 WMMA bf16 m16n16k16 products; each
 //   64-wide K step dequantizes its W tile in f32, rounds it to bf16 into
-//   shared memory, and multiplies. Ragged M and N are masked.
+//   shared memory, and multiplies. Ragged M and N are masked, and so is the
+//   last 32-block of a 32-block format's K % 64 == 32.
 #include <mma.h>
 
-#include "common.cuh"
+#include "quant_formats.cuh"
 
 using namespace nvcuda;
 
@@ -34,10 +43,11 @@ constexpr int MV_ROWS_PER_WARP = 2;
 constexpr int MV_ROWS = MV_WARPS * MV_ROWS_PER_WARP;
 constexpr int MV_XPAD = 36;   // floats per 32-block of x in shared memory
 
+template <class F>
 __global__ void __launch_bounds__(MV_WARPS * 32)
-q4k_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
-                  const bf16* __restrict__ es, const bf16* __restrict__ em,
-                  float* __restrict__ y, int N, int K) {
+q4_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
+                 const F f, float* __restrict__ y, int N, int K) {
+  static_assert(F::QB == 16, "a 4-bit format");
   extern __shared__ __align__(16) float mv_smem[];
   const int KB = K / 32;
   float* xs = mv_smem;                  // [KB][MV_XPAD]
@@ -60,8 +70,7 @@ q4k_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
     if (n >= N) break;                  // uniform across the warp
     const uint4* qrow =
         reinterpret_cast<const uint4*>(qs + (size_t)n * (K / 2));
-    const bf16* esr = es + (size_t)n * KB;
-    const bf16* emr = em + (size_t)n * KB;
+    const size_t i0 = (size_t)n * KB;
     float acc = 0.f;
     for (int b = lane; b < KB; b += 32) {
       const uint4 p = __ldg(qrow + b);
@@ -78,35 +87,46 @@ q4k_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
         dot += (float)((v >> 16) & 0xF) * xl.z + (float)((v >> 20) & 0xF) * xh.z;
         dot += (float)((v >> 24) & 0xF) * xl.w + (float)(v >> 28) * xh.w;
       }
-      acc += __bfloat162float(esr[b]) * dot - __bfloat162float(emr[b]) * xsum[b];
+      acc += f.scale(i0 + b) * dot - f.min(i0 + b) * xsum[b];
     }
     acc = warp_sum(acc);
     if (lane == 0) y[n] = acc;
   }
 }
 
-GCT_EXPORT int q4k_matvec(const float* x, const uint8_t* qs, const bf16* es,
-                          const bf16* em, float* y, int N, int K,
-                          void* stream) {
+template <class F>
+static int q4_matvec(const float* x, const uint8_t* qs, F f, float* y, int N,
+                     int K, void* stream) {
   static int granted = 0;
   const int KB = K / 32;
   const int smem = (KB * MV_XPAD + KB) * (int)sizeof(float);
-  cudaError_t e = allow_smem(q4k_matvec_kernel, smem, &granted);
+  cudaError_t e = allow_smem(q4_matvec_kernel<F>, smem, &granted);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + MV_ROWS - 1) / MV_ROWS);
-  q4k_matvec_kernel<<<grid, MV_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      x, qs, es, em, y, N, K);
+  q4_matvec_kernel<F><<<grid, MV_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      x, qs, f, y, N, K);
   return (int)cudaGetLastError();
+}
+
+GCT_EXPORT int q4k_matvec(const float* x, const uint8_t* qs, const bf16* es,
+                          const bf16* em, float* y, int N, int K,
+                          void* stream) {
+  return q4_matvec(x, qs, Q4K{es, em}, y, N, K, stream);
+}
+
+GCT_EXPORT int q40_matvec(const float* x, const uint8_t* qs, const __half* d,
+                          float* y, int N, int K, void* stream) {
+  return q4_matvec(x, qs, Q40{d}, y, N, K, stream);
 }
 
 // ------------------------------------------------------------------ GEMM
 
 constexpr int GM = 64, GN = 64, GK = 64, GPAD = 8;
 
+template <class F>
 __global__ void __launch_bounds__(128)
-q4k_gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
-                const bf16* __restrict__ es, const bf16* __restrict__ em,
-                float* __restrict__ y, int M, int N, int K) {
+gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
+            const F f, float* __restrict__ y, int M, int N, int K) {
   __shared__ __align__(128) bf16 As[GM][GK + GPAD];
   __shared__ __align__(128) bf16 Bs[GN][GK + GPAD];
   __shared__ __align__(128) float Cs[GM][GN + 4];
@@ -126,7 +146,7 @@ q4k_gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
     for (int i = tid; i < GM * GK / 8; i += 128) {
       const int r = i / (GK / 8), c = (i % (GK / 8)) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
+      if (m0 + r < M && k0 + c < K)
         v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
       *reinterpret_cast<uint4*>(&As[r][c]) = v;
     }
@@ -135,22 +155,14 @@ q4k_gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
       const int r = tid >> 1, blk = tid & 1;
       const int n = n0 + r, b = k0 / 32 + blk;
       bf16* dst = &Bs[r][blk * 32];
-      if (n < N) {
-        const uint4 p = *reinterpret_cast<const uint4*>(
-            qs + (size_t)n * (K / 2) + (size_t)b * 16);
-        const uint32_t w[4] = {p.x, p.y, p.z, p.w};
-        const float s = __bfloat162float(es[(size_t)n * KB + b]);
-        const float mn = __bfloat162float(em[(size_t)n * KB + b]);
+      if (n < N && b < KB) {
+        const size_t i = (size_t)n * KB + b;
+        float v[32];
+        block_values<F::QB>(qs + i * F::QB, v);
+        const float s = f.scale(i), mn = f.min(i);
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t byte = (w[t] >> (8 * i)) & 0xFFu;
-            dst[4 * t + i] = __float2bfloat16(
-                __fsub_rn(__fmul_rn((float)(byte & 0xF), s), mn));
-            dst[16 + 4 * t + i] = __float2bfloat16(
-                __fsub_rn(__fmul_rn((float)(byte >> 4), s), mn));
-          }
+        for (int j = 0; j < 32; ++j)
+          dst[j] = __float2bfloat16(__fsub_rn(__fmul_rn(v[j], s), mn));
       } else {
 #pragma unroll
         for (int i = 0; i < 32; ++i) dst[i] = __float2bfloat16(0.f);
@@ -189,13 +201,30 @@ q4k_gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
   }
 }
 
+template <class F>
+static int gemm(const bf16* x, const uint8_t* qs, F f, float* y, int M, int N,
+                int K, void* stream) {
+  if (K % 32 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
+  gemm_kernel<F><<<grid, 128, 0, (cudaStream_t)stream>>>(x, qs, f, y, M, N,
+                                                         K);
+  return (int)cudaGetLastError();
+}
+
 GCT_EXPORT int q4k_gemm(const bf16* x, const uint8_t* qs, const bf16* es,
                         const bf16* em, float* y, int M, int N, int K,
                         void* stream) {
-  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
-  q4k_gemm_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(x, qs, es, em, y,
-                                                          M, N, K);
-  return (int)cudaGetLastError();
+  return gemm(x, qs, Q4K{es, em}, y, M, N, K, stream);
+}
+
+GCT_EXPORT int q40_gemm(const bf16* x, const uint8_t* qs, const __half* d,
+                        float* y, int M, int N, int K, void* stream) {
+  return gemm(x, qs, Q40{d}, y, M, N, K, stream);
+}
+
+GCT_EXPORT int q80_gemm(const bf16* x, const uint8_t* qs, const __half* d,
+                        float* y, int M, int N, int K, void* stream) {
+  return gemm(x, qs, Q80{d}, y, M, N, K, stream);
 }
 
 GCT_EXPORT const char* kernels_error_string(int e) {

@@ -1,12 +1,15 @@
-// Q4_K-E matvec with int8 activations (B = 1) for Hopper (sm_90a).
+// Q4_K-E and Q4_0 matvecs with int8 activations (B = 1) for Hopper (sm_90a).
 //
-// Replaces ops/quant_matmul.py::_chunk8_kernel (with _chunk8_compute) of
-// the JAX package: the x_quant8 decode matvec, for (K/32) % 128 == 0.
-// Numerics: q8_common.cuh (the JAX package's, to the f32 fold order).
+// q4k_q8_matvec / q40_q8_matvec (one template, two instances) replace
+// ops/quant_matmul.py::_chunk8_kernel (with _chunk8_compute) of the JAX
+// package: the x_quant8 decode matvec, for (K/32) % 128 == 0. Numerics:
+// q8_common.cuh (the JAX package's, to the f32 fold order; for Q4_0 its
+// es = d, em = 8 d).
 //
 // Bound on the H100: bytes. The weight is 0.625 bytes per element (4-bit
 // payload plus bf16 es / em per 32 elements): the 7B lm_head [32000, 4096]
-// is 81.9 MB, 24.5 us at 3.35 TB/s, against 16 KB of x. Design: one warp
+// is 81.9 MB, 24.5 us at 3.35 TB/s, against 16 KB of x (Q4_0: 0.5625
+// bytes per element, 73.7 MB, 22.0 us). Design: one warp
 // per row at a time, each lane one 16-byte load per 32-block (a warp reads
 // 512 contiguous bytes per load), four blocks in flight per lane; the
 // block dot is eight __dp4a on the raw bytes (no nibble unpack beyond one
@@ -15,38 +18,39 @@
 // at what is resident, so that costs a few hundred 16 KB reads of L2).
 #include "q8_common.cuh"
 
+template <class F>
 __global__ void __launch_bounds__(Q8_THREADS, 2)
-q4k_q8_matvec_kernel(const float* x, const uint8_t* __restrict__ qs,
-                     const bf16* __restrict__ es, const bf16* __restrict__ em,
-                     float* __restrict__ y, int N, int K) {
+q4_q8_matvec_kernel(const float* x, const uint8_t* __restrict__ qs, const F f,
+                    float* __restrict__ y, int N, int K) {
   extern __shared__ __align__(16) unsigned char q8_smem[];
   const Q8Act a = q8_act_at(q8_smem, K / 32);
   q8_quant(GlobalVec{x}, a);
-  q8_rows(qs, es, em, N, a, [&](int n, float v) { y[n] = v; });
+  q8_rows(qs, f, N, a, [&](int n, float v) { y[n] = v; });
+}
+
+template <class F>
+static int q4_q8_matvec(const float* x, const uint8_t* qs, F f, float* y,
+                        int N, int K, void* stream) {
+  static GridCap cap;
+  if (K % 4096 || N < 1) return (int)cudaErrorInvalidValue;
+  const int smem = q8_act_bytes(K / 32);
+  int grid = 0;
+  cudaError_t e = grid_for(q4_q8_matvec_kernel<F>, Q8_THREADS, smem, N, &cap,
+                           &grid);
+  if (e != cudaSuccess) return (int)e;
+  q4_q8_matvec_kernel<F><<<grid, Q8_THREADS, smem, (cudaStream_t)stream>>>(
+      x, qs, f, y, N, K);
+  return (int)cudaGetLastError();
 }
 
 GCT_EXPORT int q4k_q8_matvec(const float* x, const uint8_t* qs, const bf16* es,
                              const bf16* em, float* y, int N, int K,
                              void* stream) {
-  static int granted = 0, sms = 0, per_sm = 0, for_smem = -1;
-  const int smem = q8_act_bytes(K / 32);
-  cudaError_t e = allow_smem(q4k_q8_matvec_kernel, smem, &granted);
-  if (e != cudaSuccess) return (int)e;
-  if (for_smem != smem) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, q4k_q8_matvec_kernel, Q8_THREADS, smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    for_smem = smem;
-  }
-  int grid = (N + Q8_WARPS - 1) / Q8_WARPS;
-  if (grid > per_sm * sms) grid = per_sm * sms;
-  q4k_q8_matvec_kernel<<<grid, Q8_THREADS, smem, (cudaStream_t)stream>>>(
-      x, qs, es, em, y, N, K);
-  return (int)cudaGetLastError();
+  return q4_q8_matvec(x, qs, Q4K{es, em}, y, N, K, stream);
+}
+
+GCT_EXPORT int q40_q8_matvec(const float* x, const uint8_t* qs,
+                             const __half* d, float* y, int N, int K,
+                             void* stream) {
+  return q4_q8_matvec(x, qs, Q40{d}, y, N, K, stream);
 }

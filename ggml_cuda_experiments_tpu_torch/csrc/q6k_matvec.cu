@@ -33,7 +33,7 @@
 // 32-bit masks; a byte becomes a float through the exponent bits
 // (0x4B000000 | byte is 2^23 + byte), so an element costs a byte permute,
 // an add and a fused multiply-add.
-#include "common.cuh"
+#include "quant_formats.cuh"
 
 constexpr int Q6_THREADS = 512;
 constexpr int Q6_WARPS = Q6_THREADS / 32;
@@ -230,34 +230,6 @@ q6k_q8_matvec_kernel(const float* __restrict__ x,
   }
 }
 
-// The grid: rows over every warp, capped at the CTAs that are resident at
-// this shared-memory size (queried once per size).
-struct GridCap {
-  int granted = 0, sms = 0, per_sm = 0, for_smem = -1;
-};
-
-template <typename Kernel>
-static cudaError_t grid_for(Kernel kernel, int smem, int N, GridCap* c,
-                            int* grid) {
-  cudaError_t e = allow_smem(kernel, smem, &c->granted);
-  if (e != cudaSuccess) return e;
-  if (c->for_smem != smem) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &c->per_sm, kernel, Q6_THREADS, smem)) != cudaSuccess)
-      return e;
-    if (c->per_sm < 1) return cudaErrorInvalidConfiguration;
-    c->for_smem = smem;
-  }
-  *grid = (N + Q6_WARPS - 1) / Q6_WARPS;
-  if (*grid > c->per_sm * c->sms) *grid = c->per_sm * c->sms;
-  return cudaSuccess;
-}
-
 GCT_EXPORT int q6k_matvec(const float* x, const uint8_t* qs, const uint8_t* qh,
                           const bf16* es, float* y, int N, int K,
                           void* stream) {
@@ -265,7 +237,8 @@ GCT_EXPORT int q6k_matvec(const float* x, const uint8_t* qs, const uint8_t* qh,
   if (K % 2048 || N < 1) return (int)cudaErrorInvalidValue;
   const int smem = K / 32 * Q6_XPAD * (int)sizeof(float);
   int grid = 0;
-  cudaError_t e = grid_for(q6k_matvec_kernel, smem, N, &cap, &grid);
+  cudaError_t e = grid_for(q6k_matvec_kernel, Q6_THREADS, smem, N, &cap,
+                           &grid);
   if (e != cudaSuccess) return (int)e;
   q6k_matvec_kernel<<<grid, Q6_THREADS, smem, (cudaStream_t)stream>>>(
       x, qs, qh, es, y, N, K);
@@ -279,7 +252,8 @@ GCT_EXPORT int q6k_q8_matvec(const float* x, const uint8_t* qs,
   if (K % 4096 || N < 1) return (int)cudaErrorInvalidValue;
   const int smem = q6h_smem_bytes(K);
   int grid = 0;
-  cudaError_t e = grid_for(q6k_q8_matvec_kernel, smem, N, &cap, &grid);
+  cudaError_t e = grid_for(q6k_q8_matvec_kernel, Q6_THREADS, smem, N, &cap,
+                           &grid);
   if (e != cudaSuccess) return (int)e;
   q6k_q8_matvec_kernel<<<grid, Q6_THREADS, smem, (cudaStream_t)stream>>>(
       x, qs, qh, es, y, N, K);

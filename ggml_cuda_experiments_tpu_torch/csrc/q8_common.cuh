@@ -1,6 +1,8 @@
-// The int8-activation Q4_K block dot shared by q4k_q8.cu and
+// The int8-activation 4-bit block dot shared by q4k_q8.cu and
 // fused_decode.cu: the numerics of the JAX package's _chunk8_compute /
-// _quant_rows_blockwise / _act_quant_build, in logical column order.
+// _quant_rows_blockwise / _act_quant_build, in logical column order, for
+// Q4_K-E and (through its scale trait, quant_formats.cuh: es = d,
+// em = 8 d) Q4_0.
 //
 // Activations, per 32-block b (xl = elements 0..15, xh = 16..31, the two
 // nibbles of one weight byte): a = xl - xh/16 and b = xh/16 quantized to
@@ -17,7 +19,7 @@
 // same data, so their operands are identical bit for bit.
 #pragma once
 
-#include "common.cuh"
+#include "quant_formats.cuh"
 
 constexpr int Q8_THREADS = 512;
 constexpr int Q8_WARPS = Q8_THREADS / 32;
@@ -101,15 +103,17 @@ struct GlobalVec {
   __device__ float operator()(int i) const { return __ldcg(x + i); }
 };
 
-// One row's dot: qs [.., kb*16] bytes, es/em [.., kb] bf16; kb % 128 == 0.
-// Returns the full sum in every lane.
-__device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const bf16* es,
-                                            const bf16* em, size_t n,
-                                            const Q8Act& a, int lane) {
+// One row's dot: qs [.., kb*16] bytes, the block scales and mins through
+// the trait f (Q4K or Q40); kb % 128 == 0. Returns the full sum in every
+// lane.
+template <class F>
+__device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const F& f,
+                                            size_t n, const Q8Act& a,
+                                            int lane) {
+  static_assert(F::QB == 16, "a 4-bit format");
   const int kb = a.kb;
   const uint4* q = reinterpret_cast<const uint4*>(qs + n * (size_t)kb * 16);
-  const bf16* e = es + n * (size_t)kb;
-  const bf16* m = em + n * (size_t)kb;
+  const size_t i0 = n * (size_t)kb;
   float acc = 0.f;
   for (int b0 = lane; b0 < kb; b0 += 128) {
     uint4 w[4];
@@ -117,8 +121,8 @@ __device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const bf16* es,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       w[u] = __ldg(q + b0 + 32 * u);
-      s[u] = __bfloat162float(e[b0 + 32 * u]);
-      mn[u] = __bfloat162float(m[b0 + 32 * u]);
+      s[u] = f.scale(i0 + b0 + 32 * u);
+      mn[u] = f.min(i0 + b0 + 32 * u);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -141,14 +145,21 @@ __device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const bf16* es,
 }
 
 // Rows n < N spread over every warp of the grid; store(n, y) by lane 0.
-template <class Store>
-__device__ void q8_rows(const uint8_t* qs, const bf16* es, const bf16* em,
-                        int N, const Q8Act& a, const Store& store) {
+template <class F, class Store>
+__device__ void q8_rows(const uint8_t* qs, const F& f, int N, const Q8Act& a,
+                        const Store& store) {
   const int lane = threadIdx.x & 31;
   const int nw = gridDim.x * (blockDim.x >> 5);
   for (int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); n < N;
        n += nw) {
-    const float y = q8_row_dot(qs, es, em, (size_t)n, a, lane);
+    const float y = q8_row_dot(qs, f, (size_t)n, a, lane);
     if (lane == 0) store(n, y);
   }
+}
+
+// The Q4_K-E rows of the fused kernels (fused_decode.cu)
+template <class Store>
+__device__ void q8_rows(const uint8_t* qs, const bf16* es, const bf16* em,
+                        int N, const Q8Act& a, const Store& store) {
+  q8_rows(qs, Q4K{es, em}, N, a, store);
 }

@@ -1,0 +1,115 @@
+// The per-format traits of the 32-block weight formats that share the port's
+// matvec, int8-activation matvec and GEMM kernels (ops/quant_matmul.py).
+//
+// A trait holds a weight's scale arrays and says, for 32-block i of the
+// weight (row n, block b: i = n * K/32 + b), its scale and min, so that
+// w = q * scale - min:
+//   Q4K  Q4_K-E: scale = bf16 es[i], min = bf16 em[i];
+//   Q40  Q4_0:   scale = fp16 d[i],  min = 8 d[i] (exact: w = (q - 8) d);
+//   Q80  Q8_0:   scale = fp16 d[i],  min = 0.
+// QB is the payload bytes of one block: 16 (planar nibbles, byte j holds
+// element j low and element j + 16 high) or 32 (the int8 values).
+// q * scale is exact in f32 (4 or 8 bits times an 8- or 11-bit mantissa),
+// and so is q * scale - min for Q4_0 (the exact difference is (q - 8) d).
+#pragma once
+
+#include <cuda_fp16.h>
+
+#include "common.cuh"
+
+struct Q4K {
+  static constexpr int QB = 16;
+  const bf16* es;
+  const bf16* em;
+  __device__ __forceinline__ float scale(size_t i) const {
+    return __bfloat162float(es[i]);
+  }
+  __device__ __forceinline__ float min(size_t i) const {
+    return __bfloat162float(em[i]);
+  }
+};
+
+struct Q40 {
+  static constexpr int QB = 16;
+  const __half* d;
+  __device__ __forceinline__ float scale(size_t i) const {
+    return __half2float(d[i]);
+  }
+  __device__ __forceinline__ float min(size_t i) const {
+    return 8.f * scale(i);
+  }
+};
+
+struct Q80 {
+  static constexpr int QB = 32;
+  const __half* d;
+  __device__ __forceinline__ float scale(size_t i) const {
+    return __half2float(d[i]);
+  }
+  __device__ __forceinline__ float min(size_t) const { return 0.f; }
+};
+
+// The 32 values q of one block's payload p (16-byte aligned), as floats.
+template <int QB>
+__device__ __forceinline__ void block_values(const uint8_t* p, float v[32]);
+
+template <>
+__device__ __forceinline__ void block_values<16>(const uint8_t* p,
+                                                 float v[32]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t byte = (u[t] >> (8 * i)) & 0xFFu;
+      v[4 * t + i] = (float)(byte & 0xF);
+      v[16 + 4 * t + i] = (float)(byte >> 4);
+    }
+}
+
+template <>
+__device__ __forceinline__ void block_values<32>(const uint8_t* p,
+                                                 float v[32]) {
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 x = w[h];
+    const uint32_t u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[16 * h + 4 * t + i] = (float)(int8_t)((u[t] >> (8 * i)) & 0xFFu);
+  }
+}
+
+// The grid of a matvec that walks its rows over every warp of the grid:
+// N / (rows per CTA) CTAs, capped at the CTAs that are resident at this
+// shared-memory size (queried once per size and kept in *c).
+struct GridCap {
+  int granted = 0, sms = 0, per_sm = 0, for_smem = -1;
+};
+
+template <typename Kernel>
+static cudaError_t grid_for(Kernel kernel, int threads, int smem, int N,
+                            GridCap* c, int* grid) {
+  cudaError_t e = allow_smem(kernel, smem, &c->granted);
+  if (e != cudaSuccess) return e;
+  if (c->for_smem != smem) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &c->per_sm, kernel, threads, smem)) != cudaSuccess)
+      return e;
+    if (c->per_sm < 1) return cudaErrorInvalidConfiguration;
+    c->for_smem = smem;
+  }
+  const int rows = threads / 32;
+  *grid = (N + rows - 1) / rows;
+  if (*grid > c->per_sm * c->sms) *grid = c->per_sm * c->sms;
+  return cudaSuccess;
+}

@@ -1,6 +1,7 @@
-"""Llama-family model in PyTorch: Q4_K-E linears (a Q6_K-E head for the
-Q4_K_M mix), a bf16, int8 or fp8 contiguous KV cache, flash prefill and
-split-KV decode; greedy or sampled generation.
+"""Llama-family model in PyTorch: Q8_0, Q4_0, Q4_K-E or Q6_K-E linears (a
+head of another format, e.g. the Q4_K_M mix's Q6_K-E head), a bf16, int8 or
+fp8 contiguous KV cache, flash prefill and split-KV decode; greedy or
+sampled generation.
 
 Port of the reference's ``models/llama.py``, same function names,
 signatures and public layouts (KV cache [L, B, Hkv, S, D]; logits f32).
@@ -10,7 +11,9 @@ take the reference's branch for every ``ModelConfig`` (``x_quant8``,
 same shapes: the batch-1 decode runs ``model_step`` (every layer in one
 launch), ``layer_step`` per layer, ``attention_fused`` and ``mlp_fused``,
 or the unfused blocks, and the matvecs take int8 activations under
-``x_quant8``. The prefill takes the fused RoPE + repack kernel
+``x_quant8`` (q4_k and q4_0 at (K/32) % 128 == 0). The fused kernels are
+q4_k's only, as in the reference: q8_0, q4_0 and q6_k layers always decode
+unfused. The prefill takes the fused RoPE + repack kernel
 (``ops/prefill_fuse.py``) under the reference's own gate. A quantized cache
 (int8 / fp8 with per-token scales) closes the fused attention, the RoPE +
 repack kernel and the layer kernel, as in the reference. What differs, on
@@ -23,9 +26,8 @@ purpose:
   So a q6_k head takes the same call with or without ``hperm`` (the
   reference un-permutes the hidden vector for it).
 - Not ported yet, and raised, never computed another way:
-  ``cfg.xla_attn_max_cache``, MoE layers, formats other than q4_k (and a
-  q6_k head), the ``x_prepermuted`` argument (no interleaved order exists
-  here).
+  ``cfg.xla_attn_max_cache``, MoE layers, the ``x_prepermuted`` argument
+  (no interleaved order exists here).
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
@@ -54,18 +56,18 @@ from ggml_cuda_experiments_tpu_torch.ops.fused_attention import (
 from ggml_cuda_experiments_tpu_torch.ops.prefill_fuse import (
     rope_pack_prefill)
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
-    QuantLinear, mlp_fused, mlp_fused_supported, qmatmul, qmatmul_ref,
-    quantize)
+    FORMATS, QuantLinear, mlp_fused, mlp_fused_supported, qmatmul,
+    qmatmul_ref, quantize)
 from ggml_cuda_experiments_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
 # The reference's two cutoffs. Up to _QMATVEC_MAX_ROWS rows a linear goes
-# through ``qmatmul`` (q4_k: the matvec at one row, the GEMM from two; q6_k:
-# its matvecs at one row, else a bf16 dequantize + matmul); up to
-# _QPIPE_MAX_ROWS a q4_k linear runs the GEMM too (the reference's
-# pipelined GEMM, the same function as its small-batch one, so one kernel
-# here); above, and for a q6_k weight above _QMATVEC_MAX_ROWS, f32
+# through ``qmatmul`` (q8_0 / q4_0 / q4_k: the matvec at one row, the GEMM
+# from two; q6_k: its matvecs at one row, else a bf16 dequantize + matmul);
+# up to _QPIPE_MAX_ROWS a q8_0 / q4_0 / q4_k linear runs the GEMM too (the
+# reference's pipelined GEMM, the same function as its small-batch one, so
+# one kernel here); above, and for a q6_k weight above _QMATVEC_MAX_ROWS, f32
 # dequantize + torch.matmul, the reference's qmatmul_xla: a plain product,
 # no kernel. To be measured again on the H100.
 _QMATVEC_MAX_ROWS = 32
@@ -485,18 +487,17 @@ _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
                     pad_intermediate: bool = True, fuse: bool = True,
                     head_fmt: str | None = None) -> Params:
-    """Quantize every big linear to ``fmt`` on its own device (embed and
-    norms stay dense). ``head_fmt``: another format for the lm_head
-    (llama.cpp's Q4_K_M mix stores it as Q6_K: fmt="q4_k",
-    head_fmt="q6_k"). ``fuse`` stores wq|wk|wv as one ``wqkv`` and
+    """Quantize every big linear to ``fmt`` (q8_0, q4_0, q4_k or q6_k) on
+    its own device (embed and norms stay dense). ``head_fmt``: another
+    format for the lm_head (llama.cpp's Q4_K_M mix stores it as Q6_K:
+    fmt="q4_k", head_fmt="q6_k"). ``fuse`` stores wq|wk|wv as one ``wqkv`` and
     w_gate|w_up as one ``w_gu``. ``pad_intermediate`` zero-pads the MLP
     intermediate up to a multiple of 4096 when that costs < 15% more bytes
     (7B: 11008 -> 12288), here at quantize time so the step never pads;
     silu(0) * 0 == 0 keeps the padded lanes inert."""
-    if fmt != "q4_k" or head_fmt not in (None, "q4_k", "q6_k"):
+    if fmt not in FORMATS or head_fmt not in (None, *FORMATS):
         raise NotImplementedError(f"fmt {fmt!r} / head_fmt {head_fmt!r}: "
-                                  "the port has q4_k layers and a q4_k or "
-                                  "q6_k head only so far")
+                                  f"the port serves {', '.join(FORMATS)}")
     out = dict(params)
     out["layers"] = []
     for layer in params["layers"]:

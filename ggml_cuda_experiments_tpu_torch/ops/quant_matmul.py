@@ -1,29 +1,40 @@
-"""Q4_K-E and Q6_K-E quantized linears: the container, the device
-quantizers, and the fused dequant matvec / GEMM wrappers.
+"""Q8_0, Q4_0, Q4_K-E and Q6_K-E quantized linears: the container, the
+device quantizers, and the fused dequant matvec / GEMM wrappers.
 
-Port of the reference's ``ops/quant_matmul.py`` for ``fmt="q4_k"`` with the
-Q4_K-E encoding (per-32-block effective scales ``es = bf16(f32(d) * sc)`` and
-mins ``em = bf16(f32(dmin) * mn)``) and ``fmt="q6_k"`` with the Q6_K-E
-encoding (per-16-block ``es = bf16(f32(d) * sc)``). The weights stay in
-LOGICAL column order: the reference's interleaved lane orders and its
-signed-friendly nibbles exist only because Mosaic has no consecutive-element
-expand, and Hopper has no such limit. The q4_k payload is the oracle's
-per-32-block planar nibble packing (``oracle/quant.py``): byte j of a block
-holds element j in its low nibble and element j + 16 in its high nibble.
-Dequantization is ``w = q * f32(es) - f32(em)`` (q4_k) and
+Port of the reference's ``ops/quant_matmul.py`` for its four formats:
+``fmt="q8_0"`` and ``fmt="q4_0"`` (GGML's 32-block formats, one scale d per
+block, stored as fp16: the oracle rounds d through fp16, so fp16 holds it
+exactly and a weight costs GGML's own 1.0625 / 0.5625 bytes),
+``fmt="q4_k"`` with the Q4_K-E encoding (per-32-block effective scales
+``es = bf16(f32(d) * sc)`` and mins ``em = bf16(f32(dmin) * mn)``) and
+``fmt="q6_k"`` with the Q6_K-E encoding (per-16-block
+``es = bf16(f32(d) * sc)``). The weights stay in LOGICAL column order: the
+reference's interleaved lane orders and its signed-friendly nibbles exist
+only because Mosaic has no consecutive-element expand, and Hopper has no
+such limit. The q4_k and q4_0 payload is the oracle's per-32-block planar
+nibble packing (``oracle/quant.py``): byte j of a block holds element j in
+its low nibble and element j + 16 in its high nibble; q8_0's is the int8
+values themselves. Dequantization is ``w = q * f32(d)`` (q8_0),
+``w = (q - 8) * f32(d)`` (q4_0), ``w = q * f32(es) - f32(em)`` (q4_k) and
 ``w = f32(es) * (q - 32)`` (q6_k), bit-equal to the reference's
-``dequantize_jnp`` for the same oracle blocks.
+``dequantize_jnp`` for the same oracle blocks. q4_0 is q4_k's function with
+es = d and em = 8 d (exact), so it shares q4_k's kernels through a scale
+trait.
 
 Kernels:
-- ``q4k_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact f32 activations;
-  replaces the reference's ``_chunk_kernel``, ``_vpu2_kernel`` and, for
-  q4_k at K/32 outside its repeat-aligned counts (tinyllama's w_down),
-  ``_vpu_e_kernel``.
-- ``q4k_gemm`` (``csrc/q4k_matmul.cu``) — B >= 2, bf16 operands with f32
-  accumulation (the reference's numerics); replaces ``_mxu_kernel``,
-  ``_pipe_sub_kernel`` and ``_pipe_kernel``.
-- ``q4k_q8_matvec`` (``csrc/q4k_q8.cu``) — B = 1 with int8 activations
-  (``x_quant8``); replaces ``_chunk8_kernel`` / ``_chunk8_compute``.
+- ``q4k_matvec`` / ``q40_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact
+  f32 activations; replace the reference's ``_chunk_kernel``,
+  ``_vpu2_kernel`` and, at K/32 outside its repeat-aligned counts
+  (tinyllama's w_down), ``_vpu_e_kernel``.
+- ``q80_matvec`` (``csrc/q80_matvec.cu``) — q8_0, B = 1, the reference's
+  ``_mxu_kernel`` rounding: sum_j bf16(x_j) * bf16(q_j * d) in f32; also
+  takes its any-K ``_vpu_e_kernel`` route.
+- ``q4k_gemm`` / ``q40_gemm`` / ``q80_gemm`` (``csrc/q4k_matmul.cu``) —
+  B >= 2, bf16 operands with f32 accumulation (the reference's numerics);
+  replace ``_mxu_kernel``, ``_pipe_sub_kernel`` and ``_pipe_kernel``.
+- ``q4k_q8_matvec`` / ``q40_q8_matvec`` (``csrc/q4k_q8.cu``) — B = 1 with
+  int8 activations (``x_quant8``); replace ``_chunk8_kernel`` /
+  ``_chunk8_compute``.
 - ``mlp_fused`` (``csrc/fused_decode.cu``) — the whole batch-1 silu MLP in
   one launch; replaces ``_fused_mlp_kernel``.
 - ``q6k_matvec`` (``csrc/q6k_matvec.cu``) — q6_k, B = 1, exact f32
@@ -38,7 +49,8 @@ of one byte), a = xl - xh/16 and b = xh/16 are quantized to int8 with
 scale amax/127 (1 where amax == 0), round half to even, clip +-127; then
 y = sum_b es*(sa*sum(lo*aq) + sb*sum(p*bq) + 8*sum(xh)) - em*sum(xl + xh)
 with lo the low nibbles and p = lo + 16*hi - 128 (the byte XOR 0x80 read
-as int8). Both integer dots are exact; only the f32 fold order differs.
+as int8); es = d and em = 8 d for q4_0. Both integer dots are exact; only
+the f32 fold order differs.
 
 Each wrapper runs its plain PyTorch version (``qmatmul_ref``) for a CPU
 tensor and launches its kernel, or raises, for a CUDA tensor.
@@ -58,13 +70,19 @@ from ggml_cuda_experiments_tpu_torch.utils.platform import (
 
 # kernel launches, counted by the wrappers right after each launch
 LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0, "q4k_q8_matvec": 0,
-            "fused_mlp": 0, "q6k_matvec": 0, "q6k_q8_matvec": 0}
+            "fused_mlp": 0, "q6k_matvec": 0, "q6k_q8_matvec": 0,
+            "q80_matvec": 0, "q40_matvec": 0, "q40_q8_matvec": 0,
+            "q80_gemm": 0, "q40_gemm": 0}
+FORMATS = ("q8_0", "q4_0", "q4_k", "q6_k")
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantLinear:
     """Quantized weight W [N, K] (output-major, like GGML), logical order.
 
+    q8_0: qs int8 [N, K], d fp16 [N, K/32]. 1.0625 bytes per weight.
+    q4_0: qs uint8 [N, K/2] (per-32-block planar nibbles, as q4_k's),
+    d fp16 [N, K/32]. 0.5625 bytes per weight.
     q4_k ("Q4_K-E"): qs uint8 [N, K/2] (per-32-block planar nibbles),
     es bf16 [N, K/32], em bf16 [N, K/32].
     q6_k ("Q6_K-E"): per 16-element block b, qs uint8 [N, K/2] bytes
@@ -77,26 +95,27 @@ class QuantLinear:
     fmt: str
     shape: tuple[int, int]
     qs: torch.Tensor
-    es: torch.Tensor
+    es: torch.Tensor | None = None
     em: torch.Tensor | None = None
     qh: torch.Tensor | None = None
+    d: torch.Tensor | None = None
 
     @property
     def array_shape(self) -> tuple[int, int]:
         n, kq = self.qs.shape
-        return n, 2 * kq
+        return n, kq * (1 if self.fmt == "q8_0" else 2)
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.qs, self.es, self.em, self.qh)
+                   for t in (self.qs, self.es, self.em, self.qh, self.d)
                    if t is not None)
 
 
 def _fmt_check(fmt: str) -> None:
-    if fmt not in ("q4_k", "q6_k"):
+    if fmt not in FORMATS:
         raise NotImplementedError(
-            f"format {fmt!r}: the port has q4_k and q6_k only so far")
+            f"format {fmt!r}: the port serves {', '.join(FORMATS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -193,38 +212,79 @@ def _quantize_q6_k_rows(w: torch.Tensor):
     return qs, qh, eff.reshape(n, k // QK6).to(torch.bfloat16)
 
 
+def _quantize_q8_0_rows(w: torch.Tensor):
+    """Oracle Q8_0 quantization of w [n, K] -> (qs int8 [n, K],
+    d fp16 [n, K/32])."""
+    x = w.float()
+    n, k = x.shape
+    xb = x.reshape(n, k // QK, QK)
+    d = _f16_round(_div(xb.abs().amax(-1), 127.0))            # [n, K/32]
+    q = torch.clamp(torch.round(xb * _recip0(d)[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(n, k), d.half()
+
+
+def _quantize_q4_0_rows(w: torch.Tensor):
+    """Oracle Q4_0 quantization of w [n, K] -> (qs uint8 [n, K/2],
+    d fp16 [n, K/32])."""
+    x = w.float()
+    n, k = x.shape
+    xb = x.reshape(n, k // QK, QK)
+    ax = xb.abs()
+    # np.argmax's rule, spelled out: the first index of the largest |x|
+    first = torch.where(ax == ax.amax(-1, keepdim=True),
+                        torch.arange(QK, device=x.device), QK)
+    maxv = xb.gather(-1, first.amin(-1, keepdim=True))[..., 0]
+    d = _f16_round(_div(maxv, -8.0))                           # [n, K/32]
+    q = torch.clamp(torch.round(xb * _recip0(d)[..., None]) + 8, 0,
+                    15).to(torch.uint8)
+    qs = (q[..., :QK // 2] | (q[..., QK // 2:] << 4)).reshape(n, k // 2)
+    return qs, d.half()
+
+
 _QUANT_ROWS = 2048          # rows per chunk of the device quantizer
+_ROWS = {"q8_0": _quantize_q8_0_rows, "q4_0": _quantize_q4_0_rows,
+         "q4_k": _quantize_q4_k_rows, "q6_k": _quantize_q6_k_rows}
+# the fields each row quantizer returns, in order
+_QUANT_FIELDS = {"q8_0": ("qs", "d"), "q4_0": ("qs", "d"),
+                 "q4_k": ("qs", "es", "em"), "q6_k": ("qs", "qh", "es")}
+
+
+def _block(fmt: str) -> int:
+    """The K granule of a format: its 32-block, or q4_k / q6_k's
+    256-superblock."""
+    return QK_K if fmt in ("q4_k", "q6_k") else QK
 
 
 def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
     """Quantize a float [N, K] weight on its own device. Bit-equal to the
-    oracle's ``quantize_q4_k`` / ``quantize_q6_k`` followed by the
-    reference's Q4_K-E / Q6_K-E scale folding. Works in row chunks to bound
-    the f32 temporaries."""
+    oracle's ``quantize_q8_0`` / ``quantize_q4_0`` / ``quantize_q4_k`` /
+    ``quantize_q6_k`` (the last two followed by the reference's Q4_K-E /
+    Q6_K-E scale folding). Works in row chunks to bound the f32
+    temporaries."""
     _fmt_check(fmt)
     n, k = w.shape
-    if k % QK_K:
-        raise ValueError(f"{fmt} needs K % {QK_K} == 0 (got K={k})")
-    rows = _quantize_q4_k_rows if fmt == "q4_k" else _quantize_q6_k_rows
-    parts = [rows(w[r:r + _QUANT_ROWS]) for r in range(0, n, _QUANT_ROWS)]
-    fields = [torch.cat(f) for f in zip(*parts)]
-    if fmt == "q4_k":
-        qs, es, em = fields
-        return QuantLinear(fmt=fmt, shape=(n, k), qs=qs, es=es, em=em)
-    qs, qh, es = fields
-    return QuantLinear(fmt=fmt, shape=(n, k), qs=qs, es=es, qh=qh)
+    if k % _block(fmt):
+        raise ValueError(f"{fmt} needs K % {_block(fmt)} == 0 (got K={k})")
+    parts = [_ROWS[fmt](w[r:r + _QUANT_ROWS])
+             for r in range(0, n, _QUANT_ROWS)]
+    fields = dict(zip(_QUANT_FIELDS[fmt],
+                      (torch.cat(f) for f in zip(*parts))))
+    return QuantLinear(fmt=fmt, shape=(n, k), **fields)
 
 
 _Q4K_FIELDS = ("qs", "sc", "mn", "d", "dmin", "shape")
 _Q6K_FIELDS = ("qs", "sc", "d", "shape")
+_Q32_FIELDS = ("qs", "d", "shape")
 
 
 def from_oracle(t, device=None) -> QuantLinear:
-    """Port container from planar Q4_K or Q6_K blocks (the same values,
-    plus the bf16 effective scales), on the card unless ``device`` says
-    otherwise. ``t`` is read by its fields (Q4_K: qs, sc, mn, d, dmin,
-    shape; Q6_K: qs, sc, d, shape), so the blocks of the port's oracle and
-    of any oracle with the same layout are taken alike."""
+    """Port container from planar Q8_0, Q4_0, Q4_K or Q6_K blocks (the same
+    values; fp16 d, or the bf16 effective scales), on the card unless
+    ``device`` says otherwise. ``t`` is read by its fields (Q4_K: qs, sc,
+    mn, d, dmin, shape; Q6_K: qs, sc, d, shape; Q8_0 and Q4_0: qs, d,
+    shape, told apart by the width and dtype of qs), so the blocks of the
+    port's oracle and of any oracle with the same layout are taken
+    alike."""
     device = resolve_device(device)
     n, k = t.shape
     if all(hasattr(t, f) for f in _Q4K_FIELDS):
@@ -242,20 +302,42 @@ def from_oracle(t, device=None) -> QuantLinear:
             np.ascontiguousarray(t.qs, np.uint8)).reshape(n, k))
         return QuantLinear(fmt="q6_k", shape=(n, k), qs=qs.to(device),
                            es=es.to(device), qh=qh.to(device))
-    raise NotImplementedError(f"from_oracle: {type(t).__name__} "
-                              "(the port has q4_k and q6_k only so far)")
+    if all(hasattr(t, f) for f in _Q32_FIELDS):
+        qs = np.ascontiguousarray(t.qs)
+        fmt = {(k, np.int8): "q8_0", (k // 2, np.uint8): "q4_0"}.get(
+            (qs.shape[-1], qs.dtype.type))
+        if fmt is None:
+            raise ValueError(f"from_oracle: qs {qs.dtype} {qs.shape} is "
+                             f"neither Q8_0 nor Q4_0 of shape {(n, k)}")
+        d = torch.from_numpy(np.asarray(t.d, np.float32)).half()
+        return QuantLinear(fmt=fmt, shape=(n, k),
+                           qs=torch.from_numpy(qs).to(device), d=d.to(device))
+    raise NotImplementedError(f"from_oracle: {type(t).__name__} is none of "
+                              f"the port's formats ({', '.join(FORMATS)})")
+
+
+def _nibbles(qs: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """Planar nibble bytes [n, K/2] -> q [n, K/32, 32] f32, 0..15."""
+    p = qs.reshape(n, k // QK, QK // 2)
+    return torch.cat([p & 0x0F, p >> 4], dim=-1).float()
 
 
 def dequantize(ql: QuantLinear, dtype=torch.float32) -> torch.Tensor:
-    """Dense logical-order [N, K]: w = q * f32(es) - f32(em) (q4_k),
+    """Dense logical-order [N, K]: w = q * f32(d) (q8_0),
+    w = (q - 8) * f32(d) (q4_0), w = q * f32(es) - f32(em) (q4_k),
     w = f32(es) * (q - 32) (q6_k)."""
     n, k = ql.array_shape
     if ql.fmt == "q6_k":
         q = _q6_values(ql.qs, ql.qh).float() - 32.0         # [N, K/16, 16]
         return (ql.es.float()[..., None] * q).reshape(n, k).to(dtype)
-    p = ql.qs.reshape(n, k // QK, QK // 2)
-    q = torch.cat([p & 0x0F, p >> 4], dim=-1).float()       # [N, K/32, 32]
-    w = q * ql.es.float()[..., None] - ql.em.float()[..., None]
+    if ql.fmt == "q8_0":
+        q = ql.qs.reshape(n, k // QK, QK).float()
+        w = q * ql.d.float()[..., None]
+    elif ql.fmt == "q4_0":
+        w = (_nibbles(ql.qs, n, k) - 8.0) * ql.d.float()[..., None]
+    else:
+        w = (_nibbles(ql.qs, n, k) * ql.es.float()[..., None]
+             - ql.em.float()[..., None])
     return w.reshape(n, k).to(dtype)
 
 
@@ -303,11 +385,20 @@ def quantize_activations_q8(x: torch.Tensor):
 _Q8_ROWS = 4096             # rows per chunk of the plain int8 matvec
 
 
+def _scale_min(ql: QuantLinear, r0: int, r1: int):
+    """Rows r0:r1 of the per-32-block (es, em) f32 of a q4_k weight, or of
+    a q4_0 one (es = d, em = 8 d, exact)."""
+    if ql.fmt == "q4_0":
+        es = ql.d[r0:r1].float()
+        return es, 8.0 * es
+    return ql.es[r0:r1].float(), ql.em[r0:r1].float()
+
+
 def qmatmul_q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
-    """Plain version of the int8-activation matvec: y f32 [1, N] for
-    x [1, K] (see the module docstring for the formula). The integer
-    block dots are exact in f32 (|sum| < 2^24)."""
-    _need(ql, "q4_k")
+    """Plain version of the int8-activation matvec (q4_k or q4_0): y f32
+    [1, N] for x [1, K] (see the module docstring for the formula). The
+    integer block dots are exact in f32 (|sum| < 2^24)."""
+    _need(ql, "q4_k", "q4_0")
     n, k = ql.array_shape
     aq, bq, (c, xs, sa, sb) = quantize_activations_q8(x.reshape(-1))
     aqf, bqf = aq.float(), bq.float()
@@ -318,14 +409,15 @@ def qmatmul_q8_ref(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
         zp = torch.einsum("nbt,bt->nb", (p ^ 0x80).view(torch.int8).float(),
                           bqf)
         z = sa * zl + sb * zp + c
-        ys.append((ql.es[r:r + _Q8_ROWS].float() * z
-                   - ql.em[r:r + _Q8_ROWS].float() * xs).sum(-1))
+        es, em = _scale_min(ql, r, r + _Q8_ROWS)
+        ys.append((es * z - em * xs).sum(-1))
     return torch.cat(ys)[None]
 
 
-def _need(ql: QuantLinear, fmt: str) -> None:
-    if ql.fmt != fmt:
-        raise ValueError(f"a {fmt} weight is needed here, got {ql.fmt}")
+def _need(ql: QuantLinear, *fmts: str) -> None:
+    if ql.fmt not in fmts:
+        raise ValueError(f"a {' or '.join(fmts)} weight is needed here, got "
+                         f"{ql.fmt}")
 
 
 # ---------------------------------------------------------------------------
@@ -402,15 +494,22 @@ def mlp_fused_ref(x: torch.Tensor, w_gu: QuantLinear,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_ql(ql: QuantLinear, device: torch.device) -> tuple[int, int]:
-    """Raise unless the weight's arrays are what the kernels read."""
-    _need(ql, "q4_k")
+def _check_ql(ql: QuantLinear, device: torch.device, fmt: str = "q4_k"
+              ) -> tuple[int, int]:
+    """Raise unless ``ql`` is a ``fmt`` weight whose arrays are what the
+    kernels read."""
+    _need(ql, fmt)
     n, k = ql.array_shape
-    if k % QK_K:
-        raise ValueError(f"q4_k kernels need K % {QK_K} == 0 (got {k})")
-    _check_arrays(device, (("qs", ql.qs, torch.uint8, (n, k // 2), 16),
-                           ("es", ql.es, torch.bfloat16, (n, k // QK), 2),
-                           ("em", ql.em, torch.bfloat16, (n, k // QK), 2)))
+    if k % _block(fmt):
+        raise ValueError(f"{fmt} kernels need K % {_block(fmt)} == 0 "
+                         f"(got {k})")
+    if fmt == "q4_k":
+        scales = (("es", ql.es, torch.bfloat16, (n, k // QK), 2),
+                  ("em", ql.em, torch.bfloat16, (n, k // QK), 2))
+    else:
+        scales = (("d", ql.d, torch.float16, (n, k // QK), 2),)
+    qs = ((n, k), torch.int8) if fmt == "q8_0" else ((n, k // 2), torch.uint8)
+    _check_arrays(device, (("qs", ql.qs, qs[1], qs[0], 16), *scales))
     return n, k
 
 
@@ -429,55 +528,88 @@ def _check_arrays(device, arrays) -> None:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _check_weight(ql: QuantLinear, x: torch.Tensor) -> tuple[int, int]:
-    n, k = _check_ql(ql, x.device)
+def _check_weight(ql: QuantLinear, x: torch.Tensor, fmt: str = "q4_k"
+                  ) -> tuple[int, int]:
+    n, k = _check_ql(ql, x.device, fmt)
     if x.dim() != 2 or x.shape[1] != k or not x.is_contiguous():
         raise ValueError(f"x: need contiguous [B, {k}], got {tuple(x.shape)}")
     return n, k
+
+
+def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
+            dtype: torch.dtype, gemm: bool = False) -> torch.Tensor:
+    """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight,
+    launch the C entry ``name`` (x, qs, its scale arrays, y, [M,] N, K,
+    stream) and count the launch."""
+    n, k = _check_weight(ql, x, fmt)
+    if x.dtype != dtype or (x.shape[0] != 1 and not gemm):
+        raise ValueError(f"{name}: x must be {dtype} "
+                         f"{'[M, K]' if gemm else '[1, K]'}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    m = x.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    scales = (ql.es, ql.em) if fmt == "q4_k" else (ql.d,)
+    rc = getattr(_build.lib(), name)(
+        x.data_ptr(), ql.qs.data_ptr(), *(t.data_ptr() for t in scales),
+        y.data_ptr(), *((m,) if gemm else ()), n, k, _build.stream_of(x))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return y
 
 
 def q4k_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """y [1, N] f32 = x [1, K] f32 . deq(W)^T, exact f32 activations."""
     if not kernels_for(x):
         return qmatmul_ref(x, ql, torch.float32)
-    n, k = _check_weight(ql, x)
-    if x.dtype != torch.float32 or x.shape[0] != 1:
-        raise ValueError(f"q4k_matvec: x must be f32 [1, K], got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    rc = _build.lib().q4k_matvec(
-        x.data_ptr(), ql.qs.data_ptr(), ql.es.data_ptr(), ql.em.data_ptr(),
-        y.data_ptr(), n, k, _build.stream_of(x))
-    _build.check(rc, "q4k_matvec")
-    LAUNCHES["q4k_matvec"] += 1
-    return y
+    return _launch("q4k_matvec", "q4_k", x, ql, torch.float32)
+
+
+def q40_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_matvec`` for a q4_0 W (es = d, em = 8 d)."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.float32)
+    return _launch("q40_matvec", "q4_0", x, ql, torch.float32)
+
+
+def q80_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """y [1, N] f32 = bf16(x) [1, K] . bf16(q * d)^T for a q8_0 W, f32
+    accumulation (x f32, rounded to bf16 in the kernel)."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.bfloat16)
+    return _launch("q80_matvec", "q8_0", x, ql, torch.float32)
 
 
 def q4k_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """y [M, N] f32 = bf16(x) [M, K] . bf16(deq(W))^T, f32 accumulation."""
     if not kernels_for(x):
         return qmatmul_ref(x, ql, torch.bfloat16)
-    n, k = _check_weight(ql, x)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"q4k_gemm: x must be bf16, got {x.dtype}")
-    m = x.shape[0]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    rc = _build.lib().q4k_gemm(
-        x.data_ptr(), ql.qs.data_ptr(), ql.es.data_ptr(), ql.em.data_ptr(),
-        y.data_ptr(), m, n, k, _build.stream_of(x))
-    _build.check(rc, "q4k_gemm")
-    LAUNCHES["q4k_gemm"] += 1
-    return y
+    return _launch("q4k_gemm", "q4_k", x, ql, torch.bfloat16, gemm=True)
+
+
+def q40_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_gemm`` for a q4_0 W."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.bfloat16)
+    return _launch("q40_gemm", "q4_0", x, ql, torch.bfloat16, gemm=True)
+
+
+def q80_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_gemm`` for a q8_0 W."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.bfloat16)
+    return _launch("q80_gemm", "q8_0", x, ql, torch.bfloat16, gemm=True)
 
 
 def q8_matvec_supported(ql: QuantLinear) -> bool:
     """The reference's gate of its int8-activation matvec beyond B == 1:
-    q4_k with (K/32) % 128 == 0."""
-    return ql.fmt == "q4_k" and (ql.array_shape[1] // QK) % 128 == 0
+    q4_k or q4_0 with (K/32) % 128 == 0."""
+    return (ql.fmt in ("q4_k", "q4_0")
+            and (ql.array_shape[1] // QK) % 128 == 0)
 
 
-def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str) -> tuple[int, int]:
-    n, k = _check_weight(ql, x)
+def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str,
+              fmt: str = "q4_k") -> tuple[int, int]:
+    n, k = _check_weight(ql, x, fmt)
     if x.dtype != torch.float32 or x.shape[0] != 1 \
             or not q8_matvec_supported(ql):
         raise ValueError(f"{name}: x must be f32 [1, K] with K % 4096 == 0, "
@@ -485,18 +617,24 @@ def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str) -> tuple[int, int]:
     return n, k
 
 
+def _q8_launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear
+               ) -> torch.Tensor:
+    _check_q8(x, ql, name, fmt)
+    return _launch(name, fmt, x, ql, torch.float32)
+
+
 def q4k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """y [1, N] f32 = the int8-activation matvec of x [1, K] f32."""
     if not kernels_for(x):
         return qmatmul_q8_ref(x, ql)
-    n, k = _check_q8(x, ql, "q4k_q8_matvec")
-    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    rc = _build.lib().q4k_q8_matvec(
-        x.data_ptr(), ql.qs.data_ptr(), ql.es.data_ptr(), ql.em.data_ptr(),
-        y.data_ptr(), n, k, _build.stream_of(x))
-    _build.check(rc, "q4k_q8_matvec")
-    LAUNCHES["q4k_q8_matvec"] += 1
-    return y
+    return _q8_launch("q4k_q8_matvec", "q4_k", x, ql)
+
+
+def q40_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_q8_matvec`` for a q4_0 W (es = d, em = 8 d)."""
+    if not kernels_for(x):
+        return qmatmul_q8_ref(x, ql)
+    return _q8_launch("q40_q8_matvec", "q4_0", x, ql)
 
 
 def q6_hybrid_ok(k: int) -> bool:
@@ -553,16 +691,28 @@ def q6k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return _q6_launch("q6k_q8_matvec", x, ql, q6_hybrid_ok)
 
 
+# each format's (B == 1 matvec, int8-activation matvec, B >= 2 GEMM), by
+# name: looked up when called, so a wrapper replaced on the module (a
+# counting spy) is the one that runs
+_ROUTES = {"q4_k": ("q4k_matvec", "q4k_q8_matvec", "q4k_gemm"),
+           "q4_0": ("q40_matvec", "q40_q8_matvec", "q40_gemm"),
+           "q8_0": ("q80_matvec", None, "q80_gemm")}
+
+
 def qmatmul(x: torch.Tensor, ql: QuantLinear,
             x_quant8: bool = False) -> torch.Tensor:
     """y [B, N] = x [B, K] @ deq(W)^T in x's dtype, x in logical order.
 
-    q4_k: B == 1 runs the int8-activation matvec when ``x_quant8`` and the
-    reference's gate allow it (its ``_chunk8_kernel``), else the exact-f32
-    matvec (its ``_chunk_kernel`` / ``_vpu2_kernel`` / ``_vpu_e_kernel``);
-    B >= 2 the bf16 GEMM (its ``_mxu_kernel`` and, for its ``pipelined``
-    prefill range, ``_pipe_sub_kernel``: the same function, so the port has
-    one kernel and no ``pipelined`` flag).
+    q4_k and q4_0: B == 1 runs the int8-activation matvec when ``x_quant8``
+    and the reference's gate allow it (its ``_chunk8_kernel``), else the
+    exact-f32 matvec (its ``_chunk_kernel`` / ``_vpu2_kernel`` /
+    ``_vpu_e_kernel``); B >= 2 the bf16 GEMM (its ``_mxu_kernel`` and, for
+    its ``pipelined`` prefill range, ``_pipe_sub_kernel``: the same
+    function, so the port has one kernel and no ``pipelined`` flag).
+
+    q8_0 (``x_quant8`` has no effect, as in the reference): B == 1 runs
+    ``q80_matvec`` (its ``_mxu_kernel`` at repeat-aligned K/32, its
+    ``_vpu_e_kernel`` elsewhere), B >= 2 the GEMM.
 
     q6_k, as the reference dispatches it (``x_quant8`` has no effect): B == 1
     runs the hybrid matvec at K % 4096 == 0 (its ``_chunk6h_kernel``), else
@@ -578,13 +728,12 @@ def qmatmul(x: torch.Tensor, ql: QuantLinear,
         else:
             y = qmatmul_ref(x, ql, torch.bfloat16)
         return y.to(x.dtype)
+    matvec, matvec_q8, gemm = _ROUTES[ql.fmt]
     if x.shape[0] == 1:
-        if x_quant8 and q8_matvec_supported(ql):
-            y = q4k_q8_matvec(x.float().contiguous(), ql)
-        else:
-            y = q4k_matvec(x.float().contiguous(), ql)
+        name = matvec_q8 if x_quant8 and q8_matvec_supported(ql) else matvec
+        y = globals()[name](x.float().contiguous(), ql)
     else:
-        y = q4k_gemm(x.to(torch.bfloat16).contiguous(), ql)
+        y = globals()[gemm](x.to(torch.bfloat16).contiguous(), ql)
     return y.to(x.dtype)
 
 

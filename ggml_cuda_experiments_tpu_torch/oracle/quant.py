@@ -1,9 +1,20 @@
-"""GGML Q4_K and Q6_K block quantization in NumPy: the executable
-specification the port's device quantizers and kernels are held to.
+"""GGML Q8_0, Q4_0, Q4_K and Q6_K block quantization in NumPy: the
+executable specification the port's device quantizers and kernels are held
+to.
 
-The port's own copy of the Q4_K and Q6_K parts of the JAX package's
-``oracle/quant.py`` (same arithmetic, same planar layouts), so the port
-imports nothing of that package.
+The port's own copy of the JAX package's ``oracle/quant.py`` (same
+arithmetic, same planar layouts), so the port imports nothing of that
+package.
+
+Q8_0 and Q4_0, per 32-element block:
+
+    Q8_0 qs int8  [..., N]     q in [-127, 127]
+         d  f32   [..., N/32]  absmax / 127, fp16-rounded
+    Q4_0 qs uint8 [..., N/2]   per-32-block planar nibbles (as Q4_K's)
+         d  f32   [..., N/32]  (signed value of largest |x|) / -8,
+                               fp16-rounded
+
+Dequantization: x = d * q (Q8_0), x = d * (q - 8) (Q4_0).
 
 Q4_K, per-32-block planar nibbles:
 
@@ -54,6 +65,72 @@ def pack_nibbles(q: np.ndarray) -> np.ndarray:
 def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
     """[..., nb, 16] packed uint8 -> [..., nb, 32] uint8 (values 0..15)."""
     return np.concatenate([packed & np.uint8(0x0F), packed >> 4], axis=-1)
+
+
+@dataclasses.dataclass
+class Q8_0:
+    """Planar Q8_0 tensor: per-32-block absmax int8 quantization."""
+    qs: np.ndarray
+    d: np.ndarray
+    shape: tuple
+
+    @property
+    def bits_per_weight(self) -> float:
+        return 8 + 16 / QK
+
+
+def quantize_q8_0(x: np.ndarray) -> Q8_0:
+    x = np.asarray(x, np.float32)
+    *lead, n = x.shape
+    assert n % QK == 0, f"last dim {n} must be a multiple of {QK}"
+    xb = x.reshape(*lead, n // QK, QK)
+    amax = np.max(np.abs(xb), axis=-1)
+    d = _f16_round(amax / 127.0)
+    inv_d = np_div(np.ones_like(d), d)
+    q = np.clip(np.round(xb * inv_d[..., None]), -127, 127).astype(np.int8)
+    return Q8_0(qs=q.reshape(*lead, n), d=d, shape=tuple(x.shape))
+
+
+def dequantize_q8_0(t: Q8_0) -> np.ndarray:
+    *lead, n = t.shape
+    q = t.qs.reshape(*lead, n // QK, QK).astype(np.float32)
+    return (q * t.d[..., None]).reshape(t.shape)
+
+
+@dataclasses.dataclass
+class Q4_0:
+    """Planar Q4_0 tensor: per-32-block symmetric 4-bit quantization."""
+    qs: np.ndarray
+    d: np.ndarray
+    shape: tuple
+
+    @property
+    def bits_per_weight(self) -> float:
+        return 4 + 16 / QK
+
+
+def quantize_q4_0(x: np.ndarray) -> Q4_0:
+    x = np.asarray(x, np.float32)
+    *lead, n = x.shape
+    assert n % QK == 0, f"last dim {n} must be a multiple of {QK}"
+    xb = x.reshape(*lead, n // QK, QK)
+    # GGML's rule: the signed value of largest |x| (np.argmax: the first
+    # such index on ties, so +v before -v keeps the +) over -8, so that it
+    # maps to q = 0 (after the +8 offset) exactly
+    idx = np.argmax(np.abs(xb), axis=-1, keepdims=True)
+    maxv = np.take_along_axis(xb, idx, axis=-1)[..., 0]
+    d = _f16_round(maxv / -8.0)
+    inv_d = np_div(np.ones_like(d), d)
+    q = np.clip(np.round(xb * inv_d[..., None]) + 8, 0, 15).astype(np.uint8)
+    return Q4_0(qs=pack_nibbles(q).reshape(*lead, n // 2), d=d,
+                shape=tuple(x.shape))
+
+
+def dequantize_q4_0(t: Q4_0) -> np.ndarray:
+    *lead, n = t.shape
+    packed = t.qs.reshape(*lead, n // QK, QK // 2)
+    q = unpack_nibbles(packed).astype(np.float32) - 8.0
+    return (q * t.d[..., None]).reshape(t.shape)
 
 
 @dataclasses.dataclass

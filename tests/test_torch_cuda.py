@@ -18,7 +18,11 @@ layer_step launches. The q6_k matvecs 1e-4 * max (exact f32, and the hybrid
 whose int8 operands equal the plain version's); flash_decode on an int8 /
 fp8 cache 2e-3 * max in MHA (the kernel and its plain version share the
 quantization; only f32 sums differ in order) and 1e-2 * max with GQA
-groups, whose p * v_scale is rounded to bf16 as in the reference."""
+groups, whose p * v_scale is rounded to bf16 as in the reference. The
+Q8_0 / Q4_0 kernels: q40_matvec and q40_q8_matvec 1e-4 * max (as their
+q4_k instances), q80_matvec 1e-4 * max (it reproduces its plain version's
+rounding, bf16(x) * bf16(q d) summed in f32), the GEMMs 2e-2 * max (as
+q4k_gemm); the device quantizer bit-equal to the oracle."""
 
 import dataclasses
 
@@ -120,6 +124,60 @@ def test_q6k_q8_matvec(dev, n, k):
     before = qm.LAUNCHES["q6k_q8_matvec"]
     _check(qm.q6k_q8_matvec, _randn(46, 1, k).to(dev), ql, tol=1e-4)
     assert qm.LAUNCHES["q6k_q8_matvec"] == before + 1
+
+
+def _q32_weight(seed, n, k, dev):
+    """A weight with +v / -v ties for the largest |x| of a 32-block (either
+    sign first) and an all-zero block."""
+    w = _randn(seed, n, k, scale=k ** -0.5)
+    w[0, :32] = 0.01
+    w[0, 3], w[0, 20] = 0.5, -0.5
+    w[1, 32:64] = -0.02
+    w[1, 40], w[1, 41] = -0.25, 0.25
+    w[2, :32] = 0.0
+    return w.to(dev)
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+def test_q32_quantizer_on_the_card_is_bit_equal(dev, fmt):
+    from ggml_cuda_experiments_tpu_torch.oracle import quant as quant_ref
+    w = _q32_weight(50, 64, 5632, dev)
+    got = qm.quantize(w, fmt)
+    want = qm.from_oracle(getattr(quant_ref, f"quantize_{fmt}")(
+        w.cpu().numpy()), device="cpu")
+    for f in ("qs", "d"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("name,fmt", [("q80_matvec", "q8_0"),
+                                      ("q40_matvec", "q4_0")])
+@pytest.mark.parametrize("n,k", [(300, 4096), (37, 5632), (4096, 1024),
+                                 (130, 96), (64, 12288)])
+def test_q32_matvec(dev, name, fmt, n, k):
+    ql = qm.quantize(_q32_weight(51, n, k, dev), fmt)
+    before = qm.LAUNCHES[name]
+    _check(getattr(qm, name), _randn(52, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("n,k", [(640, 4096), (300, 12288), (4096, 4096)])
+def test_q40_q8_matvec(dev, n, k):
+    ql = qm.quantize(_q32_weight(53, n, k, dev), "q4_0")
+    before = qm.LAUNCHES["q40_q8_matvec"]
+    _check(qm.q40_q8_matvec, _randn(54, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES["q40_q8_matvec"] == before + 1
+
+
+@pytest.mark.parametrize("name,fmt", [("q80_gemm", "q8_0"),
+                                      ("q40_gemm", "q4_0")])
+@pytest.mark.parametrize("m,k", [(2, 512), (17, 544), (70, 96), (8, 5632)])
+def test_q32_gemm(dev, name, fmt, m, k):
+    """K = 544 and 96 end on half of the GEMM's 64-wide K step."""
+    ql = qm.quantize(_q32_weight(55, 130, k, dev), fmt)
+    x = _randn(56, m, k).to(dev, torch.bfloat16)
+    before = qm.LAUNCHES[name]
+    _check(getattr(qm, name), x, ql, tol=2e-2)
+    assert qm.LAUNCHES[name] == before + 1
 
 
 @pytest.mark.parametrize("m", [2, 17, 70])
@@ -376,6 +434,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qm.q6k_q8_matvec(torch.zeros((1, 1024), device=dev), q6)
     with pytest.raises(ValueError):                   # a q4_k weight
         qm.q6k_matvec(torch.zeros((1, 256), device=dev), ql)
+    q40 = qm.quantize(_randn(0, 64, 1024).to(dev), "q4_0")
+    with pytest.raises(ValueError):                   # K % 4096
+        qm.q40_q8_matvec(torch.zeros((1, 1024), device=dev), q40)
+    with pytest.raises(ValueError):                   # a q4_0 weight
+        qm.q80_matvec(torch.zeros((1, 1024), device=dev), q40)
+    with pytest.raises(ValueError):                   # f32, not bf16
+        qm.q40_gemm(torch.zeros((4, 1024), device=dev), q40)
     kq = torch.zeros((1, 2, 64, 64), dtype=torch.int8, device=dev)
     sc = torch.ones((1, 2, 64), device=dev)
     q64 = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
@@ -418,7 +483,8 @@ def _to(params, dev):
     def mv(w):
         if isinstance(w, qm.QuantLinear):
             return dataclasses.replace(w, **{
-                f: getattr(w, f).to(dev) for f in ("qs", "es", "em", "qh")
+                f: getattr(w, f).to(dev)
+                for f in ("qs", "es", "em", "qh", "d")
                 if getattr(w, f) is not None})
         return w.to(dev)
     out = {k: mv(v) for k, v in params.items() if k != "layers"}

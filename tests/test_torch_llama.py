@@ -28,6 +28,7 @@ from ggml_cuda_experiments_tpu.models.config import PRESETS
 from ggml_cuda_experiments_tpu.ops import quant_matmul as jqm
 from ggml_cuda_experiments_tpu.utils.tensor_io import load_tensor
 from ggml_cuda_experiments_tpu_torch.models import convert
+from ggml_cuda_experiments_tpu_torch.models import engine as te
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 from ggml_cuda_experiments_tpu_torch.models.config import (
     ModelConfig as TModelConfig, PRESETS as TPRESETS)
@@ -221,8 +222,9 @@ def test_generate_is_deterministic_greedy():
     assert ((out1 >= 0) & (out1 < DEBUG.vocab_size)).all()
 
 
-@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache", "q8_0",
-                                  "x_prepermuted", "hperm_moe"])
+@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache",
+                                  "native_scheduler", "x_prepermuted",
+                                  "hperm_moe"])
 def test_unported_options_raise(case):
     params = tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
                                 "q4_k")
@@ -242,8 +244,8 @@ def test_unported_options_raise(case):
                                             router=torch.zeros(4, 256))])
             tl.permute_hidden_params(moe, TDEBUG)
         else:
-            tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
-                               "q8_0")
+            te.Engine(params, TDEBUG, max_batch=2, page_size=32, n_pages=8,
+                      max_seq_len=64, scheduler="native")
 
 
 def _run(args, **env):

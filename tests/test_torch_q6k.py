@@ -167,12 +167,20 @@ def test_dense_routes(rows, k):
 
 
 def test_other_head_formats_raise():
+    """Every format of the reference quantizes the head and the layers (a
+    q8_0 head, q6_k layers); a format it has not raises."""
     dense = tl.init_weights(ModelConfig(**_cfg_kw(PRESETS["debug"])),
                             seed=0, device="cpu")
+    mixed = tl.quantize_params(dense, "q4_k", head_fmt="q8_0")
+    assert mixed["lm_head"].fmt == "q8_0"
+    assert mixed["layers"][0]["w_down"].fmt == "q4_k"
+    q6 = tl.quantize_params(dense, "q6_k")
+    assert {w.fmt for w in q6["layers"][0].values()
+            if isinstance(w, tqm.QuantLinear)} == {"q6_k"}
     with pytest.raises(NotImplementedError):
-        tl.quantize_params(dense, "q4_k", head_fmt="q8_0")
+        tl.quantize_params(dense, "q4_k", head_fmt="q5_k")
     with pytest.raises(NotImplementedError):
-        tl.quantize_params(dense, "q6_k")
+        tl.quantize_params(dense, "q5_k")
 
 
 # ---------------------------------------------------------------- models

@@ -90,9 +90,13 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_other_formats_raise():
+    """A format outside the four the port serves raises, in the quantizer
+    and in from_oracle (blocks it cannot read by their fields)."""
     with pytest.raises(NotImplementedError):
-        tqm.quantize(torch.zeros((8, 256)), "q8_0")
+        tqm.quantize(torch.zeros((8, 256)), "q5_k")
+
+    class Q5Blocks:
+        qs = np.zeros((8, 160), np.uint8)
+        shape = (8, 256)
     with pytest.raises(NotImplementedError):
-        tqm.from_oracle(quant_ref.quantize_q8_0(np.zeros((8, 256),
-                                                         np.float32)),
-                        device="cpu")
+        tqm.from_oracle(Q5Blocks(), device="cpu")
