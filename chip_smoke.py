@@ -64,7 +64,19 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      K = 5632), TTFT / decode rate, and request 1 forced layer by layer
      against the plain versions;
   5g. the same tinyllama weights in Q8_0 and in Q4_0 (w_down at K = 5632
-     on q80_matvec / q40_matvec, asserted by K), each forced.
+     on q80_matvec / q40_matvec, asserted by K), each forced;
+  4f. (after 4e, also with --kernels-only) the kernel lab's kernels: the
+     dense GEMM (matmul: bf16 and f16 at 4096^3, int8 at 4096^3 bitwise,
+     f32 at 2048^3, the three transposes, a ragged 1000^3, the batch-1
+     matvec at 4096 x 4096), stage_pad, grid_sum (int32 exact, f32 the
+     same bits on every run) and lane_reduce, each against its plain
+     version, with the library call's time beside it;
+  7. (last) the kernel lab's path through its tools: kernel_test (flash
+     decode against the NumPy oracle, GQA 32/8, kv 4096: split-KV x8,
+     single-pass, int8 cache; each must PASS), gemm_bench (2048, 4096,
+     8192), the JAX package's primitive tests' cases through the port's
+     ops, and perplexity on tinyllama-1.1b (22 layers, q4_k, 256 tokens:
+     PPL within 2% of the NumPy oracle's), with each path's counts.
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
 object with every kernel's route, source, launches per path, error,
@@ -117,9 +129,10 @@ def time_ms(fn, calls: int = 20, replays: int = 5) -> float:
 
 
 def rel_err(got, ref) -> tuple[float, float]:
-    """(max |got - ref|, max |ref|); raises on non-finite output."""
+    """(max |got - ref|, max |ref|), taken in f64 (int32 sums above 2^24
+    stay exact); raises on non-finite output."""
     import torch
-    got, ref = got.float(), ref.float()
+    got, ref = got.double(), ref.double()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite values in kernel output")
     return float((got - ref).abs().max()), float(ref.abs().max())
@@ -216,6 +229,15 @@ KERNELS = {
                  ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
+    # the kernel lab: the dense GEMM (#18) and the primitives (#19)
+    "matmul": ("ggml_cuda_experiments_tpu_torch/csrc/matmul.cu",
+               "ggml_cuda_experiments_tpu/ops/matmul.py:40", []),
+    "stage_pad": ("ggml_cuda_experiments_tpu_torch/csrc/primitives.cu",
+                  "tests/test_dma.py:21", []),
+    "grid_sum": ("ggml_cuda_experiments_tpu_torch/csrc/primitives.cu",
+                 "tests/test_reductions.py:22", []),
+    "lane_reduce": ("ggml_cuda_experiments_tpu_torch/csrc/primitives.cu",
+                    "tests/test_reductions.py:60", []),
 }
 # the wrappers of each weight format's linears: (one-row matvec, GEMM)
 FORMAT_KERNELS = {"q4_k": ("q4k_matvec", "q4k_gemm"),
@@ -299,13 +321,14 @@ def _spec():
     return spec
 
 
-def _rate(nbytes, flops, ms):
-    """Achieved rates, and the share of the card's published peaks."""
+def _rate(nbytes, flops, ms, kind="bf16"):
+    """Achieved rates, and the share of the card's published peaks (the
+    operations' against the peak of their ``kind``: bf16, int8 or f32)."""
     spec = _spec()
     gbs, tfs = nbytes / ms / 1e6, flops / ms / 1e9
     return (f"{gbs:.0f} GB/s ({100 * gbs * 1e9 / spec.hbm_bytes_per_s:.1f}"
             f"% of {spec.name} HBM), {tfs:.1f} TFLOP/s "
-            f"({100 * tfs * 1e12 / spec.peak_flops_bf16:.1f}% of bf16)")
+            f"({100 * tfs * 1e12 / spec.peak(kind):.1f}% of {kind})")
 
 
 def phase_kernels(dev, seed, res: Results):
@@ -567,17 +590,23 @@ def phase_engine_kernels(dev, seed, res: Results):
 
 
 def _versus_plain(res: Results, name, case, fn, tol, bound, headline=False,
-                  calls=20):
-    """fn(i) on the kernel against its plain versions (the first output
-    within ``tol``; any further ones, k_new / v_new, within 2e-2 *
-    max(1, max)), then both timed (the plain one with a tenth of the
-    calls); returns the kernel's ms."""
+                  calls=20, library=None, scale=None):
+    """fn(i) on the kernel against its plain versions: the first output of
+    the same shape and dtype, within ``tol`` * ``scale`` (default max
+    |plain|); any further ones, k_new / v_new, within 2e-2 * max(1, max).
+    Then both timed (the plain one with a tenth of the calls) and, where
+    given, ``library(i)``: one PyTorch call of the same function. Returns
+    the kernel's ms."""
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
     got = fn(0)
     with plain_versions():
         ref = fn(0)
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
+    if got[0].shape != ref[0].shape or got[0].dtype != ref[0].dtype:
+        raise AssertionError(f"{name} {case}: {got[0].dtype} "
+                             f"{tuple(got[0].shape)} vs plain {ref[0].dtype} "
+                             f"{tuple(ref[0].shape)}")
     err, sc = rel_err(got[0], ref[0])
     for gk, rk in zip(got[1:], ref[1:]):
         e2, s2 = rel_err(gk, rk)
@@ -586,7 +615,9 @@ def _versus_plain(res: Results, name, case, fn, tol, bound, headline=False,
     ms = time_ms(fn, calls=calls)
     with plain_versions():
         pms = time_ms(fn, calls=max(1, calls // 10), replays=3)
-    res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
+    lib = None if library is None else time_ms(library, calls=calls)
+    res.add(name, case, err, sc if scale is None else scale, tol, ms, pms,
+            bound, headline=headline, library_ms=lib)
     return ms
 
 
@@ -814,13 +845,120 @@ def phase_format_kernels(dev, seed, res: Results):
         del wq
 
 
+def phase_lab_kernels(dev, seed, res: Results):
+    """The kernel lab's kernels against their plain versions on the card:
+    the dense GEMM in each dtype, its transposes, a ragged shape and the
+    batch-1 matvec; the staging and reduction primitives at sizes that
+    stream well past the L2. The library column: torch.matmul (TF32 off),
+    torch._int_mm, F.pad, torch.sum (int32 kept for int32), and amax + sum
+    (two calls)."""
+    import torch
+    import torch.nn.functional as F
+    from ggml_cuda_experiments_tpu_torch.ops import matmul as mm
+    from ggml_cuda_experiments_tpu_torch.ops import primitives as pr
+    log("== 4f. kernel-lab kernels (matmul, stage_pad, grid_sum, "
+        "lane_reduce) vs plain versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    spec = _spec()
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+    def operand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    kinds = {torch.bfloat16: "bf16", torch.float16: "bf16",
+             torch.int8: "int8", torch.float32: "f32"}
+    tols = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.int8: 0.0,
+            torch.float32: 1e-4}
+
+    def gemm(dtype, m, k, n, ta=False, tb=False, headline=False, copies=1):
+        x = operand((k, m) if ta else (m, k), dtype)
+        ws = [operand((n, k) if tb else (k, n), dtype)
+              for _ in range(copies)]
+        es = x.element_size()
+        oes = torch.empty((), dtype=mm.default_out_dtype(dtype)
+                          ).element_size()
+        nbytes = (m * k + k * n) * es + m * n * oes
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        op = lambda t, flag: t.T if flag else t
+        if dtype == torch.int8:
+            library = lambda i: torch._int_mm(op(x, ta),
+                                              op(ws[i % copies], tb))
+        else:
+            library = lambda i: torch.matmul(op(x, ta), op(ws[i % copies], tb))
+        ms = _versus_plain(res, "matmul",
+                           f"{str(dtype)[6:]} M={m} K={k} N={n} "
+                           f"ta={int(ta)} tb={int(tb)}"
+                           + (f" ({copies} weight copies)" if copies > 1
+                              else ""),
+                           lambda i: mm.matmul(x, ws[i % copies], **kw),
+                           tols[dtype],
+                           spec.bound_ms(nbytes, 2 * m * n * k, kinds[dtype]),
+                           library=library, headline=headline)
+        log(f"    {_rate(nbytes, 2 * m * n * k, ms, kinds[dtype])}")
+
+    gemm(torch.bfloat16, 4096, 4096, 4096, headline=True)
+    gemm(torch.float16, 4096, 4096, 4096)
+    gemm(torch.int8, 4096, 4096, 4096)
+    gemm(torch.float32, 2048, 2048, 2048)
+    for ta, tb in ((False, True), (True, False), (True, True)):
+        gemm(torch.bfloat16, 4096, 4096, 4096, ta, tb)
+    gemm(torch.bfloat16, 1000, 1000, 1000)
+    gemm(torch.bfloat16, 1, 4096, 4096, copies=5)    # 33.6 MB: past the L2
+
+    # stage_pad: 1,048,576 rows of 80 f32 -> 128 (872 MB moved)
+    R, D, DP = 1 << 20, 80, 128
+    x = operand((R, D), torch.float32)
+    _versus_plain(res, "stage_pad", f"[{R}, {D}] f32 -> [{R}, {DP}]",
+                  lambda i: pr.stage_pad(x, DP), 0.0,
+                  spec.bound_ms(4 * R * (D + DP), 0, "f32"),
+                  library=lambda i: F.pad(x, (0, DP - D)), headline=True)
+    del x
+    # grid_sum: 524,288 x 128 int32 (268 MB), exact; then f32, within
+    # 1e-6 of the summed magnitudes (another order of the same sum)
+    n, d = 1 << 19, 128
+    xi = torch.randint(-1000, 1000, (n, d), generator=g, device=dev,
+                       dtype=torch.int32)
+    _versus_plain(res, "grid_sum", f"[{n}, {d}] int32",
+                  lambda i: pr.grid_sum(xi), 0.0,
+                  spec.bound_ms(4 * n * d + 4, n * d, "f32"),
+                  library=lambda i: torch.sum(xi, dtype=torch.int32),
+                  headline=True)
+    del xi
+    xf = operand((n, d), torch.float32)
+    again = [pr.grid_sum(xf) for _ in range(3)]
+    if not all(torch.equal(a, again[0]) for a in again):
+        raise AssertionError("grid_sum f32: runs differ")
+    _versus_plain(res, "grid_sum", f"[{n}, {d}] f32 (three runs equal)",
+                  lambda i: pr.grid_sum(xf), 1e-6,
+                  spec.bound_ms(4 * n * d + 4, n * d, "f32"),
+                  library=lambda i: torch.sum(xf),
+                  scale=float(xf.double().abs().sum()))
+    del xf
+    # lane_reduce: 32,768 rows of 4,096 f32 (537 MB): the max exact, the
+    # sum within 1e-6 * max |sum|
+    n, d = 1 << 15, 4096
+    x = operand((n, d), torch.float32)
+    _versus_plain(res, "lane_reduce", f"[{n}, {d}] f32, max", lambda i:
+                  pr.lane_reduce(x)[0], 0.0,
+                  spec.bound_ms(4 * n * d + 8 * n, 2 * n * d, "f32"))
+    _versus_plain(res, "lane_reduce", f"[{n}, {d}] f32, sum", lambda i:
+                  pr.lane_reduce(x)[1], 1e-6,
+                  spec.bound_ms(4 * n * d + 8 * n, 2 * n * d, "f32"),
+                  library=lambda i: (x.amax(1, keepdim=True),
+                                     x.sum(1, keepdim=True)), headline=True)
+    del x
+
+
 def _tables():
     from ggml_cuda_experiments_tpu_torch.ops import (
         flash_attention as fa, flash_decode as fd, fused_attention as fat,
-        layer_kernel as lk, paged_attention as pa, prefill_fuse as pf,
-        quant_matmul as qm)
+        layer_kernel as lk, matmul as mm, paged_attention as pa,
+        prefill_fuse as pf, primitives as pr, quant_matmul as qm)
     return (qm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, pf.LAUNCHES, pa.LAUNCHES,
-            fat.LAUNCHES, lk.LAUNCHES)
+            fat.LAUNCHES, lk.LAUNCHES, mm.LAUNCHES, pr.LAUNCHES)
 
 
 def _reset_counts():
@@ -1561,6 +1699,113 @@ def phase_tinyllama(dev, seed):
     return paths, timing
 
 
+def phase_lab(dev, seed):
+    """The kernel lab's path, through its entry points as a user calls
+    them: kernel_test (flash decode against the oracle: GQA 32/8, kv 4096,
+    split-KV x8, single-pass, int8 cache), gemm_bench (the hand GEMM and
+    the library at 2048, 4096, 8192), the JAX primitive tests' cases through
+    the port's ops, and perplexity on tinyllama-1.1b at full width and
+    depth, q4_k, 256 tokens, with the oracle. Each path's launch counts are
+    read just after it runs."""
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import primitives as pr
+    from ggml_cuda_experiments_tpu_torch.tools import (
+        gemm_bench, kernel_test, perplexity)
+    log("== 7. the kernel lab: kernel_test, gemm_bench, the primitives, "
+        "perplexity")
+    paths = {}
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    for extra in ([], ["--no-kv-parallel"], ["--quantized-kv"]):
+        # --tol 2e-3: about 4 bf16 ulps at the largest outputs (|out| <
+        # 0.1 at kv 4096); the tool's default 2e-2 is a typical output
+        argv = ["--kv-size", "4096", "--heads", "32", "--kv-heads", "8",
+                "--kv-splits", "8", "--seed", str(seed), "--tol", "2e-3",
+                *extra]
+        log(f"  kernel_test {' '.join(argv)}")
+        sys.stdout.flush()
+        if kernel_test.main(argv) != 0:
+            raise AssertionError(f"kernel_test {argv} failed")
+    c = paths["kernel_test"] = _counts()
+    # per run: one checked call and the timed ones, each a partials launch
+    # (bf16 twice, int8 once) and a merge
+    per = c["flash_decode_q"]
+    want = {k: 0 for k in c}
+    want.update(flash_decode=2 * per, flash_decode_q=per, lse_merge=3 * per)
+    _assert_counts("kernel_test", c, want)
+    log(f"  kernel_test: 3 runs PASS in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    log("  gemm_bench --sizes 2048,4096,8192")
+    sys.stdout.flush()
+    if gemm_bench.main(["--sizes", "2048,4096,8192",
+                        "--seed", str(seed)]) != 0:
+        raise AssertionError("gemm_bench failed")
+    paths["gemm_bench"] = _counts()
+    log(f"  gemm_bench in {time.perf_counter() - t0:.1f} s")
+
+    # the JAX package's primitive tests (tests/test_dma.py:18,
+    # tests/test_reductions.py:54, :79) on their inputs (each test's own
+    # rng, seed 1234): the copy, the int32 total and the max exact; the row
+    # sums within 1e-6 of each row's sum of magnitudes (f32 rounding in
+    # another order than NumPy's; the JAX test's rtol 1e-6 against NumPy's
+    # sum holds only for its order)
+    _reset_counts()
+
+    def draw(f):
+        return f(np.random.default_rng(1234))
+
+    x = draw(lambda r: r.normal(size=(16, 80)).astype(np.float32))
+    out = pr.stage_pad(torch.from_numpy(x).to(dev), 128).cpu().numpy()
+    if not (np.array_equal(out[:, :80], x) and not out[:, 80:].any()):
+        raise AssertionError("stage_pad: not an exact padded copy")
+    xi = draw(lambda r: r.integers(-1000, 1000, size=(64, 128)).astype(
+        np.int32))
+    if int(pr.grid_sum(torch.from_numpy(xi).to(dev))) != int(xi.sum()):
+        raise AssertionError("grid_sum: the int32 total differs")
+    xl = draw(lambda r: r.normal(size=(8, 128)).astype(np.float32))
+    mx, sm = (t.cpu().numpy()[:, 0]
+              for t in pr.lane_reduce(torch.from_numpy(xl).to(dev)))
+    np.testing.assert_array_equal(mx, xl.max(axis=1))
+    err = np.abs(sm - xl.astype(np.float64).sum(axis=1))
+    if not (err <= 1e-6 * np.abs(xl).sum(axis=1)).all():
+        raise AssertionError(f"lane_reduce: row sums off by {err.max()}")
+    paths["primitives"] = _counts()
+    log(f"  primitives: stage_pad [16, 80] -> [16, 128] exact, grid_sum "
+        f"[64, 128] int32 exact, lane_reduce [8, 128] max exact, sums "
+        f"within {err.max():.3g} of f64")
+
+    t0 = time.perf_counter()
+    cfg = PRESETS["tinyllama-1.1b"]
+    _reset_counts()
+    argv = ["--model", cfg.name, "--fmt", "q4_k", "--tokens", "256",
+            "--seed", str(seed)]
+    log(f"  perplexity {' '.join(argv)} (all {cfg.n_layers} layers)")
+    sys.stdout.flush()
+    if perplexity.main(argv) != 0:
+        raise AssertionError("perplexity: PPL not within 2% of the oracle's "
+                             "or a logit more than 0.35 from it")
+    paths["perplexity"] = _counts()
+    L = cfg.n_layers
+    want = {k: 0 for k in paths["perplexity"]}
+    want.update(q4k_gemm=4 * L + 1, flash_attention=L)  # rope_pack: D = 64
+    _assert_counts("perplexity", paths["perplexity"], want)
+    log(f"  perplexity in {time.perf_counter() - t0:.1f} s")
+    for path, want in (("kernel_test", ("flash_decode", "flash_decode_q",
+                                        "lse_merge")),
+                       ("gemm_bench", ("matmul",)),
+                       ("primitives", ("stage_pad", "grid_sum",
+                                       "lane_reduce"))):
+        if not all(paths[path][k] for k in want):
+            raise AssertionError(f"{path}: {want} not all launched "
+                                 f"({paths[path]})")
+    return paths
+
+
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
 ENGINE_GEN = 32
 ENGINE_KW = dict(max_batch=8, page_size=64, n_pages=96, max_seq_len=1024,
@@ -1812,7 +2057,8 @@ def phase_engine(dev, seed, params, cfg, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-4 only (no model, no contract line)")
+                    help="phases 1-4f only (no model, no contract "
+                    "line)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE_DIR", default=None,
                     help="also profile 4 decode steps (torch.profiler) and "
@@ -1830,6 +2076,7 @@ def main() -> int:
     phase_fused_kernels(dev, args.seed, res)
     phase_q4km_kernels(dev, args.seed, res)
     phase_format_kernels(dev, args.seed, res)
+    phase_lab_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
@@ -1847,8 +2094,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
     tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed)
+    torch.cuda.empty_cache()
+    lab_paths = phase_lab(dev, args.seed)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
-             **fmt_paths, **tiny_paths}
+             **fmt_paths, **tiny_paths, **lab_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
            "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
-           "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu")
+           "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu", "matmul.cu",
+           "primitives.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -85,6 +86,17 @@ SIGNATURES = {
     # x, qs, qh, es, y, N, K, stream (both q6_k matvecs)
     "q6k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     "q6k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # x, w, out, M, N, K, lda, ldb, a_kmajor, b_kmajor, in_kind, out_kind,
+    # stream
+    "matmul_nt": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P),
+    # x, out, R, in_bytes, out_bytes, stream
+    "stage_pad": (_P, _P, _I, _I, _I, _P),
+    # n -> the row blocks (partial rows) of grid_sum
+    "grid_sum_blocks": (_I,),
+    # x, part, total, n, d, kind, stream
+    "grid_sum": (_P, _P, _P, _I, _I, _I, _P),
+    # x, mx, sm, n, d, kind, stream
+    "lane_reduce": (_P, _P, _P, _I, _I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),
 }

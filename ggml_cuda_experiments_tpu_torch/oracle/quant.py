@@ -35,6 +35,10 @@ detail the port's container makes its own):
     d    f32   [..., N/256]  superblock scale (fp16-rounded)
 
 Dequantization: x = (d * sc) * (q - 32), per 16-element sub-block.
+
+Per-row int8 and float8_e4m3fn codecs (the quantized KV cache's): absmax
+scales per last-axis row; the fp8 rounding goes through
+``torch.float8_e4m3fn`` (the JAX copy's ``ml_dtypes`` is not needed).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 QK = 32          # elements per quantization block
 QK_K = 256       # elements per Q4_K superblock
@@ -229,3 +234,56 @@ def dequantize_q6_k(t: Q6_K) -> np.ndarray:
     sc = t.sc.reshape(*lead, nsb, QK_K // QK6).astype(np.float32)
     eff = (t.d[..., None] * sc).reshape(*lead, n // QK6)
     return (q * eff[..., None]).reshape(t.shape)
+
+
+# ---------------------------------------------------------------------------
+# int8 / fp8 per-row (KV-cache) quantization
+# ---------------------------------------------------------------------------
+
+def quantize_int8_rowwise(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-last-axis absmax int8 quantization: returns (qs int8, scale f32)."""
+    x = np.asarray(x, np.float32)
+    amax = np.max(np.abs(x), axis=-1, keepdims=True)
+    scale = amax / 127.0
+    inv = np_div(np.ones_like(scale), scale)
+    q = np.clip(np.round(x * inv), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
+
+
+def dequantize_int8_rowwise(qs: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return qs.astype(np.float32) * scale
+
+
+FP8_MAX = 448.0     # float8_e4m3fn largest finite value
+
+
+def to_fp8_e4m3fn(x: np.ndarray) -> np.ndarray:
+    """f32 -> float8_e4m3fn (round to nearest even), as its raw bytes in a
+    uint8 array of x's shape. NumPy has no fp8 type (the JAX copy uses
+    ``ml_dtypes``, which the port does not have), so the rounding goes
+    through ``torch.float8_e4m3fn``."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.float8_e4m3fn).view(torch.uint8).numpy()
+
+
+def fp8_e4m3fn_to_f32(raw: np.ndarray) -> np.ndarray:
+    """float8_e4m3fn bytes (uint8) -> their f32 values (exact)."""
+    t = torch.from_numpy(np.ascontiguousarray(raw, np.uint8))
+    return t.view(torch.float8_e4m3fn).to(torch.float32).numpy()
+
+
+def quantize_fp8_rowwise(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-last-axis absmax float8_e4m3fn quantization: returns (qs, scale
+    f32), qs the fp8 bytes as uint8 (``fp8_e4m3fn_to_f32`` reads them). The
+    per-row scale maps the absmax to the fp8 range; fp8 keeps ~3 mantissa
+    bits against int8's uniform grid, so small entries quantize relatively
+    better and large ones worse."""
+    x = np.asarray(x, np.float32)
+    amax = np.max(np.abs(x), axis=-1, keepdims=True)
+    scale = amax / FP8_MAX
+    inv = np_div(np.ones_like(scale), scale)
+    return to_fp8_e4m3fn(x * inv), scale.astype(np.float32)
+
+
+def dequantize_fp8_rowwise(qs: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return fp8_e4m3fn_to_f32(qs) * scale

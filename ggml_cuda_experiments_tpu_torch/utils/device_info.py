@@ -25,14 +25,18 @@ class CardSpec:
     peak_flops_f32: float           # f32 outside the tensor cores
     smem_per_block: int             # opt-in dynamic shared memory limit
 
+    def peak(self, kind: str) -> float:
+        """Peak operations per second for operations of ``kind``: "bf16"
+        (also f16) and "int8" on the tensor cores, "f32" outside them."""
+        return {"bf16": self.peak_flops_bf16, "int8": self.peak_ops_int8,
+                "f32": self.peak_flops_f32}[kind]
+
     def bound_ms(self, nbytes: float, ops: float, kind: str
                  ) -> tuple[float, str]:
         """The least time the card could take for work that moves
-        ``nbytes`` and does ``ops`` operations of ``kind`` ("bf16", "int8"
-        or "f32"), and which of the two sets it."""
-        peak = {"bf16": self.peak_flops_bf16, "int8": self.peak_ops_int8,
-                "f32": self.peak_flops_f32}[kind]
-        t_bytes, t_ops = nbytes / self.hbm_bytes_per_s, ops / peak
+        ``nbytes`` and does ``ops`` operations of ``kind``, and which of
+        the two sets it."""
+        t_bytes, t_ops = nbytes / self.hbm_bytes_per_s, ops / self.peak(kind)
         return (1e3 * max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 

@@ -491,3 +491,144 @@ def _to(params, dev):
     out["layers"] = [{k: mv(v) for k, v in layer.items()}
                      for layer in params["layers"]]
     return out
+
+
+# ---- the kernel lab's kernels: matmul (csrc/matmul.cu) and the staging /
+# reduction primitives (csrc/primitives.cu). Tolerances: int8 matmul,
+# stage_pad, the int32 grid_sum and lane_reduce's max exact; bf16 / f16
+# matmul 2e-2 * max (the output rounded to bf16 / f16 from an f32 sum taken
+# in another order), f32 matmul 1e-4 * max, the f32 grid_sum and the f32
+# lane_reduce sum 1e-6 * max, the bf16 lane_reduce sum one bf16 ulp.
+
+from ggml_cuda_experiments_tpu_torch.ops import matmul as mm  # noqa: E402
+from ggml_cuda_experiments_tpu_torch.ops import primitives as pr  # noqa: E402
+
+_MM_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
+
+
+def _mm_operand(seed, shape, dtype, dev):
+    if dtype == torch.int8:
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8)).to(dev)
+    return _randn(seed, *shape).to(dev, dtype)
+
+
+def _mm_check(dev, dtype, m, k, n, ta=False, tb=False, out_dtype=None):
+    x = _mm_operand(m + k, (k, m) if ta else (m, k), dtype, dev)
+    w = _mm_operand(n + k + 1, (n, k) if tb else (k, n), dtype, dev)
+    kw = dict(transpose_a=ta, transpose_b=tb, out_dtype=out_dtype)
+    before = mm.LAUNCHES["matmul"]
+    got = mm.matmul(x, w, **kw)
+    with plain_versions():
+        ref = mm.matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["matmul"] == before + 1
+    assert got.shape == ref.shape == (m, n) and got.dtype == ref.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        err = (got.float() - ref.float()).abs().max()
+        assert err <= _MM_TOL[dtype] * ref.float().abs().max(), float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32, torch.int8])
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (64, 200, 136),
+                                   (1, 2048, 512), (1000, 1000, 1000),
+                                   (257, 383, 129)])
+def test_matmul(dev, dtype, m, k, n):
+    _mm_check(dev, dtype, m, k, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+@pytest.mark.parametrize("ta,tb", [(False, True), (True, False),
+                                   (True, True)])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 192), (70, 300, 45)])
+def test_matmul_transposes(dev, dtype, ta, tb, m, k, n):
+    _mm_check(dev, dtype, m, k, n, ta, tb)
+
+
+@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, torch.float32),
+                                       (torch.float16, torch.float32),
+                                       (torch.int8, torch.float32)])
+def test_matmul_out_dtype(dev, dtype, out):
+    _mm_check(dev, dtype, 96, 256, 160, out_dtype=out)
+
+
+def test_matmul_strided_views(dev):
+    """Operands that are views: a transposed view is read through its
+    strides, a view with no unit stride is made contiguous."""
+    x = _randn(3, 64, 512).to(dev, torch.bfloat16)
+    w = _randn(4, 256, 96).to(dev, torch.bfloat16)
+    for a, b in ((x[:, :256].T.contiguous().T, w), (x[:, ::2], w),
+                 (x[:, 256:], w.T.contiguous().T)):
+        got = mm.matmul(a, b, out_dtype=torch.float32)
+        want = mm.matmul_ref(a, b, out_dtype=torch.float32)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("r,d,dpad", [(16, 80, 128), (1000, 80, 128),
+                                      (300, 77, 96), (5, 128, 128)])
+def test_stage_pad_is_exact(dev, dtype, r, d, dpad):
+    x = _mm_operand(r + d, (r, d), dtype, dev)
+    before = pr.LAUNCHES["stage_pad"]
+    got = pr.stage_pad(x, dpad)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["stage_pad"] == before + 1
+    assert torch.equal(got, pr.stage_pad_ref(x, dpad))
+
+
+@pytest.mark.parametrize("n,d", [(64, 128), (1000, 37), (20000, 128),
+                                 (3, 5000)])
+def test_grid_sum(dev, n, d):
+    rng = np.random.default_rng(n + d)
+    xi = torch.from_numpy(rng.integers(-1000, 1000, size=(n, d)).astype(
+        np.int32)).to(dev)
+    before = pr.LAUNCHES["grid_sum"]
+    assert int(pr.grid_sum(xi)) == int(xi.long().sum())
+    assert pr.LAUNCHES["grid_sum"] == before + 1
+    xf = _randn(n, n, d).to(dev)
+    got, again = pr.grid_sum(xf), pr.grid_sum(xf)
+    want = xf.double().sum()
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert torch.equal(got, again)                      # the same bits
+    assert abs(float(got) - float(want)) <= 1e-6 * float(xf.abs().sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(8, 128), (1000, 4096), (33, 77)])
+def test_lane_reduce(dev, dtype, n, d):
+    x = _randn(n * d, n, d).to(dev, dtype)
+    before = pr.LAUNCHES["lane_reduce"]
+    mx, sm = pr.lane_reduce(x)
+    with plain_versions():
+        rmx, rsm = pr.lane_reduce(x)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["lane_reduce"] == before + 1
+    assert mx.shape == sm.shape == (n, 1) and sm.dtype == dtype
+    assert torch.equal(mx, rmx)
+    err = (sm.float() - rsm.float()).abs().max()
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    assert err <= tol * rsm.float().abs().max(), float(err)
+
+
+def test_lab_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError):                   # mixed dtypes
+        mm.matmul(x, x.T.to(torch.bfloat16))
+    with pytest.raises(ValueError):                   # f64
+        mm.matmul(x.double(), x.T.double())
+    with pytest.raises(ValueError):                   # int8 -> bf16
+        mm.matmul(x.to(torch.int8), x.T.to(torch.int8),
+                  out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                   # D > dpad
+        pr.stage_pad(torch.zeros((4, 130), device=dev))
+    with pytest.raises(ValueError):                   # not contiguous
+        pr.stage_pad(torch.zeros((8, 4), device=dev).T)
+    with pytest.raises(ValueError):                   # bf16
+        pr.grid_sum(x.bfloat16())
+    with pytest.raises(ValueError):                   # int32
+        pr.lane_reduce(x.int())
