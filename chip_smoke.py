@@ -71,6 +71,29 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      matvec at 4096 x 4096), stage_pad, grid_sum (int32 exact, f32 the
      same bits on every run) and lane_reduce, each against its plain
      version, with the library call's time beside it;
+  4g. (after 4f, also with --kernels-only) the VPU attention op: o and
+     lse against the plain version at the 7B verify window (T 5, S 1024,
+     D 128, bf16), a tinyllama-width draft window (D 64), the JAX test's
+     small-head shapes at card size (D 40 / 80, T 16, S 4096, f32) and a
+     batch row with no visible key, with SDPA's time beside each; then its
+     gradient through torch.autograd against autograd of the plain formula
+     (within 5e-5);
+  8. (after 6, on phase 5's weights) speculative decoding: prefill_chunked
+     (512 tokens in 128-token chunks) against prefill; speculative_generate
+     with draft = target (48 tokens, gamma 4; launch counts asserted)
+     against generate and the target's decode path teacher-forced over its
+     stream: every departure from that path's argmax (so every rejection)
+     a near-tie within 2e-2 * max|logit| (the share of near-tied positions
+     logged), acceptance at least 0.8; generate_scan's per-token cost (8
+     and 40 replays of one captured step, CUDA events); then
+     speculative_scan's window captured once per draft (the target, its
+     first 8 layers, tinyllama-1.1b q4_k) and replayed 4 and 16 times,
+     each stream equal to speculative_generate's: ms / window, tokens /
+     window, acceptance, tok/s, speedup and break-even acceptance; the
+     speculative_scan entry point (16 windows, draft = target) equal to
+     the timed graph's stream. Graph paths' launch counts are what
+     LAUNCHES saw (the prefills, one eager step or window and its
+     capture); the replays are reported apart;
   7. (last) the kernel lab's path through its tools: kernel_test (flash
      decode against the NumPy oracle, GQA 32/8, kv 4096: split-KV x8,
      single-pass, int8 cache; each must PASS), gemm_bench (2048, 4096,
@@ -238,6 +261,10 @@ KERNELS = {
                  "tests/test_reductions.py:22", []),
     "lane_reduce": ("ggml_cuda_experiments_tpu_torch/csrc/primitives.cu",
                     "tests/test_reductions.py:60", []),
+    # the CUDA-core attention op (#17)
+    "vpu_attention": ("ggml_cuda_experiments_tpu_torch/csrc/vpu_attention.cu",
+                      "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53",
+                      []),
 }
 # the wrappers of each weight format's linears: (one-row matvec, GEMM)
 FORMAT_KERNELS = {"q4_k": ("q4k_matvec", "q4k_gemm"),
@@ -952,13 +979,125 @@ def phase_lab_kernels(dev, seed, res: Results):
     del x
 
 
+def phase_vpu_kernels(dev, seed, res: Results):
+    """The VPU attention kernel (o and lse) against its plain version at the
+    verify-window and small-head shapes, with SDPA's time beside it; then
+    its gradient through torch.autograd against autograd of the plain
+    formula. Returns the launch counts of the gradient run (the op's path).
+    """
+    import torch
+    import torch.nn.functional as F
+    from ggml_cuda_experiments_tpu_torch.ops import vpu_attention as va
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    log("== 4g. VPU attention (o, lse) vs plain versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    spec = _spec()
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # (B, H, T, S, D, dtype, causal, lengths): the 7B verify window (the
+    # headline), a tinyllama-width draft window, the JAX test's small-head
+    # shapes at card size, and a batch row with no visible key
+    cases = [(1, 32, 5, 1024, 128, torch.bfloat16, True, (1024,)),
+             (1, 32, 5, 1024, 64, torch.bfloat16, True, (1024,)),
+             (2, 32, 16, 4096, 40, torch.float32, False, (4096, 4059)),
+             (2, 32, 16, 4096, 80, torch.float32, True, (4096, 4059)),
+             (2, 32, 5, 1024, 128, torch.bfloat16, True, (0, 1024))]
+    for B, H, T, S, D, dt, causal, lens in cases:
+        q, k, v = (randn(B, H, n, D, dtype=dt) for n in (T, S, S))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q0 = S - T if causal else 0
+
+        def fn(i):
+            return va._vpu_attention_fwd_impl(q, k, v, lengths, causal=causal,
+                                              scale=None, q0_pos=q0)
+
+        o, lse = fn(0)
+        with plain_versions():
+            o_ref, lse_ref = fn(0)
+        lerr = float(((lse - lse_ref).abs() / lse_ref.abs()).max())
+        if not lerr <= 1e-5:
+            raise AssertionError(f"vpu_attention lse: relative error {lerr}")
+        err, sc = rel_err(o, o_ref)
+        # f32: the JAX test's 2e-5 absolute on unit-normal inputs; bf16:
+        # the attention bound, 1e-2 * max
+        tol, scale = (2e-5, 1.0) if dt == torch.float32 else (1e-2, sc)
+        ms = time_ms(fn)
+        with plain_versions():
+            pms = time_ms(fn, calls=4, replays=3)
+        vis = va._visible(T, S, lengths, causal, q0, dev)
+        lib = None
+        if min(lens) > 0:
+            # one PyTorch call of the same o: SDPA with the boolean mask
+            lib = time_ms(lambda i: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=vis))
+        # what this run's data needs: the visible (query, key) pairs and the
+        # keys up to each batch row's frontier; a row with no visible key
+        # weighs all S keys
+        pairs = int(vis.sum()) * H
+        pairs += H * T * S * lens.count(0)
+        keys = sum(min(n, q0 + T if causal else S) if n else S for n in lens)
+        es = q.element_size()
+        nbytes = es * (2 * B * H * T * D + 2 * H * keys * D) \
+            + 4 * B * H * T + 4 * B
+        res.add("vpu_attention",
+                f"B={B} H={H} T={T} S={S} D={D} {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'} len={lens}",
+                err, scale, tol, ms, pms,
+                spec.bound_ms(nbytes, 4 * pairs * D, "f32"),
+                headline=(D, B) == (128, 1), library_ms=lib)
+        log(f"    lse relative error {lerr:.2e} (bound 1e-5); "
+            f"{_rate(nbytes, 4 * pairs * D, ms, 'f32')}")
+        del q, k, v
+
+    # the gradient: autograd through the op (the kernel forward, the plain
+    # backward) against autograd of the plain formula, within 5e-5
+    B, H, T, S, D = 1, 32, 5, 1024, 64
+    q, k, v, do = (randn(B, H, n, D, dtype=torch.float32)
+                   for n in (T, S, S, T))
+    lengths = torch.tensor([1000], dtype=torch.int32, device=dev)
+    vis = va._visible(T, S, lengths, True, S - T, dev)
+
+    def formula(q, k, v):
+        s = torch.where(vis, (q @ k.transpose(-1, -2)) * D ** -0.5,
+                        va.MASK_VALUE)
+        return torch.softmax(s, -1) @ v
+
+    def op(q, k, v):
+        return va.vpu_attention(q, k, v, lengths, True, None, 256, S - T)
+
+    def grads_of(f):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = f(*xs)
+        return (o.detach(), *torch.autograd.grad(o, xs, do))
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    grads = [grads_of(op)]
+    torch.cuda.synchronize()
+    counts = _counts()
+    grads.append(grads_of(formula))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), *grads):
+        err = float((a - b).abs().max())
+        log(f"  vpu_attention autograd {name}: max_abs_err {err:.3e} "
+            f"(bound {2e-5 if name == 'o' else 5e-5:g})")
+        if not err <= (2e-5 if name == "o" else 5e-5):
+            raise AssertionError(f"vpu_attention gradient {name}: {err}")
+    want = {key: 0 for key in counts}
+    want["vpu_attention"] = 1
+    _assert_counts("vpu_attention", counts, want)
+    return {"vpu_attention": counts}
+
+
 def _tables():
     from ggml_cuda_experiments_tpu_torch.ops import (
         flash_attention as fa, flash_decode as fd, fused_attention as fat,
         layer_kernel as lk, matmul as mm, paged_attention as pa,
-        prefill_fuse as pf, primitives as pr, quant_matmul as qm)
+        prefill_fuse as pf, primitives as pr, quant_matmul as qm,
+        vpu_attention as va)
     return (qm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, pf.LAUNCHES, pa.LAUNCHES,
-            fat.LAUNCHES, lk.LAUNCHES, mm.LAUNCHES, pr.LAUNCHES)
+            fat.LAUNCHES, lk.LAUNCHES, mm.LAUNCHES, pr.LAUNCHES, va.LAUNCHES)
 
 
 def _reset_counts():
@@ -2054,10 +2193,290 @@ def phase_engine(dev, seed, params, cfg, card):
         "step_busy_share": busy / wall_us, "card": card}
 
 
+SPEC_GAMMA, SPEC_MAX_LEN = 4, 1024
+
+
+def _departures(params, cfg, prompt, stream, dev):
+    """The target's decode path teacher-forced over ``stream``: (departures
+    [(position, logit of the decode path's argmax minus that of the
+    stream's token, max |logit|)], the positions whose own top-2 logit gap
+    is within 2e-2 * max|logit|). With draft = target the draft proposes
+    the decode path's argmax, so every rejected draft token is a
+    departure."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    cache = llama.KVCache.create(cfg, 1, SPEC_MAX_LEN, device=dev)
+    logits, _ = llama.prefill(params, cfg, prompt, cache)
+    out, near = [], []
+    for p, t in enumerate(stream):
+        lg = logits[0]
+        top, mx = torch.topk(lg, 2).values, float(lg.abs().max())
+        if float(top[0] - top[1]) <= 2e-2 * mx:
+            near.append(p)
+        best = int(torch.argmax(lg))
+        if best != t:
+            out.append((p, float(lg[best] - lg[t]), mx))
+        logits, _ = llama.decode_step(
+            params, cfg, torch.tensor([t], dtype=torch.int32, device=dev),
+            cache)
+    return out, near
+
+
+def _near_ties(what, departures, near, n):
+    """Raise unless every departure is a near-tie (2e-2 * max|logit|); log
+    how many of the ``n`` positions are near-ties at all."""
+    log(f"  {what}: the stream leaves the decode path's argmax at "
+        f"{[(p, round(g, 5)) for p, g, _ in departures]} (position, logit "
+        f"gap); {len(near)} of {n} positions ({len(near) / n:.3f}) have a "
+        f"top-2 gap within 2e-2 * max|logit|: {near}")
+    far = [(p, g, mx) for p, g, mx in departures if g > 2e-2 * mx]
+    if far:
+        raise AssertionError(f"{what}: departures that are no near-tie {far}")
+    return {p for p, _, _ in departures}
+
+
+def _acceptance_floor(what, acc, floor=0.8):
+    if acc < floor:
+        raise AssertionError(f"{what}: acceptance {acc:.3f} < {floor}")
+
+
+def phase_speculative(dev, seed, params, card):
+    """Speculative decoding on phase 5's llama2-7b q4_k weights in the
+    preset's configuration, bf16 cache of 1024: prefill_chunked against
+    prefill; speculative_generate (draft = target) against generate and the
+    decode path's own choices, with its launch counts; speculative_scan as CUDA graphs for three drafts
+    against the eager stream, with the window's cost against
+    generate_scan's per-token cost (the spec_bench method)."""
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models import speculative as spec
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    cfg = PRESETS["llama2-7b"]
+    L, gamma, max_len = cfg.n_layers, SPEC_GAMMA, SPEC_MAX_LEN
+    log(f"== 8. speculative decoding: {cfg.name} q4_k target, the preset's "
+        f"configuration, gamma {gamma}, bf16 cache of {max_len}")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    paths = {}
+
+    # prefill_chunked: a 512-token prompt in 128-token chunk_steps
+    p512 = torch.randint(1, cfg.vocab_size, (1, 512), generator=g,
+                         device=dev)
+    want, _ = llama.prefill(params, cfg, p512, llama.KVCache.create(
+        cfg, 1, max_len, device=dev))
+    cache = llama.KVCache.create(cfg, 1, max_len, device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got, cache = spec.prefill_chunked(params, cfg, p512, cache, chunk=128)
+    torch.cuda.synchronize()
+    paths["prefill_chunked"] = counts = _counts()
+    want_c = {k: 0 for k in counts}
+    want_c.update(q4k_gemm=4 * (4 * L + 1), flash_attention=4 * L)
+    _assert_counts("prefill_chunked", counts, want_c)
+    err, sc = rel_err(got, want)
+    log(f"  prefill_chunked(512, chunk 128) last logits vs prefill: "
+        f"max_abs_err {err:.4e} vs 2e-2*{sc:.4e}; lengths "
+        f"{cache.lengths.tolist()}")
+    if not (err <= 2e-2 * sc and cache.lengths.tolist() == [512]):
+        raise AssertionError(f"prefill_chunked: {err} vs {sc}")
+    del cache
+
+    # speculative_generate with draft = target, 48 tokens, against generate
+    prompt = torch.randint(1, cfg.vocab_size, (1, 16), generator=g,
+                           device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    toks, stats = spec.speculative_generate(params, cfg, params, cfg, prompt,
+                                            48, gamma=gamma, max_len=max_len)
+    wall = time.perf_counter() - t0
+    paths["speculative"] = counts = _counts()
+    V = stats["verify_calls"]
+    n_dec = counts["flash_decode"] // L      # draft decode steps
+    log(f"  speculative_generate(48, draft = target): {wall:.2f} s wall, "
+        f"stats {stats}, {n_dec} draft decode steps")
+    want_c = {k: 0 for k in counts}
+    # two 16-token prefills (4 q4k_gemm and a flash_attention per layer, the
+    # head's matvec); per verify 4 q4k_gemm per layer and the head, a
+    # flash_attention per layer; per draft step the preset's decode
+    want_c.update(q4k_gemm=2 * 4 * L + V * (4 * L + 1),
+                  flash_attention=2 * L + V * L,
+                  q4k_matvec=2 + n_dec * (2 * L + 1), fused_mlp=n_dec * L,
+                  flash_decode=n_dec * L, lse_merge=n_dec * L)
+    _assert_counts("speculative", counts, want_c)
+    if not gamma * V <= n_dec <= (gamma + 1) * V:
+        raise AssertionError(f"{n_dec} draft steps for {V} windows")
+    plain = llama.generate(params, cfg, prompt, 48, cache=llama.KVCache.create(
+        cfg, 1, max_len, device=dev))[0].tolist()
+    toks = toks[0].tolist()
+    div = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b),
+               None)
+    log(f"  speculative_generate equals generate on "
+        f"{48 if div is None else div} of 48 tokens"
+        + ("" if div is None else f" (then {toks[div]} vs {plain[div]})"))
+    # draft = target is accepted but at bf16 near-ties, where the verify
+    # pass (q4k_gemm, flash_attention) and the decode step (q4k_matvec,
+    # flash_decode) round differently: every token where the stream leaves
+    # the decode path's argmax (the divergence from generate among them)
+    # must be a near-tie, within 2e-2 * max|logit| (the model-logits bound)
+    _near_ties("speculative_generate", *_departures(params, cfg, prompt, toks,
+                                                    dev), len(toks))
+    # the rejections are near-ties, but a random 7B has many (logged above);
+    # the floor is set under the acceptance measured on the card (0.886)
+    acc = stats["accepted"] / stats["drafted"]
+    log(f"  acceptance {acc:.3f}")
+    _acceptance_floor("speculative_generate, draft = target", acc)
+
+    # generate_scan's per-token marginal. LAUNCHES counts host calls: the
+    # prefill, the eager step and its capture; the replays launch the
+    # captured kernels again uncounted, and are reported apart
+    replays = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t_plain = sb.plain_per_token(params, cfg, prompt)
+    torch.cuda.synchronize()
+    paths["generate_scan"] = counts = _counts()
+    replays["generate_scan"] = 2 * (8 + 40)
+    log(f"  [{card}] generate_scan: {t_plain * 1e3:.3f} ms/token "
+        f"({1 / t_plain:.1f} tok/s; marginal of 8 and 40 replays of one "
+        "captured step)")
+    want_c = {k: 0 for k in counts}
+    want_c.update(q4k_gemm=4 * L, flash_attention=L,
+                  q4k_matvec=1 + 2 * (2 * L + 1), fused_mlp=2 * L,
+                  flash_decode=2 * L, lse_merge=2 * L)
+    _assert_counts("generate_scan (the prefill, one eager step and its "
+                   f"capture; {replays['generate_scan']} replays uncounted)",
+                   counts, want_c)
+
+    # speculative_scan as CUDA graphs, three drafts
+    tiny_cfg = PRESETS["tinyllama-1.1b"]
+    tiny = llama.quantize_params(llama.init_weights(tiny_cfg, seed=seed + 12,
+                                                    device=dev), "q4_k")
+    d8, c8 = sb.truncated(params, cfg, 8)
+    acc_tf = sb.teacher_forced_acceptance(params, cfg, d8, c8, prompt)
+    log(f"  teacher-forced acceptance of target[:8 layers]: {acc_tf:.3f} "
+        f"over 192 generated positions")
+    metrics = {"card": card, "gamma": gamma, "plain_ms_per_token":
+               t_plain * 1e3, "plain_tok_s": 1 / t_plain,
+               "generate_stats": stats, "first_divergence": div,
+               "teacher_forced_acceptance_8_layers": acc_tf, "drafts": {}}
+    drafts = (("target", params, cfg), ("target[:8 layers]", d8, c8),
+              ("tinyllama-1.1b", tiny, tiny_cfg))
+    streams = {}
+    for (name, dp, dc), slug in zip(drafts, ("target", "8_layers",
+                                              "tinyllama")):
+        path = f"speculative_scan_{slug}"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t_win, counts_w, stream = sb.window_cost(params, cfg, dp, dc, prompt,
+                                                 gamma, 4, 16)
+        torch.cuda.synchronize()
+        paths[path] = counts = _counts()
+        replays[path] = 2 * (4 + 16)
+        # both prefills, one eager window and its capture
+        Ld = dc.n_layers
+        log(f"  launches in {path} (both prefills, one eager window and "
+            f"its capture; {replays[path]} replays uncounted): {counts}")
+        if (counts["flash_attention"] != L + Ld + 2 * L
+                or counts["flash_decode"] != 2 * (gamma + 1) * Ld):
+            raise AssertionError(f"{path}: {counts}")
+        streams[name] = stream
+        eager, _ = spec.speculative_generate(params, cfg, dp, dc, prompt,
+                                             len(stream), gamma=gamma,
+                                             max_len=max_len)
+        if stream != eager[0].tolist():
+            raise AssertionError(f"draft {name}: the graphs' stream differs "
+                                 "from speculative_generate's")
+        toks_win = float(counts_w.mean())
+        acc = (toks_win - 1) / gamma
+        if dp is params:
+            # each window that rejects a draft token does so where its bonus
+            # token leaves the decode path's argmax: at a near-tie
+            deps = _near_ties("speculative_scan, draft = target",
+                              *_departures(params, cfg, prompt, stream, dev),
+                              len(stream))
+            ends = np.cumsum(counts_w)            # stream[0] is cur
+            bad = [w for w, (c, e) in enumerate(zip(counts_w, ends))
+                   if c < gamma + 1 and int(e) not in deps]
+            if bad:
+                raise AssertionError(f"windows {bad} rejected a draft token "
+                                     "away from a near-tie")
+            _acceptance_floor("speculative_scan, draft = target", acc)
+        a_star = sb.break_even(t_win, t_plain, gamma)
+        log(f"  [{card}] draft {name}: {t_win * 1e3:.3f} ms/window, "
+            f"{toks_win:.2f} tok/window (acceptance {acc:.3f}), "
+            f"{toks_win / t_win:.1f} tok/s = "
+            f"{sb.speedup(toks_win, t_plain, t_win):.3f}x generate_scan; "
+            f"break-even acceptance "
+            f"{'none' if a_star is None else f'{a_star:.2f}'}; stream of "
+            f"{len(stream)} tokens equals speculative_generate's")
+        metrics["drafts"][name] = {
+            "ms_per_window": t_win * 1e3, "tok_per_window": toks_win,
+            "acceptance": acc, "tok_s": toks_win / t_win,
+            "speedup_vs_generate_scan": sb.speedup(toks_win, t_plain, t_win),
+            "break_even_acceptance": a_star}
+    # where a window's time goes: one verify pass (T = gamma + 1) and one
+    # decode step of each draft, each alone in a CUDA graph (time_ms), the
+    # cache rewound after each call
+    tcache = llama.KVCache.create(cfg, 1, max_len, device=dev)
+    tlog, _ = llama.prefill(params, cfg, prompt, tcache)
+    cur = torch.argmax(tlog, -1).to(torch.int32)
+    win = prompt[:, :gamma + 1]
+    t_verify = time_ms(lambda i: spec.rewind(spec.chunk_step(
+        params, cfg, win, tcache)[1], gamma + 1), calls=5, replays=3)
+    log(f"  [{card}] one verify pass (chunk_step, T = {gamma + 1}): "
+        f"{t_verify:.3f} ms")
+    metrics["verify_ms"] = t_verify
+    for name, dp, dc in drafts:
+        dcache = llama.KVCache.create(dc, 1, max_len, device=dev)
+        llama.prefill(dp, dc, prompt, dcache)
+        t_step = time_ms(lambda i: spec.rewind(llama.decode_step(
+            dp, dc, cur, dcache)[1], 1), calls=10, replays=3)
+        m = metrics["drafts"][name]
+        m["draft_step_ms"] = t_step
+        log(f"  [{card}] draft {name}: one decode step {t_step:.3f} ms; "
+            f"{gamma + 1} steps + a verify {(gamma + 1) * t_step + t_verify:.3f}"
+            f" ms against the window's {m['ms_per_window']:.3f}")
+        del dcache
+    # the entry point: draft = target, 16 windows from the same start, its
+    # stream that of the timed graph's 16-window run
+    dcache = llama.KVCache.create(cfg, 1, max_len, device=dev)
+    llama.prefill(params, cfg, prompt, dcache)
+    tcache.lengths.fill_(prompt.shape[1])
+    torch.cuda.synchronize()
+    _reset_counts()
+    toks_s, counts_s, *_ = spec.speculative_scan(
+        params, cfg, params, cfg, cur, tcache, dcache, gamma=gamma,
+        windows=16)
+    toks_s, counts_s = toks_s.cpu().numpy(), counts_s.cpu().numpy()
+    paths["speculative_scan"] = counts = _counts()
+    replays["speculative_scan"] = 16
+    want_c = {k: 0 for k in counts}
+    want_c.update(q4k_gemm=2 * (4 * L + 1), flash_attention=2 * L,
+                  q4k_matvec=2 * (gamma + 1) * (2 * L + 1),
+                  fused_mlp=2 * (gamma + 1) * L,
+                  flash_decode=2 * (gamma + 1) * L,
+                  lse_merge=2 * (gamma + 1) * L)
+    _assert_counts("speculative_scan (one eager window and its capture; "
+                   "16 replays uncounted)", counts, want_c)
+    stream = [int(cur[0])] + [t for row, n in zip(toks_s, counts_s)
+                              for t in row[:n].tolist()]
+    if stream != streams["target"]:
+        raise AssertionError("speculative_scan's stream differs from the "
+                             "timed window graph's")
+    metrics["graph_replays"] = replays
+    log(f"  graph replays by path (launching the captured kernels, not "
+        f"counted in LAUNCHES): {replays}")
+    del tiny, tcache, dcache
+    torch.cuda.empty_cache()
+    return paths, metrics
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-4f only (no model, no contract "
+                    help="phases 1-4g only (no model, no contract "
                     "line)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE_DIR", default=None,
@@ -2077,6 +2496,7 @@ def main() -> int:
     phase_q4km_kernels(dev, args.seed, res)
     phase_format_kernels(dev, args.seed, res)
     phase_lab_kernels(dev, args.seed, res)
+    vpu_paths = phase_vpu_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
@@ -2090,6 +2510,7 @@ def main() -> int:
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     paths, engine_metrics = phase_engine(dev, args.seed, params,
                                          PRESETS["llama2-7b"], card)
+    spec_paths, spec_metrics = phase_speculative(dev, args.seed, params, card)
     del params
     torch.cuda.empty_cache()
     fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
@@ -2097,7 +2518,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lab_paths = phase_lab(dev, args.seed)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
-             **fmt_paths, **tiny_paths, **lab_paths}
+             **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
+             **vpu_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -2124,7 +2546,8 @@ def main() -> int:
                       "requests_bench_decode": fused_timing,
                       "requests_by_path": {**q4km_timing, **fmt_timing,
                                            **tiny_timing},
-                      "engine": engine_metrics}))
+                      "engine": engine_metrics,
+                      "speculative": spec_metrics}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

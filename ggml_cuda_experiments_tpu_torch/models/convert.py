@@ -4,9 +4,10 @@
 ``llama.init_weights(cfg, seed)`` returns, with every leaf given as
 ``np.asarray(leaf, np.float32)`` (bf16 -> f32 is exact, and no jax or
 ml_dtypes is needed here), and returns the port's dense tree: bf16 embed,
-norms and linears. The port's ``quantize_params`` then quantizes it through
-the same oracle arithmetic as the reference, so every Q4_K block of the two
-packages is identical.
+norms and linears by default, or f32 ones (the reference's f32 weights,
+kept exact for tests that need f32 end to end). The port's
+``quantize_params`` then quantizes it through the same oracle arithmetic as
+the reference, so every Q4_K block of the two packages is identical.
 """
 
 from __future__ import annotations
@@ -30,18 +31,24 @@ _LAYER_SHAPES = {
 }
 
 
-def _leaf(a, shape, device, name) -> torch.Tensor:
+def _leaf(a, shape, device, name, dtype) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype != np.float32 or a.shape != tuple(shape):
         raise ValueError(f"{name}: need float32 {tuple(shape)}, got "
                          f"{a.dtype} {a.shape}")
     return torch.from_numpy(np.ascontiguousarray(a)).to(
-        device=device, dtype=torch.bfloat16)
+        device=device, dtype=dtype)
 
 
-def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_jax(np_params: dict, cfg: ModelConfig, device=None,
+                    dtype=torch.bfloat16) -> dict:
     """The reference's dense parameter tree (float32 NumPy leaves) as the
-    port's bf16 tree on ``device`` (the card unless named)."""
+    port's tree of ``dtype`` leaves (bf16 or f32) on ``device`` (the card
+    unless named). Serving takes bf16; f32 keeps the reference's weights
+    exact, for checks that hold greedy decoding equal token for token (in
+    bf16 the verify pass and the decode step may flip near-tied argmaxes)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype {dtype}: bfloat16 or float32")
     device = resolve_device(device)
     if len(np_params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(np_params['layers'])} layers, config has "
@@ -51,14 +58,15 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
         if set(layer) != set(_LAYER_SHAPES):
             raise ValueError(f"layer {i}: keys {sorted(layer)} (a dense, "
                              "unquantized tree is expected)")
-        layers.append({k: _leaf(layer[k], shape(cfg), device, f"layer {i} {k}")
+        layers.append({k: _leaf(layer[k], shape(cfg), device,
+                                f"layer {i} {k}", dtype)
                        for k, shape in _LAYER_SHAPES.items()})
     return {
         "embed": _leaf(np_params["embed"], (cfg.vocab_size, cfg.dim), device,
-                       "embed"),
+                       "embed", dtype),
         "layers": layers,
         "final_norm": _leaf(np_params["final_norm"], (cfg.dim,), device,
-                            "final_norm"),
+                            "final_norm", dtype),
         "lm_head": _leaf(np_params["lm_head"], (cfg.vocab_size, cfg.dim),
-                         device, "lm_head"),
+                         device, "lm_head", dtype),
     }

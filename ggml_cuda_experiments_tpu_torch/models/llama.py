@@ -31,7 +31,8 @@ purpose:
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
-  in ``generate`` is the tokens at the end.
+  in ``generate`` is the tokens at the end. ``generate_scan`` (the
+  reference's ``lax.scan``) replays the decode step as a CUDA graph.
 - ``init_weights`` and ``KVCache.create`` build on the card unless a
   device is named.
 """
@@ -431,6 +432,75 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
         logits, cache = decode_step(params, cfg, tok, cache)
         tok = sample(logits, gen, sampling)
     return torch.stack(out, dim=1).cpu().numpy()
+
+
+def capture_graph(step, state: list[torch.Tensor]) -> torch.cuda.CUDAGraph:
+    """One call of ``step()`` captured into a ``torch.cuda.CUDAGraph``.
+
+    ``step`` updates tensors in place and fetches nothing to the host.
+    It runs once eagerly first, outside capture, so the kernels are built
+    and the allocator has the step's blocks; then every tensor of ``state``
+    (the small ones the step moves forward: lengths, tokens, output slots)
+    is put back as it was and one call is captured. Capture runs nothing,
+    so the state is as the caller left it: each ``replay()`` is one step.
+    Cache slots past the restored lengths are simply written again."""
+    saved = [t.clone() for t in state]
+    step()
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph
+
+
+def replay_graph(step, n: int, state: list[torch.Tensor]) -> None:
+    """Run ``step()`` ``n`` times on the card: ``capture_graph``, then ``n``
+    replays. Ends with the stream synchronized, so the graph and its memory
+    can go."""
+    graph = capture_graph(step, state)
+    for _ in range(n):
+        graph.replay()
+    torch.cuda.current_stream().synchronize()
+
+
+def greedy_scan_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
+                     cache: KVCache, steps: int):
+    """The step ``generate_scan`` repeats, as a closure over device state:
+    write ``tok`` [B] into the output at the current slot, one
+    ``decode_step``, ``tok`` = its argmax. Returns (step, state: the
+    tensors it moves forward, out [B, steps] int32). ``tok`` is updated
+    in place."""
+    out = torch.empty((tok.shape[0], steps), dtype=torch.int32,
+                      device=tok.device)
+    slot = torch.zeros((1,), dtype=torch.long, device=tok.device)
+
+    def step():
+        out.index_copy_(1, slot, tok[:, None])
+        lg, _ = decode_step(params, cfg, tok, cache)
+        tok.copy_(torch.argmax(lg, -1))
+        slot.add_(1)
+
+    return step, [tok, slot, cache.lengths], out
+
+
+@torch.no_grad()
+def generate_scan(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
+                  cache: KVCache, steps: int) -> np.ndarray:
+    """Greedy prefill, then ``steps`` greedy decode steps; returns the
+    tokens [B, steps] (int32). On the card, ``decode_step`` + argmax is one
+    CUDA graph (``replay_graph``) writing static token and output buffers
+    on the device, so no step waits on the host; on the CPU the same step
+    runs eagerly. The tokens are fetched once, at the end."""
+    logits, cache = prefill(params, cfg, prompt, cache)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    step, state, out = greedy_scan_step(params, cfg, tok, cache, steps)
+    if prompt.is_cuda:
+        replay_graph(step, steps, state)
+    else:
+        for _ in range(steps):
+            step()
+    return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
            "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
            "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu", "matmul.cu",
-           "primitives.cu")
+           "primitives.cu", "vpu_attention.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -97,6 +97,10 @@ SIGNATURES = {
     "grid_sum": (_P, _P, _P, _I, _I, _I, _P),
     # x, mx, sm, n, d, kind, stream
     "lane_reduce": (_P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, lengths, o, lse, B, H, T, S, D, scale, causal, q0_pos, dtype,
+    # vec, stream
+    "vpu_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                          _I, _I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),
 }

@@ -24,6 +24,7 @@ q4_k instances), q80_matvec 1e-4 * max (it reproduces its plain version's
 rounding, bf16(x) * bf16(q d) summed in f32), the GEMMs 2e-2 * max (as
 q4k_gemm); the device quantizer bit-equal to the oracle."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -632,3 +633,146 @@ def test_lab_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         pr.grid_sum(x.bfloat16())
     with pytest.raises(ValueError):                   # int32
         pr.lane_reduce(x.int())
+
+
+# ---- the VPU attention op (csrc/vpu_attention.cu) and speculative decoding
+# as CUDA graphs. Tolerances: o 2e-5 absolute in f32 (the JAX test's, unit-
+# normal inputs), 1e-2 * max in bf16 (attention); lse 1e-5 relative; the
+# gradients 5e-5 (the JAX test's); graphs equal to their eager runs.
+
+from ggml_cuda_experiments_tpu_torch.models import (  # noqa: E402
+    speculative as spec)
+from ggml_cuda_experiments_tpu_torch.ops import vpu_attention as va  # noqa: E402
+
+
+def _vpu_inputs(seed, B, H, T, S, D, dtype, dev):
+    return [_randn(seed + i, *shape).to(dev, dtype) for i, shape in
+            enumerate(((B, H, T, D), (B, H, S, D), (B, H, S, D)))]
+
+
+# D 36 (bf16: 72-byte rows) and 33 take the element-by-element loads
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [40, 64, 80, 128, 36, 33])
+@pytest.mark.parametrize("causal", [True, False])
+def test_vpu_attention(dev, dtype, D, causal):
+    B, H, T, S = 2, 3, 11, 320
+    q, k, v = _vpu_inputs(D, B, H, T, S, D, dtype, dev)
+    lengths = torch.tensor([S, 201], dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, scale=None, block_k=64, q0_pos=150)
+    before = va.LAUNCHES["vpu_attention"]
+    o, lse = va._vpu_attention_fwd_impl(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert va.LAUNCHES["vpu_attention"] == before + 1
+    with plain_versions():
+        ro, rlse = va._vpu_attention_fwd_impl(q, k, v, lengths, **kw)
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (B, H, T)
+    err = (o.float() - ro.float()).abs().max()
+    bound = 2e-5 if dtype == torch.float32 else 1e-2 * ro.float().abs().max()
+    assert err <= bound, float(err)
+    assert ((lse - rlse).abs() <= 1e-5 * rlse.abs()).all()
+
+
+def test_vpu_attention_row_without_keys(dev):
+    """lengths == 0 gives the mean of v over all S keys, as the plain
+    version and the JAX kernel do."""
+    q, k, v = _vpu_inputs(7, 2, 2, 5, 256, 64, torch.float32, dev)
+    lengths = torch.tensor([0, 256], dtype=torch.int32, device=dev)
+    o = va.vpu_attention(q, k, v, lengths, True, None, 128, 251)
+    assert (o[0] - v[0].mean(1, keepdim=True)).abs().max() <= 2e-5
+    with plain_versions():
+        ro = va.vpu_attention(q, k, v, lengths, True, None, 128, 251)
+    assert (o - ro).abs().max() <= 2e-5
+
+
+def test_vpu_attention_gradients(dev):
+    B, H, T, S, D = 1, 4, 5, 256, 64
+    q, k, v = _vpu_inputs(9, B, H, T, S, D, torch.float32, dev)
+    do = _randn(13, B, H, T, D).to(dev)
+    lengths = torch.tensor([200], dtype=torch.int32, device=dev)
+    grads = []
+    for plain in (False, True):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        with plain_versions() if plain else contextlib.nullcontext():
+            o = va.vpu_attention(*xs, lengths, True, None, 128, S - T)
+        grads.append(torch.autograd.grad(o, xs, do))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 5e-5
+
+
+def test_vpu_attention_raises(dev):
+    q, k, v = _vpu_inputs(1, 1, 1, 2, 64, 64, torch.float32, dev)
+    lengths = torch.tensor([64], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # mixed dtypes
+        va.vpu_attention(q, k.bfloat16(), v, lengths)
+    with pytest.raises(ValueError):                    # f16
+        va.vpu_attention(q.half(), k.half(), v.half(), lengths)
+    with pytest.raises(ValueError):                    # not contiguous
+        va.vpu_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                         v, lengths)
+
+
+def _debug_pair(dev):
+    cfg = dataclasses.replace(PRESETS["debug"], n_layers=2)
+    params = _to(llama.quantize_params(
+        llama.init_weights(cfg, seed=0, device="cpu"), "q4_k"), dev)
+    return params, cfg
+
+
+def test_generate_scan_graph_equals_generate(dev):
+    params, cfg = _debug_pair(dev)
+    prompt = torch.arange(1, 9, device=dev)[None]
+    want = llama.generate(params, cfg, prompt, 12)
+    got = llama.generate_scan(params, cfg, prompt,
+                              llama.KVCache.create(cfg, 1, 256, device=dev),
+                              12)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_speculative_scan_graph_equals_eager_windows(dev):
+    """speculative_scan's replayed graph emits the stream of the eager host
+    loop (speculative_generate: the same kernels, a window at a time), on
+    q4_k debug weights with a 1-layer draft; the caches end where the
+    accepted tokens put them."""
+    params, cfg = _debug_pair(dev)
+    dparams = {**params, "layers": params["layers"][:1]}
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    prompt = torch.arange(3, 19, device=dev)[None]
+    tcache = llama.KVCache.create(cfg, 1, 256, device=dev)
+    dcache = llama.KVCache.create(dcfg, 1, 256, device=dev)
+    tlog, _ = llama.prefill(params, cfg, prompt, tcache)
+    llama.prefill(dparams, dcfg, prompt, dcache)
+    cur = torch.argmax(tlog, -1).to(torch.int32)
+    toks, counts, cur2, tcache, dcache = spec.speculative_scan(
+        params, cfg, dparams, dcfg, cur, tcache, dcache, gamma=3, windows=6)
+    toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
+    stream = [int(cur[0])]
+    for w in range(6):
+        stream.extend(toks[w, :counts[w]].tolist())
+    assert int(cur2[0]) == stream[-1]
+    assert tcache.lengths.tolist() == dcache.lengths.tolist() == [
+        16 + int(counts.sum())]
+    eager, _ = spec.speculative_generate(params, cfg, dparams, dcfg, prompt,
+                                         len(stream), gamma=3, max_len=256)
+    assert stream == eager[0].tolist()
+
+
+def test_spec_bench_replays_one_capture(dev):
+    """spec_bench times replays of one captured window from a restored
+    state: the longer run's stream is speculative_scan's, and a capture
+    counts two windows' launches (the eager one and the captured one),
+    whatever the replays."""
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    params, cfg = _debug_pair(dev)
+    dparams = {**params, "layers": params["layers"][:1]}
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    prompt = torch.arange(3, 19, device=dev)[None]
+    fa.LAUNCHES["flash_attention"] = 0
+    secs, counts, stream = sb.window_cost(params, cfg, dparams, dcfg, prompt,
+                                          3, 2, 5, max_len=256)
+    assert np.isfinite(secs) and counts.shape == (5,)
+    # the two prefills (2 + 1 layers) and two verify passes (2 layers)
+    assert fa.LAUNCHES["flash_attention"] == 3 + 2 * 2
+    eager, _ = spec.speculative_generate(params, cfg, dparams, dcfg, prompt,
+                                         len(stream), gamma=3, max_len=256)
+    assert stream == eager[0].tolist()
+    assert sb.plain_per_token(params, cfg, prompt, max_len=256) > 0
