@@ -94,7 +94,26 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      the timed graph's stream. Graph paths' launch counts are what
      LAUNCHES saw (the prefills, one eager step or window and its
      capture); the replays are reported apart;
-  7. (last) the kernel lab's path through its tools: kernel_test (flash
+  4h. (after 4g, also with --kernels-only) the probe kernels: every rung
+     of the q4_k stage ladder (csrc/q4_probe.cu: floor, chunk, chunk32,
+     ponly, loonly, nochunk, floorhi, bf16, dma, zponly, zlonly, full,
+     noand, cols256, split_f32) on bench.py's 32768 x 4096 weight and
+     q8_prep, full_pre bit-equal to q4k_q8_matvec, the q6_k head's rungs
+     (csrc/q6_probe.cu: stream, bits2, the nib prologue and epilogue, and
+     nib_global / nib_seg through the int8 GEMM) on q6_probe's operands at
+     32768 rows, and the seven Mosaic probes (csrc/mosaic_probes.cu), each
+     against its plain version, with the library call's time where one
+     computes the same function (the floor: torch.sum over its bytes);
+  9. (decode: after 8 on phase 5's weights, and in 5d on its weights in
+     q4_k) the benchmark entry's --decode (tools/bench.py): tok/s at batch
+     1 (8 and 40 replays of one captured step), TTFT p50 at 512 tokens,
+     batch 8, the stream bound, launch counts asserted; then (after 7) its
+     kernel metric (q8_0, q4_k and the floor ceiling by bench.py's pair
+     protocol; one JSON line with value and ceiling_pct in (0, 100]) and
+     the probe tools through their main: exp_q4, exp_q4_r2 --check,
+     shape_probe --preprep at the four 7B shapes, roofline_sweep,
+     q6_probe, probe_mosaic_r3, membench, each path's counts asserted;
+  7. (before 9) the kernel lab's path through its tools: kernel_test (flash
      decode against the NumPy oracle, GQA 32/8, kv 4096: split-KV x8,
      single-pass, int8 cache; each must PASS), gemm_bench (2048, 4096,
      8192), the JAX package's primitive tests' cases through the port's
@@ -266,6 +285,35 @@ KERNELS = {
                       "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53",
                       []),
 }
+# the probe kernels (#20): the q4_k stage ladder (one template, a mode per
+# JAX rung; floor is also bench.py's stream-only ceiling), q8_prep, the
+# q6_k head's rungs and the Mosaic probes
+_Q4P = "ggml_cuda_experiments_tpu_torch/csrc/q4_probe.cu"
+_EXP_Q4, _EXP_R2 = "tools/exp_q4.py", "tools/exp_q4_r2.py"
+KERNELS.update({
+    "q4_ladder_floor": (_Q4P, f"{_EXP_Q4}:213", [
+        f"{_EXP_Q4}:162", "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1506"]),
+    **{f"q4_ladder_{m}": (_Q4P, f"{_EXP_Q4}:183", [f"{_EXP_Q4}:68"])
+       for m in ("chunk", "chunk32")},
+    **{f"q4_ladder_{m}": (_Q4P, f"{_EXP_Q4}:138", [f"{_EXP_Q4}:89"])
+       for m in ("ponly", "loonly", "nochunk", "floorhi", "bf16")},
+    **{f"q4_ladder_{m}": (_Q4P, f"{_EXP_R2}:267", [f"{_EXP_R2}:{line}"])
+       for m, line in (("dma", 90), ("zponly", 98), ("zlonly", 110),
+                       ("noand", 182), ("cols256", 166), ("split_f32", 197))},
+    "q4_ladder_full": (_Q4P, f"{_EXP_R2}:267", [
+        f"{_EXP_R2}:{line}" for line in (123, 128, 146, 216)]),
+    "q8_prep": (_Q4P, "tools/shape_probe.py:103", []),
+    **{name: ("ggml_cuda_experiments_tpu_torch/csrc/q6_probe.cu",
+              "tools/q6_probe.py:136", ["tools/q6_probe.py:63"])
+       for name in ("q6_stream", "q6_bits2", "q6_nib_lhs", "q6_nib_fold")},
+    **{f"mosaic_{name}": ("ggml_cuda_experiments_tpu_torch/csrc/"
+                          "mosaic_probes.cu",
+                          f"tools/probe_mosaic_r3.py:{line}", [])
+       for name, line in (("transpose_dot", 46), ("lane_concat", 61),
+                          ("roll64", 73), ("dyn_sublane", 87),
+                          ("lane_extract", 103), ("read_output", 123),
+                          ("tiny_call", 146))},
+})
 # the wrappers of each weight format's linears: (one-row matvec, GEMM)
 FORMAT_KERNELS = {"q4_k": ("q4k_matvec", "q4k_gemm"),
                   "q8_0": ("q80_matvec", "q80_gemm"),
@@ -334,9 +382,10 @@ def phase_quantizer(dev, seed):
         f"{secs * 1e3:.1f} ms on the card")
 
 
-def _rotating(make, nbytes, budget=160 * 2**20):
+def _rotating(make, nbytes):
     """Enough independent copies that cycling them streams past L2."""
-    return [make(i) for i in range(max(1, -(-budget // max(nbytes, 1))))]
+    from ggml_cuda_experiments_tpu_torch.utils.bench import rotating
+    return rotating(make, nbytes)
 
 
 def _spec():
@@ -1090,14 +1139,170 @@ def phase_vpu_kernels(dev, seed, res: Results):
     return {"vpu_attention": counts}
 
 
+def _flat_q4k(ql):
+    """A copy of a q4_k weight whose qs, es and em are views of one byte
+    buffer (returned beside it), so that one PyTorch call can read exactly
+    the bytes the floor rung streams."""
+    import dataclasses
+    import torch
+    n, k = ql.array_shape
+    flat = torch.empty(n * (k // 2 + k // 8), dtype=torch.uint8,
+                       device=ql.qs.device)
+    a, b = n * k // 2, n * k // 2 + n * k // 16
+    qs = flat[:a].view(n, k // 2)
+    es = flat[a:b].view(torch.bfloat16).view(n, k // 32)
+    em = flat[b:].view(torch.bfloat16).view(n, k // 32)
+    qs.copy_(ql.qs)
+    es.copy_(ql.es)
+    em.copy_(ql.em)
+    return dataclasses.replace(ql, qs=qs, es=es, em=em), flat
+
+
+def phase_probe_kernels(dev, seed, res: Results):
+    """The probe kernels against their plain versions on the card: every
+    stage-ladder rung and q8_prep on bench.py's 32768 x 4096 q4_k weight
+    (two copies, past the L2), the q6_k head's rungs on q6_probe's random
+    operands at 32768 rows, and the Mosaic probes at their JAX shapes.
+    Returns the composite rungs' times (full_pre, nib_global, nib_seg)."""
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import mosaic_probes as mp
+    from ggml_cuda_experiments_tpu_torch.ops import probes
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import bench as eb
+    from ggml_cuda_experiments_tpu_torch.tools import q6_probe
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    log("== 4h. the probe kernels (stage ladder, q8_prep, q6 rungs, Mosaic "
+        "probes) vs plain versions on the card")
+    spec = _spec()
+    w, x0 = eb.draws(seed)
+    x = torch.from_numpy(x0).to(dev)
+    base = qm.quantize(torch.from_numpy(w).to(dev), "q4_k")
+    del w
+    flats = [_flat_q4k(base) for _ in range(2)]
+    ws = [f[0] for f in flats]
+    n, k = base.array_shape
+    tol = {"floor": 1e-5, "bf16": 2e-2}
+    for mode in probes.MODES:
+        act = probes.act_operands(mode, x)
+        nbytes = base.nbytes + act.numel() + 4 * (k + n)
+        kind = "f32" if mode in probes.F32_MODES or mode == "floor" else "int8"
+        ops = n * k // 8 if mode == "floor" else 2 * n * k
+        lib = None
+        if mode == "floor":
+            # torch.sum over the same bytes (one int32 reduction of qs, es
+            # and em: the floor's stream, not its row-wise function)
+            lib = lambda i: torch.sum(flats[i % 2][1].view(torch.int32),
+                                      dtype=torch.int32)
+        _versus_plain(res, f"q4_ladder_{mode}",
+                      f"N={n} K={k}, bench.py's weight (2 copies)",
+                      lambda i, mode=mode, act=act: probes.ladder(
+                          mode, act, x, ws[i % 2]),
+                      tol.get(mode, 1e-4), spec.bound_ms(nbytes, ops, kind),
+                      headline=True, library=lib)
+    _versus_plain(res, "q8_prep", f"x [1, {k}] -> its int8 operands",
+                  lambda i: probes.q8_prep(x), 0.0,
+                  spec.bound_ms(4 * k + 48 * k // 32, 4 * k, "f32"),
+                  headline=True, scale=1.0)
+    got = probes.full_pre(x, ws[0])
+    if not torch.equal(got, qm.q4k_q8_matvec(x, ws[0])):
+        raise AssertionError("full_pre differs from q4k_q8_matvec")
+    composite = {"full_pre_ms": time_ms(lambda i: probes.full_pre(
+        x, ws[i % 2])), "q4k_q8_matvec_ms": time_ms(
+        lambda i: qm.q4k_q8_matvec(x, ws[i % 2]))}
+    log(f"  full_pre (q8_prep + full) bit-equal to q4k_q8_matvec: "
+        f"{composite['full_pre_ms']:.4f} ms against "
+        f"{composite['q4k_q8_matvec_ms']:.4f} ms")
+    del flats, ws, base
+
+    rng = np.random.default_rng(seed)
+    q6 = [q6_probe.draw_operands(q6_probe.N_BIG, rng, dev)
+          for _ in range(2)]
+    n6 = q6[0]["qs"].shape[0]
+    b6 = sum(q6[0][f].numel() * q6[0][f].element_size()
+             for f in ("qs", "qh", "es"))
+    _versus_plain(res, "q6_stream", f"N={n6}, q6_probe's operands (2 copies)",
+                  lambda i: probes.q6_stream(q6[i % 2]["qs"], q6[i % 2]["qh"],
+                                             q6[i % 2]["es"]), 1e-5,
+                  spec.bound_ms(b6 + 4 * n6, 3 * 128 * n6, "f32"),
+                  headline=True)
+    _versus_plain(res, "q6_bits2", f"N={n6}, q6_probe's operands (2 copies)",
+                  lambda i: probes.q6_bits2(q6[i % 2]["qh"], q6[i % 2]["xc"],
+                                            q6[i % 2]["es"]), 1e-4,
+                  spec.bound_ms(n6 * (1024 + 512 + 4), 8 * 1024 * n6, "f32"),
+                  headline=True)
+    for seg in (False, True):
+        _versus_plain(res, "q6_nib_lhs", f"N={n6}, seg={seg}",
+                      lambda i, seg=seg: probes.q6_nib_lhs(q6[i % 2]["qs"],
+                                                           seg), 0.0,
+                      spec.bound_ms(n6 * (2048 + 4096), n6 * 2048, "int8"),
+                      headline=not seg, scale=1.0)
+    z = [torch.randint(-2 ** 20, 2 ** 20, (n6, 256), dtype=torch.int32,
+                       device=dev) for _ in range(2)]
+    _versus_plain(res, "q6_nib_fold", f"N={n6}, z int32 [N, 256]",
+                  lambda i: probes.q6_nib_fold(z[i % 2], z[i % 2][:, 128:],
+                                               q6[i % 2]["es"]), 1e-4,
+                  spec.bound_ms(n6 * (1024 + 512 + 4), 2 * 256 * n6, "f32"),
+                  headline=True)
+    del z
+    for mode in ("nib_global", "nib_seg"):
+        fns = [q6_probe.rung(mode, q6[j]) for j in range(2)]
+        wts = [(q6[j]["qs"], q6[j]["qh"], q6[j]["es"]) for j in range(2)]
+        got = fns[0](wts[0])
+        with plain_versions():
+            ref = fns[0](wts[0])
+        err, sc = rel_err(got, ref)
+        if err > 1e-4 * sc:
+            raise AssertionError(f"{mode}: {err} vs {sc}")
+        macs = n6 * 2 * 2048 * (256 if mode == "nib_global" else 128)
+        composite[f"{mode}_ms"] = ms = time_ms(lambda i: fns[i % 2](
+            wts[i % 2]), calls=10, replays=3)
+        b_ms, b_by = spec.bound_ms(b6 + 4 * n6, 2 * macs, "int8")
+        composite[f"{mode}_bound_ms"] = b_ms
+        log(f"  {mode} (q6_nib_lhs + matmul int8 + q6_nib_fold): max_abs_err"
+            f" {err:.3e} (bound 1e-4*{sc:.3e}); {ms:.4f} ms, least "
+            f"{b_ms:.4f} ms ({b_by})")
+    del q6
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    x32 = f32(np.arange(32 * 128).reshape(32, 128))
+    eye = torch.eye(32, device=dev)
+    pad = torch.zeros((128, 128), device=dev)
+    pad[:, :32] = f32(np.arange(128 * 32).reshape(128, 32))
+    row = f32(np.arange(4096).reshape(1, 4096))
+    small = f32(np.arange(8 * 128).reshape(8, 128))
+    for name, fn, arg, lib in (
+            ("transpose_dot", lambda i: mp.transpose_dot(x32, eye), x32,
+             lambda i: torch.matmul(x32.T, eye)),
+            ("lane_concat", lambda i: mp.lane_concat(pad), pad,
+             lambda i: torch.cat([pad[32 * c:32 * c + 32, :32]
+                                  for c in range(4)], 1)),
+            ("roll64", lambda i: mp.roll64(x32), x32,
+             lambda i: torch.roll(x32, 64, 1)),
+            ("dyn_sublane", lambda i: mp.dyn_sublane(x32), x32,
+             lambda i: x32 * 2.0),
+            ("lane_extract", lambda i: mp.lane_extract(row), row,
+             lambda i: row.reshape(32, 128).clone()),
+            ("read_output", lambda i: mp.read_output(small), small, None),
+            ("tiny_call", lambda i: mp.tiny_call(small), small,
+             lambda i: small * 1.0001)):
+        nb = 2 * arg.numel() * 4 * (2 if name == "read_output" else 1)
+        _versus_plain(res, f"mosaic_{name}", f"{tuple(arg.shape)} f32", fn,
+                      0.0, spec.bound_ms(nb, arg.numel(), "f32"),
+                      headline=True, library=lib, scale=1.0)
+    return composite
+
+
 def _tables():
     from ggml_cuda_experiments_tpu_torch.ops import (
         flash_attention as fa, flash_decode as fd, fused_attention as fat,
         layer_kernel as lk, matmul as mm, paged_attention as pa,
         prefill_fuse as pf, primitives as pr, quant_matmul as qm,
-        vpu_attention as va)
+        vpu_attention as va, probes as pb, mosaic_probes as mp)
     return (qm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, pf.LAUNCHES, pa.LAUNCHES,
-            fat.LAUNCHES, lk.LAUNCHES, mm.LAUNCHES, pr.LAUNCHES, va.LAUNCHES)
+            fat.LAUNCHES, lk.LAUNCHES, mm.LAUNCHES, pr.LAUNCHES, va.LAUNCHES,
+            pb.LAUNCHES, mp.LAUNCHES)
 
 
 def _reset_counts():
@@ -1747,7 +1952,7 @@ def phase_formats(dev, seed, prompts, card):
     return paths, timing
 
 
-def phase_tinyllama(dev, seed):
+def phase_tinyllama(dev, seed, card=None):
     """tinyllama-1.1b at full width and depth (22 layers, dim 2048, GQA
     32/4, head_dim 64, intermediate 5632), q4_k layers and a q6_k head:
     every fused gate and rope_pack stay closed, w_down (K = 5632) takes
@@ -1833,6 +2038,12 @@ def phase_tinyllama(dev, seed):
         forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
         _check_forced(pf, cfg, prompts[0], forced, dev)
         del pf
+    if card is not None:
+        # 9 (decode): the benchmark entry on these weights in bench.py's
+        # format, q4_k with a q4_k head
+        b_paths, timing["bench_decode_tinyllama"] = phase_bench_decode(
+            dev, llama.quantize_params(dense, "q4_k"), cfg.name, card)
+        paths.update(b_paths)
     del dense
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return paths, timing
@@ -1943,6 +2154,140 @@ def phase_lab(dev, seed):
             raise AssertionError(f"{path}: {want} not all launched "
                                  f"({paths[path]})")
     return paths
+
+
+def _decode_bench_counts(L, model_pack: bool):
+    """Launches of the entry's ``--decode`` run (tools/bench.py
+    ``decode_bench``): 8 prefills (the path probe's and the per-token
+    marginal's 16 tokens, 5 TTFT runs of 512, batch 8 of 16: 4 GEMMs and a
+    flash_attention per layer, rope_pack at 512 where head_dim is 128, the
+    head on one row at batch 1 and on 8 at batch 8), 8 batch-1 decode steps
+    (the path probe's, the captured step's eager call and capture, one per
+    TTFT run) and 2 batch-8 ones (eager and capture: 4 GEMMs, flash_decode
+    and lse_merge per layer, the head's GEMM); the replays launch the
+    captured kernels again, uncounted."""
+    want = {k: 0 for k in _counts()}
+    want.update(q4k_gemm=8 * 4 * L + 1 + 2 * (4 * L + 1),
+                flash_attention=8 * L, flash_decode=2 * L, lse_merge=2 * L)
+    if model_pack:       # llama2-7b: model_step and the int8 head
+        want.update(rope_pack=5 * L, model_step=8, q4k_q8_matvec=7 + 8)
+    else:                # tinyllama: K = 2048 shuts every int8 gate
+        want.update(q4k_matvec=7 + 8 * (4 * L + 1),
+                    flash_decode=10 * L, lse_merge=10 * L)
+    return want
+
+
+def phase_bench_decode(dev, params, model, card):
+    """9 (decode): the entry's ``--decode`` (tools/bench.py
+    ``decode_bench``) on these q4_k weights: tok/s at batch 1 (8 and 40
+    replays of one captured step), TTFT p50 of 5 runs at 512 tokens, batch
+    8, the stream bound; its launches asserted."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.tools import bench as eb
+    log(f"== 9. the benchmark entry's --decode --model={model} on these "
+        "weights")
+    L = PRESETS[model].n_layers
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = eb.decode_bench(model, params=params, dev=dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    path = f"bench_decode_{model.split('-')[0]}"
+    _assert_counts(path, counts, _decode_bench_counts(
+        L, "model_step" in r["path"]))
+    line = r["line"]
+    if not (set(line) == {"metric", "value", "unit", "vs_baseline"}
+            and line["value"] > 0 and 0 < r["ttft_p50_ms"] < 1e4
+            and r["batch8_tok_s"] > 0):
+        raise AssertionError(f"bench --decode {model}: {r}")
+    log(f"  [{card}] bench --decode --model={model} in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)}; TTFT p50 "
+        f"{r['ttft_p50_ms']:.2f} ms, batch 8 {r['batch8_tok_s']:.1f} tok/s, "
+        f"stream {r['stream_bytes'] / 1e9:.4f} GB/token (bound "
+        f"{r['bound_tok_s']:.1f} tok/s)")
+    return {path: counts}, {k: v for k, v in r.items() if k != "path"}
+
+
+def phase_bench(dev, seed, card):
+    """9: the benchmark entry's kernel metric and the probe tools, each
+    through its ``main`` as a user runs it, with each path's launches
+    asserted: bench (q8_0, q4_k and the stream floor by the pair protocol),
+    exp_q4 (the exact-matvec rungs by the inner-count marginal), exp_q4_r2
+    --check (every int8 rung), shape_probe --preprep at the four 7B shapes,
+    roofline_sweep over the ladder's grid, q6_probe, probe_mosaic_r3 and
+    membench."""
+    import io
+    from ggml_cuda_experiments_tpu_torch.tools import (
+        bench, exp_q4, exp_q4_r2, membench, probe_mosaic_r3, q6_probe,
+        roofline_sweep, shape_probe)
+    log("== 9. the benchmark entry and the probe tools")
+    paths, metrics = {}, {}
+
+    def run(path, tool, argv, want):
+        t0 = time.perf_counter()
+        _reset_counts()
+        log(f"  {tool.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tool.main(argv)
+        text = out.getvalue()
+        for ln in text.splitlines():
+            log(f"    | {ln}")
+        if rc != 0:
+            raise AssertionError(f"{path}: exit {rc}")
+        counts = paths[path] = _counts()
+        full = {k: 0 for k in counts}
+        full.update(want)
+        _assert_counts(path, counts, full)
+        log(f"  {path} in {time.perf_counter() - t0:.1f} s")
+        return text
+
+    chain = 2 * (64 + 2)            # two sizes, 2 warm-up + 64 captured
+    text = run("bench", bench, [], {"q80_matvec": chain,
+                                    "q4k_q8_matvec": chain,
+                                    "q4_ladder_floor": chain})
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1]) if len(lines) == 1 else None
+    if not (line and set(line) == {"metric", "value", "unit", "vs_baseline",
+                                   "ceiling_pct", "pct_of_achievable"}
+            and 0 < line["value"] <= 100 and 0 < line["ceiling_pct"] <= 100):
+        raise AssertionError(f"bench: not one JSON line in range: {text}")
+    metrics["kernel_metric"] = line
+    log(f"  [{card}] bench: {json.dumps(line)}")
+    modes = ("floor", "chunk", "chunk32", "ponly", "loonly", "nochunk",
+             "bf16", "floorhi")
+    run("exp_q4", exp_q4, ["--variants", ",".join(modes)],
+        {f"q4_ladder_{m}": (2 + 32) + (2 + 160) for m in modes})
+    run("exp_q4_r2_check", exp_q4_r2,
+        ["--check", "--probes", "dma,zponly,zlonly,full,noand,cols256,split,"
+         "onedot,onedot_sub,subtile,full_pre,full:1"],
+        {"q4k_q8_matvec": 1, "q4_ladder_dma": 1, "q4_ladder_zponly": 1,
+         "q4_ladder_zlonly": 1, "q4_ladder_full": 6, "q4_ladder_noand": 1,
+         "q4_ladder_cols256": 1, "q4_ladder_split_f32": 1, "q8_prep": 1})
+    per = (2 + 16) + (2 + 80)       # one inner-count marginal, 16 and 80
+    run("shape_probe", shape_probe, ["--preprep", "--i1", "16", "--i2", "80",
+                                     "--reps", "3"],
+        {"q4k_q8_matvec": 4 * per, "q8_prep": 4 * per + 4,   # + the hoisted
+         "q4_ladder_full": 8 * per})
+    run("roofline_sweep", roofline_sweep,
+        ["--pairs", "3", "--min-valid", "2", "--variants",
+         "base,full,cta1,cta2,stream"],
+        {"q4k_q8_matvec": chain, "q4_ladder_full": 3 * chain,
+         "q4_ladder_floor": chain})
+    q6 = 2 * (2 + 16)
+    run("q6_probe", q6_probe, ["--inner", "16"],
+        {"q6_stream": q6, "q6k_q8_matvec": q6, "q6_nib_lhs": 2 * q6,
+         "matmul": 3 * q6, "q6_nib_fold": 2 * q6, "q6_bits2": q6})
+    tiny = 1 + 6 * 64 + 6 * 256 + (2 + 64) + (2 + 256)
+    run("probe_mosaic_r3", probe_mosaic_r3, [],
+        {**{f"mosaic_{p}": 1 for p in ("transpose_dot", "lane_concat",
+                                       "roll64", "dyn_sublane",
+                                       "lane_extract", "read_output")},
+         "mosaic_tiny_call": tiny})
+    run("membench", membench, ["--mb", "64"], {})
+    return paths, metrics
 
 
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
@@ -2476,7 +2821,7 @@ def phase_speculative(dev, seed, params, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-4g only (no model, no contract "
+                    help="phases 1-4h only (no model, no contract "
                     "line)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE_DIR", default=None,
@@ -2497,6 +2842,7 @@ def main() -> int:
     phase_format_kernels(dev, args.seed, res)
     phase_lab_kernels(dev, args.seed, res)
     vpu_paths = phase_vpu_kernels(dev, args.seed, res)
+    probe_times = phase_probe_kernels(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
@@ -2511,15 +2857,18 @@ def main() -> int:
     paths, engine_metrics = phase_engine(dev, args.seed, params,
                                          PRESETS["llama2-7b"], card)
     spec_paths, spec_metrics = phase_speculative(dev, args.seed, params, card)
+    b7_paths, b7_metrics = phase_bench_decode(dev, params, "llama2-7b", card)
     del params
     torch.cuda.empty_cache()
     fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
-    tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed)
+    tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed, card)
+    btiny_metrics = tiny_timing.pop("bench_decode_tinyllama")
     torch.cuda.empty_cache()
     lab_paths = phase_lab(dev, args.seed)
+    bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
-             **vpu_paths}
+             **vpu_paths, **b7_paths, **bench_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -2547,7 +2896,11 @@ def main() -> int:
                       "requests_by_path": {**q4km_timing, **fmt_timing,
                                            **tiny_timing},
                       "engine": engine_metrics,
-                      "speculative": spec_metrics}))
+                      "speculative": spec_metrics,
+                      "bench": {**bench_metrics, "probe_rungs": probe_times,
+                                "decode": {"llama2-7b": b7_metrics,
+                                           "tinyllama-1.1b": btiny_metrics}}
+                      }))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,3 +36,26 @@ static cudaError_t allow_smem(Kernel kernel, int bytes, int* granted) {
   if (e == cudaSuccess) *granted = bytes;
   return e;
 }
+
+// What the runtime says of a kernel launched with `threads` threads and
+// `smem` bytes of dynamic shared memory: out = {registers per thread,
+// static shared bytes, dynamic shared bytes, threads, resident CTAs per SM,
+// SMs, local (spill) bytes per thread}. Returns the CUDA status.
+template <typename Kernel>
+static int kernel_info(Kernel kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int granted = 0, dev = 0, per_sm = 0, sms = 0;
+  if (e == cudaSuccess) e = allow_smem(kernel, smem, &granted);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int v[7] = {a.numRegs, (int)a.sharedSizeBytes, smem, threads, per_sm,
+                    sms, (int)a.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}

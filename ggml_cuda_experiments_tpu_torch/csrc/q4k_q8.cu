@@ -49,6 +49,13 @@ GCT_EXPORT int q4k_q8_matvec(const float* x, const uint8_t* qs, const bf16* es,
   return q4_q8_matvec(x, qs, Q4K{es, em}, y, N, K, stream);
 }
 
+// registers, shared memory and occupancy of the q4_k instance at this K
+// (kernel_info, common.cuh): the benchmark entry's context line
+GCT_EXPORT int q4k_q8_matvec_info(int K, int* out) {
+  return kernel_info(q4_q8_matvec_kernel<Q4K>, Q8_THREADS,
+                     q8_act_bytes(K / 32), out);
+}
+
 GCT_EXPORT int q40_q8_matvec(const float* x, const uint8_t* qs,
                              const __half* d, float* y, int N, int K,
                              void* stream) {

@@ -114,3 +114,9 @@ GCT_EXPORT int q80_matvec(const float* x, const uint8_t* qs, const __half* d,
       x, qs, d, y, N, K);
   return (int)cudaGetLastError();
 }
+
+// registers, shared memory and occupancy at this K (kernel_info)
+GCT_EXPORT int q80_matvec_info(int K, int* out) {
+  return kernel_info(q80_matvec_kernel, Q80_THREADS,
+                     K / 32 * Q80_XPAD * (int)sizeof(float), out);
+}

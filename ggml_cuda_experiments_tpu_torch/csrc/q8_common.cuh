@@ -68,15 +68,13 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// Build the operands of every block of the vector src(i), i < 32 * kb;
-// ends with __syncthreads(). A half-warp takes a block, each of its 16
-// lanes one nibble pair (elements t and t + 16). kb must be a multiple of
-// blockDim.x / 16 (kb % 128 == 0 here), so whole warps take the loop
-// together, as the shuffles need.
+// The operands of block b of the vector src(i), by the half-warp of lane
+// t (0..15) of it: each lane one nibble pair (elements t and t + 16). Both
+// halves of the warp must call it together, as the shuffles need.
 template <class Src>
-__device__ void q8_quant(const Src& src, const Q8Act& a) {
-  const int t = threadIdx.x & 15;
-  for (int b = threadIdx.x >> 4; b < a.kb; b += blockDim.x >> 4) {
+__device__ __forceinline__ void q8_quant_block(const Src& src, const Q8Act& a,
+                                               int b, int t) {
+  {
     const float xl = src(32 * b + t), xh = src(32 * b + 16 + t);
     const float bv = __fdiv_rn(xh, 16.f);            // exact
     const float av = __fsub_rn(xl, bv);
@@ -93,6 +91,17 @@ __device__ void q8_quant(const Src& src, const Q8Act& a) {
       a.sb[b] = sb;
     }
   }
+}
+
+// Build the operands of every block of the vector src(i), i < 32 * kb;
+// ends with __syncthreads(). A half-warp takes a block. kb must be a
+// multiple of blockDim.x / 16 (kb % 128 == 0 here), so whole warps take the
+// loop together.
+template <class Src>
+__device__ void q8_quant(const Src& src, const Q8Act& a) {
+  const int t = threadIdx.x & 15;
+  for (int b = threadIdx.x >> 4; b < a.kb; b += blockDim.x >> 4)
+    q8_quant_block(src, a, b, t);
   __syncthreads();
 }
 

@@ -28,7 +28,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
            "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
            "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu", "matmul.cu",
-           "primitives.cu", "vpu_attention.cu")
+           "primitives.cu", "vpu_attention.cu", "q4_probe.cu", "q6_probe.cu",
+           "mosaic_probes.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -101,6 +102,22 @@ SIGNATURES = {
     # vec, stream
     "vpu_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _I, _I, _I, _P),
+    # the q4_k stage ladder: mode, act, x, qs, es, em, y, N, K, ctas,
+    # stream; x's int8 operands into device memory: x, out, K, stream
+    "q4_ladder": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "q8_prep": (_P, _P, _I, _P),
+    # the q6_k probe rungs: qs, qh, es, o, N / qh, xc, es, o, N / qs, lhs,
+    # N, seg / z0, z1, ld, es, o, N (each + stream)
+    "q6_stream": (_P, _P, _P, _P, _I, _P),
+    "q6_bits2": (_P, _P, _P, _P, _I, _P),
+    "q6_nib_lhs": (_P, _P, _I, _I, _P),
+    "q6_nib_fold": (_P, _P, _I, _P, _P, _I, _P),
+    # which, x, e, out, out2, R, C, C2, stream
+    "mosaic_probe": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # registers, shared memory and occupancy (int[7]): K / mode, K
+    "q4k_q8_matvec_info": (_I, _P),
+    "q80_matvec_info": (_I, _P),
+    "q4_ladder_info": (_I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),
 }

@@ -108,11 +108,12 @@ def replay_seconds(step, state, runs) -> dict:
 
 @torch.no_grad()
 def plain_per_token(tparams, tcfg, prompt, max_len: int = MAX_LEN) -> float:
-    """Seconds per greedy token of ``generate_scan``'s step after the
-    prompt's prefill: the marginal between 8 and 40 replays of one captured
-    step (``replay_seconds``)."""
+    """Seconds per greedy step of ``generate_scan``'s step after the
+    prompt's prefill (a batch of prompt.shape[0] sequences): the marginal
+    between 8 and 40 replays of one captured step (``replay_seconds``)."""
     from ggml_cuda_experiments_tpu_torch.models import llama
-    cache = llama.KVCache.create(tcfg, 1, max_len, device=prompt.device)
+    cache = llama.KVCache.create(tcfg, prompt.shape[0], max_len,
+                                 device=prompt.device)
     logits, cache = llama.prefill(tparams, tcfg, prompt, cache)
     step, state, _ = llama.greedy_scan_step(
         tparams, tcfg, torch.argmax(logits, -1).to(torch.int32), cache, 40)

@@ -776,3 +776,99 @@ def test_spec_bench_replays_one_capture(dev):
                                          len(stream), gamma=3, max_len=256)
     assert stream == eager[0].tolist()
     assert sb.plain_per_token(params, cfg, prompt, max_len=256) > 0
+
+
+# --------------------------------------------------------------------------
+# the probe kernels (ops/probes.py, ops/mosaic_probes.py): every ladder
+# rung, q6 rung and Mosaic probe against its plain version. Integer parts
+# and the Mosaic probes bitwise; floor and q6 stream (f32 sums of es / em
+# in another order) 1e-5 * max; the f32 rungs 1e-4 * max; bf16 2e-2 * max;
+# full and cols256 (q4k_q8_matvec's operands and dots) 1e-4 * max, and
+# full_pre bitwise equal to q4k_q8_matvec.
+# --------------------------------------------------------------------------
+
+_LADDER_TOL = {"floor": 1e-5, "bf16": 2e-2}
+
+
+def _ladder_weight(dev, n, k, seed=3):
+    return qm.quantize(_randn(seed, n, k, scale=k ** -0.5).to(dev), "q4_k")
+
+
+@pytest.mark.parametrize("mode", ["floor", "chunk", "chunk32", "ponly",
+                                  "loonly", "nochunk", "floorhi", "bf16",
+                                  "dma", "zponly", "zlonly", "full", "noand",
+                                  "cols256", "split_f32"])
+@pytest.mark.parametrize("n,k,ctas", [(2048, 4096, 0), (300, 8192, 1)])
+def test_q4_ladder(dev, mode, n, k, ctas):
+    from ggml_cuda_experiments_tpu_torch.ops import probes
+    ql = _ladder_weight(dev, n, k)
+    x = _randn(4, 1, k).to(dev)
+    act = probes.act_operands(mode, x)
+    _check(probes.ladder, mode, act, x, ql, ctas,
+           tol=_LADDER_TOL.get(mode, 1e-4))
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (300, 12288)])
+def test_full_pre_is_q4k_q8_matvec_bitwise(dev, n, k):
+    from ggml_cuda_experiments_tpu_torch.ops import probes
+    ql = _ladder_weight(dev, n, k)
+    x = _randn(5, 1, k).to(dev)
+    act = probes.q8_prep(x)
+    with plain_versions():
+        assert torch.equal(act, probes.q8_prep(x))
+    assert torch.equal(probes.full_pre(x, ql), qm.q4k_q8_matvec(x, ql))
+    assert torch.equal(probes.ladder("cols256", act, x, ql),
+                       qm.q4k_q8_matvec(x, ql))
+
+
+def _q6_operands(dev, n, seed=6):
+    from ggml_cuda_experiments_tpu_torch.tools import q6_probe
+    return q6_probe.draw_operands(n, np.random.default_rng(seed), dev)
+
+
+@pytest.mark.parametrize("mode", ["stream", "bits2", "nib_global",
+                                  "nib_seg"])
+@pytest.mark.parametrize("n", [1024, 333])
+def test_q6_rungs(dev, mode, n):
+    from ggml_cuda_experiments_tpu_torch.ops import probes
+    from ggml_cuda_experiments_tpu_torch.tools import q6_probe
+    ops = _q6_operands(dev, n)
+    fn = q6_probe.rung(mode, ops)
+    _check(fn, (ops["qs"], ops["qh"], ops["es"]),
+           tol=1e-5 if mode == "stream" else 1e-4)
+    if mode.startswith("nib"):
+        lhs = probes.q6_nib_lhs(ops["qs"], mode == "nib_seg")
+        with plain_versions():
+            assert torch.equal(lhs, probes.q6_nib_lhs(ops["qs"],
+                                                      mode == "nib_seg"))
+
+
+def test_mosaic_probes(dev):
+    from ggml_cuda_experiments_tpu_torch.ops import mosaic_probes as mp
+    x = _randn(7, 32, 128).to(dev)
+    e = torch.eye(32, device=dev)
+    big = _randn(8, 128, 128).to(dev)
+    row = _randn(9, 1, 4096).to(dev)
+    small = _randn(10, 8, 128).to(dev)
+    for fn, args in ((mp.transpose_dot, (x, e)), (mp.lane_concat, (big,)),
+                     (mp.roll64, (x,)), (mp.dyn_sublane, (x,)),
+                     (mp.lane_extract, (row,)), (mp.read_output, (small,)),
+                     (mp.tiny_call, (small,))):
+        got = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), fn.__name__
+
+
+def test_probe_tools_on_the_card(dev):
+    from ggml_cuda_experiments_tpu_torch.tools import (
+        exp_q4, exp_q4_r2, probe_mosaic_r3)
+    assert probe_mosaic_r3.main([]) == 0
+    assert exp_q4_r2.main(["--check", "--probes",
+                           "dma,zponly,zlonly,full,noand,cols256,split,"
+                           "full_pre,full:1"]) == 0
+    assert exp_q4.main(["--check", "--rows", "4096"]) == 0
