@@ -113,6 +113,26 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      the probe tools through their main: exp_q4, exp_q4_r2 --check,
      shape_probe --preprep at the four 7B shapes, roofline_sweep,
      q6_probe, probe_mosaic_r3, membench, each path's counts asserted;
+  4i. (after 4h, also with --kernels-only) flash_attention's lse output
+     (#14's residual) against its plain version at ring attention's 7B
+     shapes (H 32, D 128: one ring step at 256 with the causal block mask
+     and with a block wholly in the future, 512 causal), beside the
+     memory-efficient SDPA with compute_log_sumexp;
+  10. (after 9's decode, on phase 5's weights) the distributed paths:
+     ranks are processes sharing this card over a gloo group (collectives
+     staged through host memory), spawned after the kernels are built;
+     10a ring attention (causal and not), Ulysses and the context-parallel
+     decode at 4 ranks (H 32, D 128, S 2048; decode over 4096) against
+     one-rank flash_attention / flash_decode (2e-2 * max); 10b llama2-7b
+     q4_k at 2 ranks: seq = 2 (ring prefill of 512 tokens, 8
+     context-parallel decode steps), model = 2 (the TP step) and pipe = 2
+     (2 microbatches of 2, 128 tokens), each forced at the single-rank
+     generate tokens (free-running logits logged, greedy departures
+     near-ties) and again layer by layer on the single-rank path's input
+     (each layer and the logits within 2e-2 * max); 10c Engine(mesh=) at
+     model = 2, 4 requests against the single-rank Engine on the same
+     weights; every rank's launch counts asserted, peak memory and wall
+     times (shared card, host transport: no scaling figure) printed;
   7. (before 9) the kernel lab's path through its tools: kernel_test (flash
      decode against the NumPy oracle, GQA 32/8, kv 4096: split-KV x8,
      single-pass, int8 cache; each must PASS), gemm_bench (2048, 4096,
@@ -280,6 +300,11 @@ KERNELS = {
                  "tests/test_reductions.py:22", []),
     "lane_reduce": ("ggml_cuda_experiments_tpu_torch/csrc/primitives.cu",
                     "tests/test_reductions.py:60", []),
+    # #14's lse residual: the same kernel with one more store
+    "flash_attention_lse": (
+        "ggml_cuda_experiments_tpu_torch/csrc/flash_attention.cu",
+        "ggml_cuda_experiments_tpu/ops/flash_attention.py:51",
+        ["ggml_cuda_experiments_tpu/ops/flash_attention.py:119"]),
     # the CUDA-core attention op (#17)
     "vpu_attention": ("ggml_cuda_experiments_tpu_torch/csrc/vpu_attention.cu",
                       "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53",
@@ -1292,6 +1317,84 @@ def phase_probe_kernels(dev, seed, res: Results):
                       0.0, spec.bound_ms(nb, arg.numel(), "f32"),
                       headline=True, library=lib, scale=1.0)
     return composite
+
+
+def phase_lse_kernel(dev, seed, res: Results):
+    """#14's lse residual: flash_attention(return_residuals=True) against
+    its plain version (o 1e-2 * max, lse 1e-4 * max|lse| where finite and
+    -inf exactly where every key is masked) at ring attention's 7B shapes:
+    one ring step at seq = 2 (H 32, D 128, Sq = Sk = 256) with the causal
+    block mask and with a block wholly in the future, and Sq = Sk = 512
+    causal; the bound, and one PyTorch call computing o and the
+    log-sum-exp (the memory-efficient SDPA with compute_log_sumexp) where
+    it runs."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    log("== 4i. flash_attention's lse output (#14's residual) vs plain "
+        "versions on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    spec = _spec()
+    H, D = 32, 128
+    for S, kind in ((256, "ring block mask"), (256, "future block"),
+                    (512, "causal")):
+        q, k, v = (torch.randn((1, H, S, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        pos = torch.arange(S, device=dev)
+        mask, causal = None, kind == "causal"
+        if kind == "ring block mask":
+            mask = torch.where(pos[None, :] <= pos[:, None], 0.0,
+                               -torch.inf)[None, None]
+        elif kind == "future block":
+            mask = torch.full((1, 1, S, S), -torch.inf, device=dev)
+
+        def fn(i):
+            return fa.flash_attention(q, k, v, mask, causal=causal,
+                                      return_residuals=True)
+
+        o, lse = fn(0)
+        with plain_versions():
+            ro, rlse = fn(0)
+        dead = torch.isneginf(rlse)
+        if not torch.equal(torch.isneginf(lse), dead) or o[dead].any():
+            raise AssertionError(f"flash_attention_lse {kind}: -inf rows or "
+                                 "their o differ from the plain version")
+        live = ~dead
+        lerr = float((lse[live] - rlse[live]).abs().max()) if live.any() \
+            else 0.0
+        lsc = float(rlse[live].abs().max()) if live.any() else 1.0
+        if not lerr <= 1e-4 * lsc:
+            raise AssertionError(f"flash_attention_lse {kind}: lse error "
+                                 f"{lerr} > 1e-4 * {lsc}")
+        err, sc = rel_err(o, ro)
+        ms = time_ms(fn)
+        with plain_versions():
+            pms = time_ms(fn, calls=4, replays=3)
+        # what this run's data needs: the visible (query, key) pairs
+        vis = (S * (S + 1) // 2 if kind != "future block" else 0)
+        nbytes = 2 * 4 * H * S * D + 4 * H * S + (
+            4 * S * S if mask is not None else 0)
+        lib = None
+        try:
+            # the memory-efficient SDPA returns o and the log-sum-exp; it
+            # takes an additive bias in q's dtype (-inf rows give NaN
+            # there, not 0)
+            bias = None if mask is None else mask.expand(1, H, S, S).to(
+                q.dtype)
+            lib = time_ms(lambda i: torch.ops.aten.
+                          _scaled_dot_product_efficient_attention(
+                              q, k, v, bias, True, 0.0, causal))
+        except RuntimeError as e:
+            log(f"    _scaled_dot_product_efficient_attention with "
+                f"compute_log_sumexp does not run here: {e}")
+        res.add("flash_attention_lse", f"H={H} S={S} D={D} {kind}",
+                err, sc, 1e-2, ms, pms,
+                spec.bound_ms(nbytes, 4 * H * vis * D, "bf16"),
+                headline=kind == "causal", library_ms=lib)
+        log(f"    lse max_abs_err {lerr:.3e} (bound 1e-4 * {lsc:.3e}); "
+            f"rows with no visible key {int(dead.sum())}; "
+            f"{_rate(nbytes, 4 * H * vis * D, ms)}")
+        del q, k, v
 
 
 def _tables():
@@ -2818,10 +2921,517 @@ def phase_speculative(dev, seed, params, card):
     return paths, metrics
 
 
+# ------------------------------------------------------- 10. distributed
+
+PAR_TIMEOUT = {"attention": 300, "model": 720}   # s a run may take, spawns in
+PAR_DECODE = 8                                   # decode steps a model run
+PP_BATCH, PP_PROMPT = 4, 128                     # pipe = 2: 2 microbatches
+PAR_ENGINE_PROMPTS, PAR_ENGINE_GEN = (16, 37, 64, 100), 8
+PAR_ENGINE_KW = dict(max_batch=4, page_size=64, n_pages=32, max_seq_len=256)
+PAR_ATTN_SHAPE = (32, 128, 2048, 4096)       # heads, D, S, decode length
+
+
+def _dev_of(device):
+    """A rank's device: its current card (``run_spmd`` sets card 0 for
+    gloo ranks, card r for nccl rank r), or the CPU."""
+    import torch
+    if device == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def _sync_peak(dev, reset=False):
+    """Synchronize the card; its peak memory in GiB since the last reset
+    (and reset it with ``reset``); 0 on the CPU."""
+    import torch
+    if dev.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def _empty_cache(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _par_attention_inputs(dev, seed, shape=PAR_ATTN_SHAPE):
+    """10a's inputs, drawn alike on every rank and in the parent: q, k, v
+    [1, H, S, D] bf16, and a decode query [1, H, D] with its cache k / v
+    [1, H, S_dec, D] (llama2-7b's heads by default)."""
+    import torch
+    H, D, S, SD = shape
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    return (rn(1, H, S, D), rn(1, H, S, D), rn(1, H, S, D), rn(1, H, D),
+            rn(1, H, SD, D), rn(1, H, SD, D))
+
+
+def _par_attention_rank(seed, device="cuda", shape=PAR_ATTN_SHAPE):
+    """10a on one of 4 ranks: its sequence quarter of ring attention
+    (causal and not) and of Ulysses attention (causal and not), and the
+    context-parallel decode over its quarter of a 4096-long cache. Returns
+    the outputs, the launch counts of these calls, wall times and peak
+    memory."""
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.parallel import mesh as pm
+    from ggml_cuda_experiments_tpu_torch.parallel import ring_attention as ra
+    dev = _dev_of(device)
+    mesh = pm.Mesh(np.arange(4), ("seq",))
+    n, me = pm.axis_size(mesh, "seq"), pm.axis_index(mesh, "seq")
+    q, k, v, dq, dk, dv = _par_attention_inputs(dev, seed, shape)
+    s, sd = q.shape[2] // n, dk.shape[2] // n
+    q, k, v = (t[:, :, me * s:(me + 1) * s].contiguous() for t in (q, k, v))
+    dk, dv = (t[:, :, me * sd:(me + 1) * sd].contiguous() for t in (dk, dv))
+    lengths = torch.full((1,), sd, dtype=torch.int32, device=dev)
+    calls = {
+        "ring_causal": lambda: ra.ring_attention(q, k, v, mesh, "seq",
+                                                 causal=True),
+        "ring": lambda: ra.ring_attention(q, k, v, mesh, "seq"),
+        "ulysses_causal": lambda: ra.ulysses_attention(q, k, v, mesh, "seq",
+                                                       causal=True),
+        "ulysses": lambda: ra.ulysses_attention(q, k, v, mesh, "seq"),
+        "decode": lambda: ra.decode_context_parallel(dq, dk, dv, lengths,
+                                                     mesh, "seq")}
+    _sync_peak(dev, reset=True)
+    _reset_counts()
+    out, wall = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _sync_peak(dev)
+        wall[name] = time.perf_counter() - t0
+    return {"out": out, "counts": _counts(), "wall_s": wall,
+            "peak_gib": _sync_peak(dev),
+            "transport": pm.transport(mesh, dev), "backend": mesh.backend}
+
+
+def _par_model_rank(seed, prompt, forced, pp_prompt, pp_forced, eng_prompts,
+                    device="cuda", cfg=None):
+    """10b / 10c on one of 2 ranks: llama2-7b q4_k at full width and 32
+    layers, its weights drawn again from the seed on this rank (phase 5's
+    quantization: the single-rank port's weights). Three runs: seq = 2
+    (ring prefill, context-parallel decode: the 5-axis step at pipe = model
+    = 1), model = 2 (the TP step), pipe = 2 (``pp_forward``, 2 microbatches
+    of 2). Each drives its real step twice, a prefill then the decode steps
+    forced at the single-rank tokens: once as it is (launch counts,
+    logits), and once with every layer's input forced to the single-rank
+    port's through the step's ``layer_hook``, each layer's output held
+    against the single-rank layer's on the same input. The single-rank port
+    runs here on the same weights and kernel gates: phase 5's weights for
+    seq and pipe, the TP weights whole for model = 2 (unfused, as TP takes
+    them). Then Engine(mesh=) at model = 2, the single-rank Engine on the
+    same weights, and that Engine's logits at each request's first
+    departure. ``cfg``: another configuration (llama2-7b by default)."""
+    import collections
+    import dataclasses
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import engine as engine_mod
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.parallel import full, pipeline, tp
+    from ggml_cuda_experiments_tpu_torch.parallel import mesh as pm
+    dev = _dev_of(device)
+    cfg = cfg or PRESETS["llama2-7b"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dense = llama.init_weights(cfg, seed=seed, device=dev)
+    params = llama.quantize_params(dense, "q4_k")         # phase 5's weights
+    res = {}
+
+    def drive(step, cache, prompt_t, steps, hook_of=lambda i: None):
+        """A prefill, then the decode steps forced at ``steps``' tokens,
+        through step(x, cache, decode, layer_hook) -> (logits, cache);
+        returns the logits [steps + 1, B, V] f32."""
+        out = []
+        with torch.no_grad():
+            for i in range(steps.shape[1] + 1):
+                x = prompt_t if i == 0 else t(steps[:, i - 1])
+                lg, cache = step(x, cache, i > 0, hook_of(i))
+                out.append(lg.float())
+        return torch.stack(out)
+
+    def single(ref, prompt_t, steps):
+        """The single-rank port on ``ref``: its logits, and every step's
+        layer inputs ([step][layer] -> h)."""
+        B = prompt_t.shape[0]
+        ins = []
+
+        def step(x, c, decode, hook):
+            x = x[:, None] if decode else x
+            T = x.shape[1]
+            pos = (c.lengths[:, None].clone() if decode else
+                   torch.arange(T, dtype=torch.int32, device=dev).expand(B, T))
+            ins.append({})
+            return llama._forward(
+                ref, cfg, x, c, pos, decode=decode,
+                layer_hook=lambda li, h, b0: ins[-1].setdefault(li, h))
+        cache = llama.KVCache.create(cfg, B, 1024 if B == 1 else 256,
+                                     device=dev)
+        return drive(step, cache, prompt_t, steps), ins
+
+    def run(name, step, new_cache, ref, prompt_t, steps, seq_rows=None):
+        """The run ``name``: the real step timed and counted, the
+        single-rank port on ``ref``, and the real step again with each
+        layer's input forced. ``seq_rows``: this rank's prefill positions
+        (a sequence shard)."""
+        _sync_peak(dev, reset=True)
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = drive(step, new_cache(), prompt_t, steps)
+        peak = _sync_peak(dev)
+        r = res[name] = {"out": out.cpu(), "counts": _counts(),
+                         "wall_s": time.perf_counter() - t0,
+                         "peak_gib": peak}
+        want, ins = single(ref, prompt_t, steps)
+        errs = [[] for _ in ins]
+
+        def hook_of(i):
+            rows = slice(None) if i or seq_rows is None else seq_rows
+
+            def hook(li, h, b0):
+                w = ins[i][li][b0:b0 + h.shape[0], rows]
+                if li:                  # h: the last layer's output
+                    errs[i].append(float((h.float() - w.float()).abs().max()
+                                         / w.float().abs().max()))
+                return w.contiguous()
+            return hook
+        got = drive(step, new_cache(), prompt_t, steps, hook_of)
+        r["ref"] = want.cpu()
+        r["forced"] = {
+            "layer_max": [max(e) for e in errs],
+            "logits": [float((g - w).abs().max() / w.abs().max())
+                       for g, w in zip(got, want)]}
+        del ins
+
+    # seq = 2: ring prefill, context-parallel decode
+    mesh = full.make_full_mesh(2, dict(data=1, pipe=1, seq=2, model=1,
+                                       expert=1))
+    sp, _ = full.shard_full_params(params, mesh, cfg)
+    T = prompt.shape[1]
+    steps = {d: full.make_full_step(cfg, mesh, n_micro=1, prefill_len=T,
+                                    decode=d) for d in (False, True)}
+    me, t_loc = pm.axis_index(mesh, "seq"), T // 2
+    run("seq", lambda x, c, d, hook: steps[d](sp, x, c, layer_hook=hook),
+        lambda: full.create_full_cache(cfg, mesh, 1, 1024, device=dev),
+        params, t(prompt), forced, slice(me * t_loc, (me + 1) * t_loc))
+    res["transport"] = pm.transport(mesh, dev)
+    del sp
+    _empty_cache(dev)
+
+    # model = 2: the TP step, then Engine(mesh=) on the same shards
+    mesh = pm.make_mesh(model=2, data=1)
+    q = tp.quantize_params_sharded(dense, "q4_k", 2)      # the TP weights
+    del dense
+    sp = tp.shard_params(q, mesh)
+    _empty_cache(dev)
+    steps = {d: tp.make_tp_step(cfg, mesh, sp, decode=d)
+             for d in (False, True)}
+    run("model", lambda x, c, d, hook: steps[d](sp, x, c, layer_hook=hook),
+        lambda: tp.create_sharded_cache(cfg, mesh, 1, 1024, device=dev),
+        q, t(prompt), forced)
+    eng = engine_mod.Engine(sp, cfg, mesh=mesh, **PAR_ENGINE_KW)
+    calls = collections.Counter()
+    with _count_steps(engine_mod, calls):
+        _sync_peak(dev, reset=True)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = _serve(eng, eng_prompts, PAR_ENGINE_GEN)
+        res["engine"] = {"out": out, "counts": _counts(),
+                         "peak_gib": _sync_peak(dev),
+                         "wall_s": time.perf_counter() - t0,
+                         "calls": dict(calls),
+                         "pool_heads": eng.pool.k.shape[2]}
+    del eng, sp
+    with torch.no_grad():
+        single_eng = engine_mod.Engine(q, cfg, **PAR_ENGINE_KW)
+        res["engine_single"] = _serve(single_eng, eng_prompts,
+                                      PAR_ENGINE_GEN)
+        res["engine"]["departures"] = _engine_departures(
+            single_eng, eng_prompts, res["engine"]["out"],
+            res["engine_single"])
+    del single_eng, q
+    _empty_cache(dev)
+
+    # pipe = 2: this stage's 16 layers of the same weights, 2 microbatches
+    mesh = pm.Mesh(np.arange(2), ("pipe",))
+    r = pipeline.stage_range(cfg.n_layers, mesh)
+    sp = dict(params, layers=params["layers"][r.start:r.stop])
+    scfg = dataclasses.replace(cfg, n_layers=len(r))
+    run("pipe", lambda x, c, d, hook: pipeline.pp_forward(
+            sp, cfg, x[:, None] if d else x, c, decode=d, n_micro=2,
+            mesh=mesh, layer_hook=hook),
+        lambda: llama.KVCache.create(scfg, PP_BATCH, 256, device=dev),
+        params, t(pp_prompt), pp_forced)
+    res["stage_layers"] = [r.start, r.stop]
+    return res
+
+
+def _engine_departures(eng, prompts, got, want):
+    """Per request, None where ``got`` equals the single-rank engine's
+    ``want``, else (i, want[i], got[i], gap, max|logit|) at the first
+    departure i: ``eng`` (that engine) serves the prompt and want[:i] as
+    a new request, and its prefill logits there, caught at its sampler,
+    give gap = logit[want[i]] - logit[got[i]]."""
+    out = []
+    for p, a, b in zip(prompts, got, want):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            out.append(None)
+            continue
+        seen, sample = [], eng._sample
+        eng._sample = lambda lg: (seen.append(lg.float()), sample(lg))[1]
+        try:
+            _serve(eng, [list(p) + list(b[:i])], 1)
+        finally:
+            del eng._sample
+        w = seen[0][0]
+        out.append((i, b[i], a[i], float(w[b[i]] - w[a[i]]),
+                    float(w.abs().max())))
+    return out
+
+
+def _par_check(what, o):
+    """A run's checks on one rank's results ``o``. The real step, forced
+    only at the tokens: finite logits of the single-rank shape, their
+    distance from the single-rank port on the same weights (logged:
+    free-running logits drift, ROADMAP C.2.1), the greedy tokens that
+    agree, and every one that does not a near-tie of the single-rank
+    logits (2e-2 * max|logit|). The real step with every layer's input
+    forced (``forced``): each layer's output within 2e-2 of max of the
+    single-rank layer's, and the logits within 2e-2 * max."""
+    import torch
+    rels, agree, total, far = [], 0, 0, []
+    for i, (g, w) in enumerate(zip(o["out"], o["ref"])):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: step {i} logits {tuple(g.shape)} "
+                                 "or non-finite")
+        rels.append(float((g - w).abs().max() / w.abs().max()))
+        for row, (d, s) in enumerate(zip(g.argmax(-1).tolist(),
+                                         w.argmax(-1).tolist())):
+            total += 1
+            agree += d == s
+            gap = float(w[row, s] - w[row, d])
+            if gap > 2e-2 * float(w[row].abs().max()):
+                far.append((i, row, d, s, gap))
+    lay = max(o["forced"]["layer_max"])
+    lgt = max(o["forced"]["logits"])
+    log(f"  {what}: free-running (token-forced) logits "
+        f"{' '.join(f'{r:.2e}' for r in rels)} of max; greedy tokens agree "
+        f"{agree} / {total}; every layer's input forced: worst layer "
+        f"{lay:.3e}, logits {lgt:.3e} of max over "
+        f"{len(o['forced']['logits'])} steps (bounds 2e-2)")
+    if far:
+        raise AssertionError(f"{what}: greedy departures that are no "
+                             f"near-tie (step, row, got, want, gap): {far}")
+    if not (lay <= 2e-2 and lgt <= 2e-2):
+        raise AssertionError(f"{what}: layer inputs forced: layer {lay}, "
+                             f"logits {lgt} > 2e-2 of max")
+    return {"free_running_rel": rels, "greedy_agree": agree,
+            "greedy_total": total, "forced_layer_max": lay,
+            "forced_logits_rel": lgt}
+
+
+def _par_counts(what, per_rank, want_of):
+    """Assert every rank's counts (``want_of(rank)``); return their sum."""
+    total = {}
+    for r, c in enumerate(per_rank):
+        _assert_counts(f"{what} rank {r}", c, want_of(r))
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_parallel(dev, seed, params, prompts, card, cfg=None,
+                   attn_shape=PAR_ATTN_SHAPE):
+    """10. The distributed paths at llama2-7b, q4_k, full width: ranks are
+    processes sharing the one card over a gloo group (collectives staged
+    through host memory), spawned by ``launch.run_spmd`` after the parent
+    has built the kernels. Returns (launch counts by path, metrics).
+    ``cfg`` / ``attn_shape``: other shapes (``params`` then in that
+    configuration; prompts[2] its long prompt)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import engine as engine_mod
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
+    from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
+    from ggml_cuda_experiments_tpu_torch.parallel.launch import run_spmd
+    cfg = cfg or PRESETS["llama2-7b"]
+    L = cfg.n_layers
+    log("== 10. distributed paths: ranks are processes sharing this one "
+        f"card ({card}) over a gloo group; every wall time below is a "
+        "shared-card, host-staged-transport time, not a scaling figure")
+    _empty_cache(dev)
+    metrics, paths = {}, {}
+
+    # 10a: attention alone at 4 ranks
+    t0 = time.perf_counter()
+    outs = run_spmd(_par_attention_rank, 4, "gloo", dev.type,
+                    PAR_TIMEOUT["attention"], args=(seed, dev.type,
+                                                    attn_shape))
+    wall = time.perf_counter() - t0
+    log(f"  10a. 4 ranks, backend {outs[0]['backend']}, transport "
+        f"{outs[0]['transport']}; spawn to results {wall:.1f} s")
+    q, k, v, dq, dk, dv = _par_attention_inputs(dev, seed, attn_shape)
+    refs = {"ring_causal": fa.flash_attention(q, k, v, causal=True),
+            "ring": fa.flash_attention(q, k, v),
+            "ulysses_causal": fa.flash_attention(q, k, v, causal=True),
+            "ulysses": fa.flash_attention(q, k, v),
+            "decode": fd.flash_decode(dq, dk, dv)}
+    att = {}
+    for name, ref in refs.items():
+        ref = ref.float().cpu()
+        got = (outs[0]["out"][name].float() if name == "decode" else
+               torch.cat([o["out"][name].float() for o in outs], 2))
+        if name == "decode" and not all(
+                torch.equal(o["out"][name], outs[0]["out"][name])
+                for o in outs):
+            raise AssertionError("decode_context_parallel differs by rank")
+        err, sc = rel_err(got, ref)
+        if not err <= 2e-2 * sc:
+            raise AssertionError(f"10a {name}: {err} > 2e-2 * {sc}")
+        walls = [o["wall_s"][name] for o in outs]
+        att[name] = {"max_abs_err": err, "scale": sc, "wall_s": walls}
+        one = "flash_decode" if name == "decode" else "flash_attention"
+        log(f"    {name:15s} vs single-rank {one}: "
+            f"max_abs_err {err:.3e} (bound 2e-2*{sc:.3e}); rank wall "
+            f"{max(walls) * 1e3:.1f} ms")
+    del q, k, v, dq, dk, dv, refs
+    zero = {key: 0 for key in outs[0]["counts"]}
+    # the causal ring launches for the blocks at or before the rank's own
+    paths["parallel_attention"] = _par_counts(
+        "10a attention", [o["counts"] for o in outs],
+        lambda r: dict(zero, flash_attention_lse=4 + r + 1,
+                       flash_attention=2, flash_decode=1))
+    metrics["attention"] = dict(
+        att, peak_gib=[o["peak_gib"] for o in outs], wall_s=wall)
+    log(f"    peak memory per rank {[round(o['peak_gib'], 2) for o in outs]}"
+        " GiB")
+
+    # 10b / 10c: the model at 2 ranks, against the single-rank port
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    prompt = prompts[2]                                   # 512 tokens
+    toks = llama.generate(params, cfg, prompt, steps=PAR_DECODE)
+    pp_prompt = torch.randint(1, cfg.vocab_size, (PP_BATCH, PP_PROMPT),
+                              generator=g, device=dev)
+    pp_toks = llama.generate(params, cfg, pp_prompt, steps=PAR_DECODE)
+    eng_prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g,
+                                 device=dev).tolist()
+                   for n in PAR_ENGINE_PROMPTS]
+    ref_eng = _serve(engine_mod.Engine(params, cfg, **PAR_ENGINE_KW),
+                     eng_prompts, PAR_ENGINE_GEN)
+    _empty_cache(dev)
+    t0 = time.perf_counter()
+    outs = run_spmd(_par_model_rank, 2, "gloo", dev.type,
+                    PAR_TIMEOUT["model"],
+                    args=(seed, prompt.cpu().numpy(), toks,
+                          pp_prompt.cpu().numpy(), pp_toks, eng_prompts,
+                          dev.type, cfg))
+    wall = time.perf_counter() - t0
+    log(f"  10b. 2 ranks, transport {outs[0]['transport']}; spawn to "
+        f"results {wall:.1f} s (weights drawn and quantized on each rank)")
+    for run in ("seq", "model", "pipe"):
+        for r, o in enumerate(outs):
+            m = _par_check(f"{run} = 2 rank {r}", o[run])
+        metrics[run] = dict(m, wall_s=[o[run]["wall_s"] for o in outs],
+                            peak_gib=[o[run]["peak_gib"] for o in outs])
+        log(f"    {run} = 2: rank wall "
+            f"{[round(o[run]['wall_s'], 2) for o in outs]} s, peak "
+            f"{[round(o[run]['peak_gib'], 2) for o in outs]} GiB")
+    steps = PAR_DECODE
+    zero = {key: 0 for key in outs[0]["seq"]["counts"]}
+
+    def seq_want(r):
+        # the causal ring prefill: rank 0 attends its own block, rank 1
+        # rank 0's and its own
+        return dict(zero, q4k_gemm=4 * L, flash_attention_lse=(r + 1) * L,
+                    q4k_matvec=1 + steps * (2 * L + 1),
+                    fused_mlp=steps * L, flash_decode=steps * L)
+
+    def model_want(r):
+        return dict(zero, q4k_gemm=7 * L, flash_attention=L,
+                    q4k_matvec=1 + steps * (7 * L + 1),
+                    flash_decode=steps * L, lse_merge=steps * L)
+
+    def pipe_want(r):
+        passes = (2 + 2 - 1) * (L // 2)       # every step runs the stage
+        heads = 2 * (1 + steps) if r == 1 else 0
+        return dict(zero, q4k_gemm=4 * passes * (1 + steps) + heads,
+                    flash_attention=passes, flash_decode=passes * steps,
+                    lse_merge=passes * steps)
+
+    for run, fn in (("seq", seq_want), ("model", model_want),
+                    ("pipe", pipe_want)):
+        paths[f"parallel_{run}"] = _par_counts(
+            f"10b {run} = 2", [o[run]["counts"] for o in outs], fn)
+    # 10c: the TP Engine against the single-rank Engine
+    calls = outs[0]["engine"]["calls"]
+    fills, dsteps = calls["_paged_prefill"], calls["_paged_decode_step"]
+
+    def engine_want(r):
+        return dict(zero, q4k_gemm=fills * 7 * L + dsteps * (7 * L + 1),
+                    q4k_matvec=fills, flash_attention=fills * L,
+                    paged_decode=dsteps * L)
+
+    paths["parallel_engine"] = _par_counts(
+        "10c engine", [o["engine"]["counts"] for o in outs], engine_want)
+    agree = total = 0
+    for o in outs:
+        if o["engine"]["out"] != outs[0]["engine"]["out"]:
+            raise AssertionError("10c: the ranks' engines disagree")
+        if o["engine"]["pool_heads"] != cfg.n_kv_heads // 2:
+            raise AssertionError("10c: pool not sharded over model")
+    log(f"  10c. Engine(mesh=) at model = 2: {len(eng_prompts)} requests, "
+        f"{fills} prefills, {dsteps} decode steps; rank wall "
+        f"{[round(o['engine']['wall_s'], 2) for o in outs]} s")
+    single = outs[0]["engine_single"]
+    far = []
+    for pr, a, b, c, dep in zip(eng_prompts, outs[0]["engine"]["out"],
+                                single, ref_eng,
+                                outs[0]["engine"]["departures"]):
+        if len(a) != PAR_ENGINE_GEN or not all(0 <= x < cfg.vocab_size
+                                               for x in a):
+            raise AssertionError(f"10c: {a}")
+        agree += sum(x == y for x, y in zip(a, b))
+        total += len(b)
+        fused_agree = sum(x == y for x, y in zip(a, c))
+        log(f"    prompt {len(pr)}: TP {a}; single-rank on the same weights "
+            f"{b}; phase 5's fused single-rank Engine agrees "
+            f"{fused_agree} / {len(c)}")
+        if dep is not None:
+            i, want_t, got_t, gap, top = dep
+            log(f"      first departure at token {i}: single-rank {want_t}, "
+                f"TP {got_t}; the single-rank Engine's logit gap there "
+                f"{gap:.4f} of max |logit| {top:.3f} (near-tie bound "
+                f"2e-2 * max = {2e-2 * top:.4f})")
+            if gap > 2e-2 * top:
+                far.append((len(pr), dep))
+    log(f"  10c. tokens agree with the single-rank Engine on the same "
+        f"weights {agree} / {total}; every request equal up to its first "
+        "departure, if any")
+    if far:
+        raise AssertionError(f"10c: departures from the single-rank Engine "
+                             f"that are no near-tie (prompt length, "
+                             f"(token, want, got, gap, max)): {far}")
+    metrics["engine"] = {"agree": agree, "total": total,
+                         "wall_s": [o["engine"]["wall_s"] for o in outs]}
+    metrics["transport"] = outs[0]["transport"]
+    return paths, metrics
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-4h only (no model, no contract "
+                    help="phases 1-4i only (no model, no contract "
                     "line)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="TRACE_DIR", default=None,
@@ -2843,6 +3453,7 @@ def main() -> int:
     phase_lab_kernels(dev, args.seed, res)
     vpu_paths = phase_vpu_kernels(dev, args.seed, res)
     probe_times = phase_probe_kernels(dev, args.seed, res)
+    phase_lse_kernel(dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
@@ -2858,6 +3469,8 @@ def main() -> int:
                                          PRESETS["llama2-7b"], card)
     spec_paths, spec_metrics = phase_speculative(dev, args.seed, params, card)
     b7_paths, b7_metrics = phase_bench_decode(dev, params, "llama2-7b", card)
+    par_paths, par_metrics = phase_parallel(dev, args.seed, params, prompts,
+                                            card)
     del params
     torch.cuda.empty_cache()
     fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
@@ -2868,7 +3481,7 @@ def main() -> int:
     bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
-             **vpu_paths, **b7_paths, **bench_paths}
+             **vpu_paths, **b7_paths, **bench_paths, **par_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -2897,6 +3510,7 @@ def main() -> int:
                                            **tiny_timing},
                       "engine": engine_metrics,
                       "speculative": spec_metrics,
+                      "parallel": par_metrics,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
                                 "decode": {"llama2-7b": b7_metrics,
                                            "tinyllama-1.1b": btiny_metrics}}

@@ -21,14 +21,19 @@ Subpackages
 - ``models``  the Llama model (``generate`` and its batch-1 decode
               branches), the serving ``Engine``, sampling, the
               configurations and the bridge from the JAX parameters.
+- ``parallel`` several ranks over ``torch.distributed``: the mesh and its
+              collectives, ``run_spmd``, ring / Ulysses attention and the
+              context-parallel decode, tensor, pipeline and 5-axis steps,
+              the multi-host layer.
 - ``oracle``  the NumPy oracles: the quantization formats and per-row
               KV codecs (``quant``), attention (``attention``) and the
               full-model forward and perplexity (``model``).
 - ``utils``   platform selection (the card unless a device is named),
               device facts, the correctness harness (``harness``) and
               device timing (``bench``).
-- ``tools``   the kernel lab: ``kernel_test``, ``gemm_bench`` and
-              ``perplexity``, each run with ``python -m``.
+- ``tools``   the kernel lab's tools (``kernel_test``, ``gemm_bench``,
+              ``perplexity``, ...) and ``multihost_run``, each run with
+              ``python -m``.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,10 @@
 //   query i attends key j iff j <= i + Sk - Sq (the reference's decode
 //   convention); GQA maps query head h to KV head h / (Hq / Hkv). A row whose
 //   every key is masked gives 0.
+//   lse (optional, f32 [B, Hq, Sq]): the row's log-sum-exp m + log l of the
+//   scaled, masked scores, from the (m, l) state the softmax already holds;
+//   -inf for a row whose every key is masked (l = 0), as the reference's
+//   _store writes it (return_residuals=True, ring attention's merge input).
 //   Bound on the H100: the tensor cores (4 * Sq * Sk * D / 2 FLOPs per head
 //   against 2 * Sk * D bytes of K/V per query tile). Design: one CTA per
 //   (64-query tile, head), 4 warps, each owning 16 query rows end to end, so
@@ -41,9 +45,9 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const float* __restrict__ mask, bf16* __restrict__ out,
-                       int Hq, int Hkv, int Sq, int Sk, float scale,
-                       int causal, long long smb, long long smh,
-                       long long smq, long long smk) {
+                       float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                       int Sk, float scale, int causal, long long smb,
+                       long long smh, long long smq, long long smk) {
   using L = FaSmem<D>;
   extern __shared__ __align__(128) unsigned char fa_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(fa_smem);
@@ -176,6 +180,11 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   bf16* oh = out + ((size_t)b * Hq + h) * (size_t)Sq * D;
+  if (lse && tid < FA_BQ && q0 + tid < Sq) {
+    const float l = l_s[tid];
+    lse[((size_t)b * Hq + h) * Sq + q0 + tid] =
+        l == 0.f ? -INFINITY : m_s[tid] + logf(l);
+  }
   for (int i = tid; i < FA_BQ * D; i += FA_THREADS) {
     const int r = i / D, d = i % D;
     if (q0 + r < Sq) {
@@ -188,8 +197,9 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 static int launch_flash_attention(const bf16* q, const bf16* k, const bf16* v,
-                                  const float* mask, bf16* out, int B, int Hq,
-                                  int Hkv, int Sq, int Sk, float scale,
+                                  const float* mask, bf16* out, float* lse,
+                                  int B, int Hq, int Hkv, int Sq, int Sk,
+                                  float scale,
                                   int causal, const long long* ms,
                                   cudaStream_t stream) {
   static int granted = 0;
@@ -198,16 +208,18 @@ static int launch_flash_attention(const bf16* q, const bf16* k, const bf16* v,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, B * Hq);
   flash_attention_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, mask, out, Hq, Hkv, Sq, Sk, scale, causal, ms[0], ms[1],
+      q, k, v, mask, out, lse, Hq, Hkv, Sq, Sk, scale, causal, ms[0], ms[1],
       ms[2], ms[3]);
   return (int)cudaGetLastError();
 }
 
-// mask: null, or f32 read at mask[b*smb + h*smh + i*smq + j*smk]
+// mask: null, or f32 read at mask[b*smb + h*smh + i*smq + j*smk];
+// lse: null, or f32 [B, Hq, Sq] written beside out
 GCT_EXPORT int flash_attention_fwd(const bf16* q, const bf16* k,
                                    const bf16* v, const float* mask,
-                                   bf16* out, int B, int Hq, int Hkv, int Sq,
-                                   int Sk, int D, float scale, int causal,
+                                   bf16* out, float* lse, int B, int Hq,
+                                   int Hkv, int Sq, int Sk, int D,
+                                   float scale, int causal,
                                    long long smb, long long smh,
                                    long long smq, long long smk,
                                    void* stream) {
@@ -215,10 +227,10 @@ GCT_EXPORT int flash_attention_fwd(const bf16* q, const bf16* k,
   cudaStream_t st = (cudaStream_t)stream;
   const long long ms[4] = {smb, smh, smq, smk};
   if (D == 128)
-    return launch_flash_attention<128>(q, k, v, mask, out, B, Hq, Hkv, Sq, Sk,
-                                       scale, causal, ms, st);
+    return launch_flash_attention<128>(q, k, v, mask, out, lse, B, Hq, Hkv,
+                                       Sq, Sk, scale, causal, ms, st);
   if (D == 64)
-    return launch_flash_attention<64>(q, k, v, mask, out, B, Hq, Hkv, Sq, Sk,
-                                      scale, causal, ms, st);
+    return launch_flash_attention<64>(q, k, v, mask, out, lse, B, Hq, Hkv,
+                                      Sq, Sk, scale, causal, ms, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,9 +22,13 @@ What differs from the reference, on purpose:
   on the device, not from JAX's PRNG.
 - The device mirror of (lengths, page table, active) advances on the
   device after single steps too, so a steady run uploads nothing.
-- ``scheduler="native"`` and ``mesh=`` (tensor parallelism) are not ported
-  yet and raise; nor is the reference's CPU readiness barrier, an XLA-CPU
-  artifact.
+- ``Engine(mesh=)`` (tensor parallelism, ``make_tp_engine_steps``) runs
+  on every rank of the mesh with the rank's params shard
+  (``parallel/tp.py``): the same requests on every rank, the pool's KV
+  heads on "model", the logits gathered over "model" before sampling, so
+  every rank makes the same choices.
+- ``scheduler="native"`` is not ported yet and raises; nor is the
+  reference's CPU readiness barrier, an XLA-CPU artifact.
 """
 
 from __future__ import annotations
@@ -166,12 +170,15 @@ def _qkv(layer, cfg, h, positions):
     return q, k, v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
 
 
-def _finish_layer(layer, cfg, h, o):
-    """Attention output o [B, T, Hq, D] -> wo, residual, MLP, residual."""
+def _finish_layer(layer, cfg, h, o, reduce_axis=None, mesh=None):
+    """Attention output o [B, T, Hq, D] -> wo, residual, MLP, residual;
+    ``reduce_axis``: the wo and w_down products psum'd over it."""
     B, T = o.shape[:2]
     o = o.reshape(B, T, cfg.n_heads * cfg.head_dim).to(h.dtype)
-    h = h + llama.apply_linear(o, layer["wo"])
-    return h + llama._mlp_block(layer, cfg, h)
+    h = h + llama.row_parallel(o, layer["wo"], mesh=mesh,
+                               reduce_axis=reduce_axis)
+    return h + llama._mlp_block(layer, cfg, h, reduce_axis=reduce_axis,
+                                mesh=mesh)
 
 
 def _run_pages(page_row, run_starts, length, ps, trash):
@@ -183,14 +190,17 @@ def _run_pages(page_row, run_starts, length, ps, trash):
 
 @torch.no_grad()
 def _paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   length: int, page_row: torch.Tensor, pool: PagedKVPool
+                   length: int, page_row: torch.Tensor, pool: PagedKVPool,
+                   reduce_axis: str | None = None, mesh=None
                    ) -> tuple[torch.Tensor, PagedKVPool]:
     """Prefill ONE request: tokens [1, T] (T = padded prompt), ``length`` the
     true prompt length, page_row [pages_per_seq] on the device. Writes the
     prompt's KV into the pool and returns the logits [1, V] of the last
     valid token. Runs of the padded tail wholly past ``length`` go to the
     trash page (the pool's last), so they cannot touch another sequence.
-    Attention runs over the fresh bf16 K / V, even for a quantized pool."""
+    Attention runs over the fresh bf16 K / V, even for a quantized pool.
+    ``reduce_axis`` / ``mesh``: tensor parallelism (cfg the rank's shard;
+    the logits are then its vocabulary shard)."""
     B, T = tokens.shape
     dev = tokens.device
     ps = pool.k.shape[3]
@@ -211,7 +221,7 @@ def _paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             kt[None].contiguous(), vt[None].contiguous(),
                             mask, causal=True).transpose(1, 2)
-        h = _finish_layer(layer, cfg, h, o)
+        h = _finish_layer(layer, cfg, h, o, reduce_axis, mesh)
     h = llama.rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = llama.apply_linear(h[:, length - 1], params["lm_head"])
     return logits.float(), pool
@@ -288,7 +298,8 @@ def _decode_slots(lengths, page_indices, active, pool: PagedKVPool):
 
 
 def _decode_layer(layer, cfg, li, h, lengths, page_indices, pages_b,
-                  offs_b, pool: PagedKVPool, ppcb: int = 1):
+                  offs_b, pool: PagedKVPool, ppcb: int = 1,
+                  reduce_axis: str | None = None, mesh=None):
     """One decoder layer of the batched decode step: h [B, 1, dim] -> the
     next h, with this token's K / V written into the pool first."""
     q, k, v = _qkv(layer, cfg, h, lengths[:, None])
@@ -298,14 +309,15 @@ def _decode_layer(layer, cfg, li, h, lengths, page_indices, pages_b,
                      page_indices, k_scale_pages=pool.k_scale,
                      v_scale_pages=pool.v_scale,
                      pages_per_compute_block=ppcb, layer=li)
-    return _finish_layer(layer, cfg, h, o[:, None])
+    return _finish_layer(layer, cfg, h, o[:, None], reduce_axis, mesh)
 
 
 @torch.no_grad()
 def _paged_decode_step(params: Params, cfg: ModelConfig,
                        tokens: torch.Tensor, lengths: torch.Tensor,
                        page_indices: torch.Tensor, pool: PagedKVPool,
-                       active: torch.Tensor, ppcb: int = 1
+                       active: torch.Tensor, ppcb: int = 1,
+                       reduce_axis: str | None = None, mesh=None
                        ) -> tuple[torch.Tensor, PagedKVPool]:
     """One decode step for the whole running batch, with no host sync.
 
@@ -313,37 +325,80 @@ def _paged_decode_step(params: Params, cfg: ModelConfig,
     lengths (BEFORE this token); page_indices [B, pages_per_seq]; active
     [B] bool. Idle slots keep lengths >= 1 and a valid page row, and write
     to the trash page (their logits are ignored). Returns logits [B, V] and
-    the pool holding this token's KV."""
+    the pool holding this token's KV. ``reduce_axis`` / ``mesh``: as for
+    ``_paged_prefill``."""
     pages_b, offs_b = _decode_slots(lengths, page_indices, active, pool)
     h = params["embed"][tokens[:, None]]                     # [B, 1, dim]
     for li, layer in enumerate(params["layers"]):
         h = _decode_layer(layer, cfg, li, h, lengths, page_indices, pages_b,
-                          offs_b, pool, ppcb)
+                          offs_b, pool, ppcb, reduce_axis, mesh)
     h = llama.rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = llama.apply_linear(h[:, 0], params["lm_head"])
     return logits.float(), pool
 
 
-def _paged_decode_window(params: Params, cfg: ModelConfig,
-                         tokens: torch.Tensor, lengths: torch.Tensor,
-                         page_indices: torch.Tensor, pool: PagedKVPool,
-                         active: torch.Tensor,
+def _paged_decode_window(decode_step, tokens: torch.Tensor,
+                         lengths: torch.Tensor, page_indices: torch.Tensor,
+                         pool: PagedKVPool, active: torch.Tensor,
                          generator: torch.Generator | None,
-                         sampling: SamplingParams, steps: int, ppcb: int = 1):
+                         sampling: SamplingParams, steps: int):
     """``steps`` decode steps with on-device sampling and no host sync: the
     caller sizes the window so that no running request can finish inside
-    it. Returns (tokens [steps, B], last tokens [B], lengths [B], pool);
-    lengths advance for active slots only, so they can feed the next window
-    as they are."""
+    it. ``decode_step(tokens, lengths, page_indices, pool, active)`` ->
+    (logits, pool) is the engine's step (``_paged_decode_step`` on its
+    params, or the tensor-parallel one). Returns (tokens [steps, B], last
+    tokens [B], lengths [B], pool); lengths advance for active slots only,
+    so they can feed the next window as they are."""
     adv = active.to(torch.int32)
     trace = []
     for _ in range(steps):
-        logits, pool = _paged_decode_step(params, cfg, tokens, lengths,
-                                          page_indices, pool, active, ppcb)
+        logits, pool = decode_step(tokens, lengths, page_indices, pool,
+                                   active)
         tokens = sample(logits, generator, sampling)
         lengths = lengths + adv
         trace.append(tokens)
     return torch.stack(trace), tokens, lengths, pool
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel steps (the engine over a model mesh)
+# ---------------------------------------------------------------------------
+
+def make_tp_engine_steps(cfg: ModelConfig, mesh, params: Params,
+                         pool: PagedKVPool):
+    """(prefill, make_decode) for a tensor-parallel engine, run on every
+    rank: ``params`` this rank's shard (``parallel/tp.py``), cfg GLOBAL,
+    ``pool`` the rank's KV heads. The logits come back whole (gathered
+    over "model", the reference's out spec).
+
+    prefill(params, tokens, length, page_row, pool) -> (logits, pool);
+    make_decode(ppcb)(params, tokens, lengths, page_indices, pool, active)
+    -> (logits, pool)."""
+    from ggml_cuda_experiments_tpu_torch.parallel import mesh as pm, tp
+    tp.param_specs(params)                  # refuses fused projections
+    lcfg = tp.local_config(cfg, pm.axis_size(mesh, "model"))
+    if pool.k.shape[2] != lcfg.n_kv_heads:
+        raise ValueError(f"pool of {pool.k.shape[2]} KV heads, the rank "
+                         f"holds {lcfg.n_kv_heads}")
+
+    def whole(logits):
+        return pm.all_gather(logits, mesh, "model", dim=-1, tiled=True)
+
+    def prefill(params, tokens, length, page_row, pool):
+        logits, pool = _paged_prefill(params, lcfg, tokens, length,
+                                      page_row, pool, reduce_axis="model",
+                                      mesh=mesh)
+        return whole(logits), pool
+
+    def make_decode(ppcb):
+        def decode(params, tokens, lengths, page_indices, pool, active):
+            logits, pool = _paged_decode_step(
+                params, lcfg, tokens, lengths, page_indices, pool, active,
+                ppcb, reduce_axis="model", mesh=mesh)
+            return whole(logits), pool
+        return decode
+
+    return prefill, make_decode
 
 
 # ---------------------------------------------------------------------------
@@ -395,8 +450,10 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class Engine:
-    """Continuous-batching inference engine (one device, python
-    scheduler). ``params`` lie on the device the engine runs on."""
+    """Continuous-batching inference engine (python scheduler). ``params``
+    lie on the device the engine runs on. ``mesh``: a (data, model) mesh
+    of ``parallel/mesh.py``; the engine then runs on every rank with the
+    rank's TP shard of the params (``tp.shard_params``)."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  max_batch: int = 8, page_size: int = 64,
@@ -408,9 +465,10 @@ class Engine:
         if scheduler != "python":
             raise NotImplementedError(f"scheduler={scheduler!r}: only the "
                                       "python scheduler is ported")
-        if mesh is not None:
-            raise NotImplementedError("mesh=: the tensor-parallel engine "
-                                      "needs the parallel/ port")
+        if mesh is not None and prefill_chunk is not None:
+            raise ValueError("prefill_chunk is not supported with a mesh")
+        if mesh is not None and decode_window > 1:
+            raise ValueError("decode_window is not supported with a mesh")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
@@ -421,7 +479,13 @@ class Engine:
         self.page_size = page_size
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self.pages_per_seq = -(-self.max_seq_len // page_size)
-        self.pool = PagedKVPool.create(cfg, n_pages, page_size,
+        self.mesh = mesh
+        pool_cfg = cfg
+        if mesh is not None:
+            from ggml_cuda_experiments_tpu_torch.parallel import mesh as pm
+            from ggml_cuda_experiments_tpu_torch.parallel import tp
+            pool_cfg = tp.local_config(cfg, pm.axis_size(mesh, "model"))
+        self.pool = PagedKVPool.create(pool_cfg, n_pages, page_size,
                                        quantized=quantized_kv,
                                        device=self.device)
         # the last page is the reserved trash page (padding / idle slots)
@@ -430,6 +494,18 @@ class Engine:
         self.eos_id = eos_id
         # largest pages-per-compute-block (<= 4) dividing pages_per_seq
         self.ppcb = next(c for c in (4, 2, 1) if self.pages_per_seq % c == 0)
+        # the device steps: plain, or tensor-parallel over the mesh
+        if mesh is not None:
+            prefill_s, make_decode = make_tp_engine_steps(cfg, mesh, params,
+                                                          self.pool)
+            decode_s = make_decode(self.ppcb)
+            self._prefill_fn = lambda *a: prefill_s(self.params, *a)
+            self._decode_fn = lambda *a: decode_s(self.params, *a)
+        else:
+            self._prefill_fn = lambda *a: _paged_prefill(
+                self.params, self.cfg, *a)
+            self._decode_fn = lambda *a: _paged_decode_step(
+                self.params, self.cfg, *a, self.ppcb)
 
         # Chunked prefill: prompts longer than ``prefill_chunk`` run one
         # chunk per scheduler step, between the running batch's decode
@@ -499,9 +575,9 @@ class Engine:
         lens_dev, pt_dev, act_dev = self._dev_state
 
         if not self._defer:
-            logits, self.pool = _paged_decode_step(
-                self.params, self.cfg, _upload(self.tokens, self.device),
-                lens_dev, pt_dev, self.pool, act_dev, self.ppcb)
+            logits, self.pool = self._decode_fn(
+                _upload(self.tokens, self.device), lens_dev, pt_dev,
+                self.pool, act_dev)
             next_tokens = self._sample(logits).cpu().numpy()
             self._dev_state = None
             for req in list(self.running):
@@ -526,9 +602,8 @@ class Engine:
                        for r in self.running)
             W = self.decode_window if room >= self.decode_window else 1
         trace_w, last, lens_out, self.pool = _paged_decode_window(
-            self.params, self.cfg, self._tokens_dev, lens_dev, pt_dev,
-            self.pool, act_dev, self._gen, self.sampling, steps=W,
-            ppcb=self.ppcb)
+            self._decode_fn, self._tokens_dev, lens_dev, pt_dev, self.pool,
+            act_dev, self._gen, self.sampling, steps=W)
         self._dev_state = (lens_out, pt_dev, act_dev)
         self._tokens_dev = last
         self._trace.extend(trace_w.unbind(0))
@@ -592,9 +667,9 @@ class Engine:
         T = max(16, 1 << (len(req.prompt) - 1).bit_length())
         toks = np.zeros((1, T), np.int64)
         toks[0, :len(req.prompt)] = req.prompt
-        logits, self.pool = _paged_prefill(
-            self.params, self.cfg, _upload(toks, self.device),
-            len(req.prompt), _upload(row, self.device), self.pool)
+        logits, self.pool = self._prefill_fn(
+            _upload(toks, self.device), len(req.prompt),
+            _upload(row, self.device), self.pool)
         self._finish_prefill(req, logits)
 
     def _prefill_step(self, req: Request) -> None:

@@ -208,30 +208,31 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _write_cache_layer(cache: torch.Tensor, li: int, new: torch.Tensor,
-                       pos: torch.Tensor) -> torch.Tensor:
+                       pos: torch.Tensor, b0: int = 0) -> torch.Tensor:
     """Write new [B, Hkv, T, ...] into the full cache [L, B, Hkv, S, ...]
-    at (li, b, :, pos[b] + t), in place, with one device-side index op (pos
-    stays on the device). Serves k / v and their scale arrays."""
+    at (li, b0 + b, :, pos[b] + t), in place, with one device-side index op
+    (pos stays on the device). Serves k / v and their scale arrays."""
     B, _, T = new.shape[:3]
     t = pos[:, None].long() + torch.arange(T, device=pos.device)     # [B, T]
-    b = torch.arange(B, device=pos.device)[:, None].expand(B, T)
+    b = b0 + torch.arange(B, device=pos.device)[:, None].expand(B, T)
     _bytes(cache)[li][b, :, t] = _bytes(new.transpose(1, 2).to(cache.dtype))
     return cache
 
 
 def _write_kv(cache: "KVCache", li: int, kt: torch.Tensor, vt: torch.Tensor,
-              pos: torch.Tensor) -> None:
-    """Write layer li's fresh K / V [B, Hkv, T, D] at pos, quantized per
-    token first when the cache is (the reference's _quantize_rowwise)."""
+              pos: torch.Tensor, b0: int = 0) -> None:
+    """Write layer li's fresh K / V [B, Hkv, T, D] at pos into cache rows
+    b0 .., quantized per token first when the cache is (the reference's
+    _quantize_rowwise)."""
     if cache.quantized:
         for arr, scales, x in ((cache.k, cache.k_scale, kt),
                                (cache.v, cache.v_scale, vt)):
             q, sc = _quantize_rowwise(x, cache.quant_fmt)
-            _write_cache_layer(arr, li, q, pos)
-            _write_cache_layer(scales, li, sc, pos)
+            _write_cache_layer(arr, li, q, pos, b0)
+            _write_cache_layer(scales, li, sc, pos, b0)
     else:
-        _write_cache_layer(cache.k, li, kt, pos)
-        _write_cache_layer(cache.v, li, vt, pos)
+        _write_cache_layer(cache.k, li, kt, pos, b0)
+        _write_cache_layer(cache.v, li, vt, pos, b0)
 
 
 def _quantize_rowwise(x: torch.Tensor, fmt: str = "int8"
@@ -264,14 +265,38 @@ def _append_kv(cache: KVCache, li: int, kn: torch.Tensor, vn: torch.Tensor,
     _write_cache_layer(cache.v, li, vn[None, :, None, :], pos0)
 
 
+def row_parallel(x: torch.Tensor, w, xq8: bool = False, mesh=None,
+                 reduce_axis: str | None = None) -> torch.Tensor:
+    """``apply_linear(x, w)``, psum'd over ``reduce_axis`` when there is one
+    (w then holds the rank's K-slice). The partial products are summed in
+    f32 and rounded to x's dtype once (the reference psums them in bf16)."""
+    if reduce_axis is None:
+        return apply_linear(x, w, xq8)
+    from ggml_cuda_experiments_tpu_torch.parallel.mesh import psum
+    return psum(apply_linear(x.float(), w, xq8), mesh,
+                reduce_axis).to(x.dtype)
+
+
 def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
                      cache: KVCache, li: int, positions: torch.Tensor, *,
-                     decode: bool):
+                     decode: bool, reduce_axis: str | None = None,
+                     mesh=None, b0: int = 0, valid: bool | None = None):
+    """The attention block; returns (its output, the cache, written in
+    place).
+
+    ``reduce_axis`` (with ``mesh``): tensor parallelism. cfg then describes
+    the rank's shard (heads divided), wq / wk / wv are column-parallel and
+    the wo product is psum'd over the axis. ``b0`` / ``valid``: pipeline
+    microbatching. h covers cache rows [b0, b0 + B), and ``valid=False``
+    (a bubble step) suppresses the cache writes. Either closes the fused
+    attention and the RoPE + repack kernel, as in the reference."""
     B, T, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     quantized = cache.quantized
+    micro = not (b0 == 0 and valid is None)
     x = rms_norm(h, layer["attn_norm"], cfg.rms_eps)
-    if (decode and cfg.fuse_attn and B == 1 and T == 1 and not quantized
+    if (decode and cfg.fuse_attn and not micro and reduce_axis is None
+            and B == 1 and T == 1 and not quantized
             and cfg.x_quant8 and "wqkv" in layer
             and attention_fused_supported(layer["wqkv"], layer["wo"], Hq, Hkv,
                                           D, cache.k.dtype)):
@@ -282,7 +307,8 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
             rope_theta=cfg.rope_theta)
         _append_kv(cache, li, kn, vn, positions[:, 0])
         return o[:, None].to(h.dtype), cache
-    if (not decode and B == 1 and T % 128 == 0 and D == 128
+    if (not decode and not micro and reduce_axis is None
+            and B == 1 and T % 128 == 0 and D == 128
             and "wqkv" in layer and not quantized):
         # the reference's fuse_rope gate: one kernel ropes q / k and
         # repacks q / k / v head-major
@@ -297,23 +323,32 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         k = rope(k.reshape(B, T, Hkv, D), positions, cfg.rope_theta)
         kt = k.transpose(1, 2)                   # [B, Hkv, T, D]
         vt = v.reshape(B, T, Hkv, D).transpose(1, 2)
-    _write_kv(cache, li, kt, vt, positions[:, 0])
+    if valid is not False:
+        _write_kv(cache, li, kt, vt, positions[:, 0], b0)
     if decode:
-        # the full stacked cache goes in; the kernel offsets by the layer
-        o = flash_decode(q[:, 0].contiguous(), cache.k, cache.v,
-                         cache.lengths + 1, layer=li, k_scale=cache.k_scale,
-                         v_scale=cache.v_scale)[:, None]
+        # this layer's rows b0 .. b0 + B (contiguous views, no copy)
+        rows = lambda a: None if a is None else a[li, b0:b0 + B]
+        o = flash_decode(q[:, 0].contiguous(), rows(cache.k), rows(cache.v),
+                         cache.lengths[b0:b0 + B] + 1,
+                         k_scale=rows(cache.k_scale),
+                         v_scale=rows(cache.v_scale))[:, None]
     else:
         # prefill attends over the fresh bf16 K/V, even for a quantized
         # cache (it starts empty at the prefill)
         o = flash_attention(q.transpose(1, 2).contiguous(), kt.contiguous(),
                             vt.contiguous(), causal=True).transpose(1, 2)
     o = o.reshape(B, T, Hq * D).to(h.dtype)
-    return apply_linear(o, layer["wo"], cfg.x_quant8), cache
+    return row_parallel(o, layer["wo"], cfg.x_quant8, mesh,
+                        reduce_axis), cache
 
 
-def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor
-               ) -> torch.Tensor:
+def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
+               reduce_axis: str | None = None, expert_axis: str | None = None,
+               mesh=None) -> torch.Tensor:
+    """The MLP block; ``reduce_axis`` (with ``mesh``): w_gate / w_up
+    column-parallel, the w_down product psum'd. ``expert_axis`` belongs to
+    the MoE layers, not ported yet. The fused MLP has no ``reduce_axis``
+    gate, as in the reference (a tensor-parallel layer has no ``w_gu``)."""
     if "router" in layer:
         raise NotImplementedError("MoE layers are not ported yet")
     x = rms_norm(h, layer["mlp_norm"], cfg.rms_eps)
@@ -322,10 +357,13 @@ def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor
             and mlp_fused_supported(layer["w_gu"], layer["w_down"])):
         # one row (decode, or a 1-token prompt): the whole MLP in one launch
         out = mlp_fused(x2.float(), layer["w_gu"], layer["w_down"])
+        if reduce_axis is not None:
+            from ggml_cuda_experiments_tpu_torch.parallel.mesh import psum
+            out = psum(out, mesh, reduce_axis)
         return out.to(x.dtype).reshape(*x.shape[:-1], -1)
     gate, up = gate_up_proj(layer, x, cfg.x_quant8)
-    return apply_linear(F.silu(gate.float()).to(x.dtype) * up,
-                        layer["w_down"], cfg.x_quant8)
+    return row_parallel(F.silu(gate.float()).to(x.dtype) * up,
+                        layer["w_down"], cfg.x_quant8, mesh, reduce_axis)
 
 
 def _layer_kernel_ok(layer: Params, cfg: ModelConfig, cache: KVCache
@@ -336,7 +374,17 @@ def _layer_kernel_ok(layer: Params, cfg: ModelConfig, cache: KVCache
 
 def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              cache: KVCache, positions: torch.Tensor, *, decode: bool,
-             all_logits: bool = False) -> tuple[torch.Tensor, KVCache]:
+             reduce_axis: str | None = None, mesh=None,
+             all_logits: bool = False, layer_hook=None
+             ) -> tuple[torch.Tensor, KVCache]:
+    """The model on tokens [B, T] at ``positions``; ``reduce_axis`` /
+    ``mesh``: tensor parallelism (``parallel/tp.py``), which closes the
+    layer kernel. Under it the logits are the rank's vocabulary shard.
+
+    ``layer_hook(li, h, b0) -> h``: called on each layer's input (b0 = 0,
+    the first batch row h covers), and its result is the layer's input.
+    It observes or replaces the hidden state between layers; with a hook
+    the model runs layer by layer (not through the whole-model kernel)."""
     _check_cfg(cfg)
     h = params["embed"][tokens]                  # [B, T, dim]
     B, T = tokens.shape
@@ -344,12 +392,13 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
               rms_eps=cfg.rms_eps)
     use_layer_kernel = (decode and cfg.fuse_layer and cfg.hperm
-                        and cfg.x_quant8 and B == 1 and T == 1
+                        and cfg.x_quant8 and reduce_axis is None
+                        and B == 1 and T == 1
                         and not cache.quantized)
     pack = params.get("m_pack")
     # the pack's layers share one shape (build_model_pack), so the
     # reference's gate over every layer is its gate over the first
-    if (use_layer_kernel and pack is not None
+    if (use_layer_kernel and pack is not None and layer_hook is None
             and _layer_kernel_ok(pack.layers[0], cfg, cache)):
         # every decoder layer in one launch, h in f32 throughout; then one
         # cache append per array
@@ -362,6 +411,8 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                      cfg.rms_eps)
         return _head_logits(params, cfg, h, cache, tokens, all_logits)
     for li, layer in enumerate(params["layers"]):
+        if layer_hook is not None:
+            h = layer_hook(li, h, 0)
         if use_layer_kernel and layer_kernel.layer_step_supported(
                 layer, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                 cache.k.dtype):
@@ -372,9 +423,11 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             h = h2[:, None].to(h.dtype)
             continue
         attn, cache = _attention_block(layer, cfg, h, cache, li, positions,
-                                       decode=decode)
+                                       decode=decode,
+                                       reduce_axis=reduce_axis, mesh=mesh)
         h = h + attn
-        h = h + _mlp_block(layer, cfg, h)
+        h = h + _mlp_block(layer, cfg, h, reduce_axis=reduce_axis,
+                           mesh=mesh)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return _head_logits(params, cfg, h, cache, tokens, all_logits)
 

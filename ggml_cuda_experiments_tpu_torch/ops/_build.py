@@ -60,10 +60,10 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # o, m, s, out, B, Hq, Hkv, D, n_splits, stream
     "lse_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, mask, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, mask
+    # q, k, v, mask, out, lse, B, Hq, Hkv, Sq, Sk, D, scale, causal, mask
     # strides (b, h, i, j), stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _L, _L, _L, _L, _P),
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _L, _L, _L, _L, _P),
     # y, C, S2, qo, ko, vo, T, nH, nKV, D, stream
     "rope_pack": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,

@@ -1,16 +1,17 @@
 """Flash-attention forward for prefill: causal and/or an additive mask.
 
 Port of the reference's ``ops/flash_attention.py`` (``flash_attention`` and
-its ``_flash_kernel``) without the lse residual, which only ring attention
-uses. The CUDA kernel (``csrc/flash_attention.cu``) takes 64-query tiles
-against 64-key tiles with bf16 tensor-core products, f32 online softmax, P
+its ``_flash_kernel``), with its lse residual (``return_residuals=True``,
+the per-row log-sum-exp that ring attention merges by). The CUDA kernel
+(``csrc/flash_attention.cu``) takes 64-query tiles against 64-key tiles with bf16 tensor-core products, f32 online softmax, P
 rounded to bf16 before P.V as in the reference, and skips key tiles past the
 causal frontier. The additive f32 mask is read in place through its strides,
 so a broadcast dim (stride 0) is never materialized. Causality follows the
 reference's decode convention: the Sq queries are the last Sq positions of
 the Sk-long context (query i attends key j iff j <= i + Sk - Sq). GQA maps
 query head h to KV head h // (Hq / Hkv). A row whose every key is masked
-gives 0.
+gives 0 and, with the residual, lse = -inf. The residual is one more store
+of the same kernel, counted apart as ``flash_attention_lse``.
 """
 
 from __future__ import annotations
@@ -20,15 +21,18 @@ import torch
 from ggml_cuda_experiments_tpu_torch.ops import _build
 from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_lse": 0}
 
 
-def flash_attention_ref(q, k, v, mask=None, *, scale=None, causal=False):
+def flash_attention_ref(q, k, v, mask=None, *, scale=None, causal=False,
+                        return_residuals=False):
     """Plain version: q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D] -> [B, Hq, Sq,
     D] in q's dtype. Scores and softmax statistics in f32; the
     probabilities are rounded to v's dtype before P.V and the sum is
     divided by the f32 row sum afterwards, the rounding points of the
-    reference's ``_flash_kernel`` and of the CUDA kernel."""
+    reference's ``_flash_kernel`` and of the CUDA kernel. With
+    ``return_residuals``: (o, lse [B, Hq, Sq] f32), lse = m + log l from
+    the same row statistics, -inf where l = 0."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if scale is None:
@@ -47,18 +51,27 @@ def flash_attention_ref(q, k, v, mask=None, *, scale=None, causal=False):
     p = torch.where(m == -torch.inf, 0.0, torch.exp(s - m))
     o = p.to(v.dtype).float() @ vf
     l = p.sum(dim=-1, keepdim=True)
-    return (o / torch.where(l == 0, 1.0, l)).to(q.dtype)
+    o = (o / torch.where(l == 0, 1.0, l)).to(q.dtype)
+    if not return_residuals:
+        return o
+    lse = torch.where(l == 0, -torch.inf,
+                      m + torch.log(torch.where(l == 0, 1.0, l)))
+    return o, lse[..., 0]
 
 
-def flash_attention(q, k, v, mask=None, *, scale=None, causal=False):
+def flash_attention(q, k, v, mask=None, *, scale=None, causal=False,
+                    return_residuals=False):
     """O = softmax(Q K^T * scale + mask) V without materializing the scores.
 
     q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] bf16, Hq % Hkv == 0, D 64 or
     128. mask: optional additive f32 mask broadcastable from
     [B|1, Hq|1, Sq, Sk] (-inf where masked). Returns O [B, Hq, Sq, D]
-    bf16."""
+    bf16, or with ``return_residuals`` (O, lse [B, Hq, Sq] f32): the
+    log-sum-exp of each row's scaled, masked scores, -inf for a row with
+    no visible key."""
     if not kernels_for(q):
-        return flash_attention_ref(q, k, v, mask, scale=scale, causal=causal)
+        return flash_attention_ref(q, k, v, mask, scale=scale, causal=causal,
+                                   return_residuals=return_residuals)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 \
                 or t.dim() != 4 or not t.is_contiguous():
@@ -88,11 +101,17 @@ def flash_attention(q, k, v, mask=None, *, scale=None, causal=False):
         mask = torch.broadcast_to(mask, (B, Hq, Sq, Sk))
         strides = mask.stride()
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_residuals else None)
     rc = _build.lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Hq, Hkv, Sq, Sk, D, scale, int(causal), *strides,
         _build.stream_of(q))
     _build.check(rc, "flash_attention_fwd")
+    if return_residuals:
+        LAUNCHES["flash_attention_lse"] += 1
+        return out, lse
     LAUNCHES["flash_attention"] += 1
     return out

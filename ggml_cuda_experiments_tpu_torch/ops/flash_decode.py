@@ -211,7 +211,8 @@ def lse_merge(parts: AttnPartial) -> torch.Tensor:
 
 
 def flash_decode(q, k, v, lengths=None, *, scale=None, kv_splits=None,
-                 layer=None, k_scale=None, v_scale=None):
+                 layer=None, k_scale=None, v_scale=None,
+                 return_partial=False):
     """Single-token attention against a KV cache, split-KV parallel.
 
     q: [B, Hq, D] bf16; k, v: [B, Hkv, S, D] bf16, or the full stacked
@@ -220,8 +221,14 @@ def flash_decode(q, k, v, lengths=None, *, scale=None, kv_splits=None,
     valid prefix per sequence (default S). ``k_scale`` / ``v_scale``: f32
     per-token scales of an int8 / float8_e4m3fn cache, shaped as k without
     its last dim. Returns [B, Hq, D] bf16. ``kv_splits``: None picks the
-    split count from S and the SM count."""
-    if not kernels_for(q):
+    split count from S and the SM count.
+
+    ``return_partial``: the un-normalized (o [B, Hq, D], m, s [B, Hq, 1])
+    f32 partial, for a merge across ranks (``lse.lse_combine_axis``): the
+    per-split partials of ``flash_decode_partials`` (the kernel) folded over
+    the split axis by ``lse_combine_stacked`` (plain torch, as the
+    reference folds its splits outside the kernel), not normalized."""
+    if not kernels_for(q) and not return_partial:
         return flash_decode_ref(q, k, v, lengths, scale=scale,
                                 kv_splits=kv_splits or 1, layer=layer,
                                 k_scale=k_scale, v_scale=v_scale)
@@ -231,8 +238,12 @@ def flash_decode(q, k, v, lengths=None, *, scale=None, kv_splits=None,
         scale = float(1.0 / D ** 0.5)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    n = kv_splits or pick_splits(B, Hkv, S, _sm_count(q.device.index or 0))
+    n = kv_splits or (pick_splits(B, Hkv, S, _sm_count(q.device.index or 0))
+                      if kernels_for(q) else 1)
     parts = flash_decode_partials(q, k, v, lengths, scale=scale,
                                   n_splits=n, layer=layer, k_scale=k_scale,
                                   v_scale=v_scale)
+    if return_partial:
+        merged = lse_combine_stacked(parts, axis=2)     # [B, Hkv, G, *]
+        return AttnPartial(*(f.reshape(B, Hq, -1) for f in merged))
     return lse_merge(parts)

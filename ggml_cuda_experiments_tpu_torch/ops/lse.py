@@ -9,8 +9,8 @@ s = sum_j exp(x_j - m). The combine
     o'  = o_a * exp(m_a - m') + o_b * exp(m_b - m')
 
 is associative and commutative, so any split of the KV positions gives the
-same result. ``flash_decode_ref`` merges its splits with these functions; the
-CUDA path merges them with the ``lse_merge`` kernel in ``csrc/flash_decode.cu``,
+same result, across ranks too (``lse_combine_axis``). ``flash_decode_ref``
+merges its splits with these functions; the CUDA path merges them with the ``lse_merge`` kernel in ``csrc/flash_decode.cu``,
 which applies the same guard for an empty split (m = -inf).
 """
 
@@ -70,6 +70,19 @@ def lse_combine_stacked(parts: AttnPartial, axis: int = 0) -> AttnPartial:
         p = comb
         n = p.o.shape[0]
     return AttnPartial(p.o[0], p.m[0], p.s[0])
+
+
+def lse_combine_axis(p: AttnPartial, mesh, axis: str) -> AttnPartial:
+    """Combine the partials held by the ranks of a mesh axis (context
+    parallelism): the cross-rank form of the same merge, one pmax and two
+    psums (``parallel/mesh.py``; call on every rank of the axis)."""
+    from ggml_cuda_experiments_tpu_torch.parallel.mesh import pmax, psum
+    m = pmax(p.m, mesh, axis)
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    alpha = torch.where(p.m == -torch.inf, zero, torch.exp(p.m - m))
+    s = psum(p.s * alpha, mesh, axis)
+    o = psum(p.o * alpha, mesh, axis)
+    return AttnPartial(o, m, s)
 
 
 def lse_finalize(p: AttnPartial, out_dtype=None) -> torch.Tensor:

@@ -12,6 +12,7 @@
     python -m ggml_cuda_experiments_tpu_torch.tools.q6_probe      # the q6_k head's rungs
     python -m ggml_cuda_experiments_tpu_torch.tools.probe_mosaic_r3  # the Mosaic probes, launch cost
     python -m ggml_cuda_experiments_tpu_torch.tools.membench      # memory movement, GB/s
+    python -m ggml_cuda_experiments_tpu_torch.tools.multihost_run # 4 ranks, 2 hosts
 
 Each runs on the card unless given ``--cpu`` (the plain versions, no
 device times; spec_bench and roofline_sweep run on the card only), and

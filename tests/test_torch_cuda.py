@@ -257,6 +257,50 @@ def test_flash_attention_unmasked_rows_stay_zero(dev):
     assert torch.isfinite(out).all() and not out[:, 1, 5].any()
 
 
+@pytest.mark.parametrize("case", ["causal", "ring_block", "dead_block",
+                                  "gqa_ragged"])
+def test_flash_attention_lse(dev, case):
+    """The lse output (#14's residual) against the plain version: o within
+    1e-2 * max, lse within 1e-4 * max|lse| where finite, -inf (and o = 0)
+    exactly where every key is masked: ring attention's causal block mask,
+    a block wholly in the future, a ragged GQA shape; counted as
+    flash_attention_lse."""
+    hq, hkv, sq, sk, d = (4, 2, 100, 200, 64) if case == "gqa_ragged" else (
+        4, 4, 128, 128, 128)
+    q = _randn(16, 2, hq, sq, d).to(dev, torch.bfloat16)
+    k = _randn(17, 2, hkv, sk, d).to(dev, torch.bfloat16)
+    v = _randn(18, 2, hkv, sk, d).to(dev, torch.bfloat16)
+    pos = torch.arange(sq, device=dev)
+    mask = {"ring_block": torch.where(pos[None, :] <= pos[:, None], 0.0,
+                                      -torch.inf)[None, None],
+            "dead_block": torch.full((1, 1, sq, sk), -torch.inf,
+                                     device=dev)}.get(case)
+    causal = case in ("causal", "gqa_ragged")
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                return_residuals=True)
+    assert fa.LAUNCHES["flash_attention_lse"] == before[
+        "flash_attention_lse"] + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+    with plain_versions():
+        ro, rlse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                      return_residuals=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, hq, sq) and lse.dtype == torch.float32
+    dead = torch.isneginf(rlse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert dead.all() == (case == "dead_block")
+    assert torch.isfinite(o).all() and not o[dead].any()
+    if not dead.all():
+        assert (o.float() - ro.float()).abs().max() <= 1e-2 * ro.float(
+        ).abs().max()
+        live = ~dead
+        assert (lse[live] - rlse[live]).abs().max() <= 1e-4 * rlse[
+            live].abs().max()
+    # the same kernel without the residual gives the same o
+    assert torch.equal(fa.flash_attention(q, k, v, mask, causal=causal), o)
+
+
 @pytest.mark.parametrize("t,nh,nkv", [(128, 4, 2), (256, 32, 32)])
 def test_rope_pack_is_exact(dev, t, nh, nkv):
     y = _randn(15, t, (nh + 2 * nkv) * 128).to(dev, torch.bfloat16)

@@ -110,5 +110,7 @@ def test_eos_stops_a_request(params):
 def test_unported_options_raise(params):
     with pytest.raises(NotImplementedError):
         te.Engine(params[1], TCFG, scheduler="native", **KW)
-    with pytest.raises(NotImplementedError):
-        te.Engine(params[1], TCFG, mesh=object(), **KW)
+    # mesh= is ported (tests/test_torch_engine_tp.py); chunked prefill with
+    # a mesh is not, as in the reference
+    with pytest.raises(ValueError, match="mesh"):
+        te.Engine(params[1], TCFG, mesh=object(), prefill_chunk=32, **KW)

@@ -212,6 +212,32 @@ def test_decode_matches_prefill():
     _assert_close(inc.numpy(), full.numpy())
 
 
+def test_layer_hook_sees_and_forces_each_layer_input():
+    """``_forward``'s layer_hook gets every layer's input and its result is
+    what the layer takes: an identity hook changes nothing, and handing
+    the last layer another run's input gives that run's logits."""
+    params = tl.quantize_params(tl.init_weights(TDEBUG, seed=3, device="cpu"),
+                                "q4_k")
+    rng = np.random.default_rng(6)
+    a, b = (torch.from_numpy(rng.integers(0, DEBUG.vocab_size, size=(1, 8)))
+            for _ in range(2))
+    pos = torch.arange(8, dtype=torch.int32)[None]
+
+    def run(toks, hook=None):
+        cache = tl.KVCache.create(TDEBUG, 1, 256, device="cpu")
+        return tl._forward(params, TDEBUG, toks, cache, pos, decode=False,
+                           layer_hook=hook)[0]
+
+    seen = {}
+    got = run(a, lambda li, h, b0: seen.setdefault(li, h))
+    assert sorted(seen) == list(range(TDEBUG.n_layers))
+    assert torch.equal(seen[0], params["embed"][a])
+    assert torch.equal(got, run(a))
+    last = TDEBUG.n_layers - 1
+    forced = run(b, lambda li, h, b0: seen[li] if li == last else h)
+    assert torch.equal(forced, got) and not torch.equal(forced, run(b))
+
+
 def test_generate_is_deterministic_greedy():
     params = tl.quantize_params(tl.init_weights(TDEBUG, seed=2, device="cpu"),
                                 "q4_k")
@@ -265,6 +291,17 @@ def test_port_package_never_imports_jax():
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules\n"
         "assert 'ggml_cuda_experiments_tpu_torch.models.llama' in mods\n"
+        "new = ['parallel.' + m for m in ('mesh', 'launch', 'ring_attention',"
+        " 'tp', 'collective_matmul', 'pipeline', 'full', 'multihost')]\n"
+        "new.append('tools.multihost_run')\n"
+        "assert all(p.__name__ + '.' + m in mods for m in new), new\n"
+        "from ggml_cuda_experiments_tpu_torch.parallel import launch\n"
+        "ranks = launch.run_spmd(launch.loaded_modules, 2, 'gloo', 'cpu', 120)\n"
+        "for got in ranks:\n"
+        "    bad = [m for m in got if m.split('.')[0] in ('jax', 'jaxlib',"
+        " 'ml_dtypes', 'ggml_cuda_experiments_tpu')]\n"
+        "    assert not bad, bad\n"
+        "    assert 'ggml_cuda_experiments_tpu_torch.parallel.multihost' in got\n"
         "print('imported', len(mods))\n")
     r = _run([sys.executable, "-I", "-c", code, str(REPO)])
     assert r.returncode == 0, r.stderr
