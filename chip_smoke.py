@@ -7,19 +7,21 @@
 Phases, each printing its own lines; any failure ends the run nonzero:
   1. environment: torch/CUDA versions, nvcc, the card and its power limit;
   2. build: compile csrc/*.cu for sm_90a, one nvcc per source, all at
-     once (seconds, ptxas register lines);
+     once (seconds, ptxas register lines; the attention kernels' by name,
+     with their shared memory and CTAs per SM);
   3. device quantizer against the NumPy oracle, bit for bit;
   4. every kernel against its plain PyTorch version on the card at the
      paths' shapes: max error, bound, and both times (CUDA events, 20
      calls in one CUDA graph, median of 5 replays, weights rotated past
      the 50 MB L2), and a PyTorch call computing the same function where
      one exists; 4b. the engine path's kernels (paged decode over bf16,
-     int8 and fp8 pools, masked flash attention, rope_pack); 4c. the fused
-     batch-1 decode kernels (int8-activation matvec, fused MLP, fused
-     attention, one layer of the layer kernel) at the 7B shapes; 4d. the
-     Q4_K_M head's q6_k matvecs (exact f32 at tinyllama's 32000 x 2048,
-     hybrid int8 at 7B's 32000 x 4096) and flash decode on int8 / fp8
-     caches at length 1024 (7B and tinyllama);
+     int8 and fp8 pools, masked flash attention: the prompt's length mask,
+     a chunk mask, the speculative verify window beside SDPA; rope_pack);
+     4c. the fused batch-1 decode kernels (int8-activation matvec, fused
+     MLP, fused attention, one layer of the layer kernel) at the 7B
+     shapes; 4d. the Q4_K_M head's q6_k matvecs (exact f32 at tinyllama's
+     32000 x 2048, hybrid int8 at 7B's 32000 x 4096) and flash decode on
+     int8 / fp8 caches at length 1024 (7B and tinyllama);
   5. the generate path: llama2-7b at full width and all 32 layers, random
      weights from a seed, quantized to q4_k on the card, the preset's
      default decode (fused MLP), three greedy requests through
@@ -71,9 +73,11 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      matvec at 4096 x 4096), stage_pad, grid_sum (int32 exact, f32 the
      same bits on every run) and lane_reduce, each against its plain
      version, with the library call's time beside it;
-  4g. (after 4f, also with --kernels-only) the VPU attention op: o and
-     lse against the plain version at the 7B verify window (T 5, S 1024,
-     D 128, bf16), a tinyllama-width draft window (D 64), the JAX test's
+  4g. (after 4f, also with --kernels-only) the VPU attention op: its
+     partials kernel (the split over the keys) against the plain partials,
+     its merge kernel on those partials, and the op's o and lse against the
+     unsplit plain version at the 7B verify window (T 5, S 1024, D 128,
+     bf16), a tinyllama-width draft window (D 64), the JAX test's
      small-head shapes at card size (D 40 / 80, T 16, S 4096, f32) and a
      batch row with no visible key, with SDPA's time beside each; then its
      gradient through torch.autograd against autograd of the plain formula
@@ -305,10 +309,14 @@ KERNELS = {
         "ggml_cuda_experiments_tpu_torch/csrc/flash_attention.cu",
         "ggml_cuda_experiments_tpu/ops/flash_attention.py:51",
         ["ggml_cuda_experiments_tpu/ops/flash_attention.py:119"]),
-    # the CUDA-core attention op (#17)
+    # the CUDA-core attention op (#17): per-split partials, then their
+    # fixed-order merge
     "vpu_attention": ("ggml_cuda_experiments_tpu_torch/csrc/vpu_attention.cu",
                       "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53",
                       []),
+    "vpu_attention_merge": (
+        "ggml_cuda_experiments_tpu_torch/csrc/vpu_attention.cu",
+        "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53", []),
 }
 # the probe kernels (#20): the q4_k stage ladder (one template, a mode per
 # JAX rung; floor is also bench.py's stream-only ceiling), q8_prep, the
@@ -383,6 +391,24 @@ def phase_build():
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             log("  ptxas:", line.strip())
+    # the attention kernels redesigned for Hopper: ptxas's registers, spills
+    # and static shared memory by function, and the runtime's view at their
+    # launch shapes (dynamic shared memory, CTAs resident per SM)
+    fn = None
+    for line in _build.BUILD_INFO["log"].splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and ("flash_attention_kernel" in fn or "vpu_attention_" in fn) \
+                and ("Used" in line or "spill" in line):
+            log(f"  ptxas {fn[:60]}: {line.strip()}")
+    from ggml_cuda_experiments_tpu_torch.ops.probes import _info
+    lib = _build.lib()
+    for D in (128, 64):
+        log(f"  flash_attention_kernel D={D}: "
+            f"{_info(lib.flash_attention_info, D)}")
+    for dtype, D in ((1, 128), (1, 64), (0, 80), (0, 40)):
+        log(f"  vpu_attention_partials_kernel {('f32', 'bf16')[dtype]} "
+            f"D={D}: {_info(lib.vpu_attention_info, dtype, D)}")
 
 
 def phase_quantizer(dev, seed):
@@ -578,6 +604,7 @@ def _check(name, case, got, ref, bound):
 def phase_engine_kernels(dev, seed, res: Results):
     """The kernels the engine path added or changed, at its 7B shapes."""
     import torch
+    import torch.nn.functional as F
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
     from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
@@ -596,7 +623,7 @@ def phase_engine_kernels(dev, seed, res: Results):
             return torch.cat([t.flatten() for t in y])
         return y
 
-    def both(name, case, fn, tol, bound, headline=False):
+    def both(name, case, fn, tol, bound, headline=False, library=None):
         y = flat(fn(1))
         with plain_versions():
             ref = flat(fn(1))
@@ -604,7 +631,9 @@ def phase_engine_kernels(dev, seed, res: Results):
         ms = time_ms(fn)
         with plain_versions():
             pms = time_ms(fn)
-        res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline)
+        lib = None if library is None else time_ms(library)
+        res.add(name, case, err, sc, tol, ms, pms, bound, headline=headline,
+                library_ms=lib)
         return ms
 
     # paged_decode: B = 8, MHA 32/32, D = 128, page 64, ragged lengths up
@@ -679,6 +708,22 @@ def phase_engine_kernels(dev, seed, res: Results):
          lambda i: fa.flash_attention(q, k, v, mask), 1e-2,
          spec.bound_ms(2 * H * (2 * C + 2 * S) * D + 4 * C * S,
                        4 * H * pairs * D, "bf16"))
+    # the speculative verify window (models/speculative.py): T = 5 queries
+    # at positions S - 5 .. S - 1 over the whole 1024-slot cache, the
+    # additive mask kv_pos <= q_pos; the PyTorch call: SDPA, bool mask
+    W = 5
+    q = randn(1, H, W, D, dtype=torch.bfloat16)
+    k = randn(1, H, S, D, dtype=torch.bfloat16)
+    v = randn(1, H, S, D, dtype=torch.bfloat16)
+    vis = (kv <= (S - W) + torch.arange(W, device=dev)[:, None])[None, None]
+    mask = torch.where(vis, 0.0, -torch.inf)
+    pairs = int(vis.sum())
+    both("flash_attention", "T=5 over S=1024, verify mask",
+         lambda i: fa.flash_attention(q, k, v, mask), 1e-2,
+         spec.bound_ms(2 * H * (2 * W + 2 * S) * D + 4 * W * S,
+                       4 * H * pairs * D, "bf16"),
+         library=lambda i: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=vis))
 
     # rope_pack at a 512-token 7B prompt: bit-exact against the plain one
     y = randn(T, 3 * H * D, dtype=torch.bfloat16)
@@ -1054,21 +1099,33 @@ def phase_lab_kernels(dev, seed, res: Results):
 
 
 def phase_vpu_kernels(dev, seed, res: Results):
-    """The VPU attention kernel (o and lse) against its plain version at the
-    verify-window and small-head shapes, with SDPA's time beside it; then
-    its gradient through torch.autograd against autograd of the plain
-    formula. Returns the launch counts of the gradient run (the op's path).
+    """The VPU attention op's two kernels against their plain versions at
+    the verify-window and small-head shapes: the partials of
+    ``pick_splits``' split (o to o's bound times the largest |o| of the
+    partials, m and l 1e-5 relative, the identity exactly), the merge on
+    those partials, and the op's o and lse against the unsplit plain
+    version, with SDPA's time beside it; then its gradient through
+    torch.autograd against autograd of the plain formula. Returns the launch
+    counts of the gradient run (the op's path).
     """
     import torch
     import torch.nn.functional as F
     from ggml_cuda_experiments_tpu_torch.ops import vpu_attention as va
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
-    log("== 4g. VPU attention (o, lse) vs plain versions on the card")
+    log("== 4g. VPU attention (partials, merge; o, lse) vs plain versions on "
+        "the card")
     g = torch.Generator(device=dev).manual_seed(seed + 10)
     spec = _spec()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def lse_check(what, lse, ref):
+        lerr = float(((lse - ref).abs() / ref.abs()).max())
+        if not lerr <= 1e-5:
+            raise AssertionError(f"{what} lse: relative error {lerr}")
+        return lerr
 
     # (B, H, T, S, D, dtype, causal, lengths): the 7B verify window (the
     # headline), a tinyllama-width draft window, the JAX test's small-head
@@ -1082,24 +1139,61 @@ def phase_vpu_kernels(dev, seed, res: Results):
         q, k, v = (randn(B, H, n, D, dtype=dt) for n in (T, S, S))
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         q0 = S - T if causal else 0
+        scale = float(D ** -0.5)
+        n, span = va.pick_splits(B, H, T, S, sms)
+        case = (f"B={B} H={H} T={T} S={S} D={D} {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'} len={lens}")
+        # f32: the JAX test's 2e-5 absolute on unit-normal inputs; bf16:
+        # the attention bound, 1e-2 * max
+        tol = 2e-5 if dt == torch.float32 else 1e-2
+
+        def part(i):
+            return va._vpu_partials(q, k, v, lengths, causal=causal,
+                                    scale=scale, q0_pos=q0, span=span)
 
         def fn(i):
             return va._vpu_attention_fwd_impl(q, k, v, lengths, causal=causal,
                                               scale=None, q0_pos=q0)
 
+        parts = part(0)
+        with plain_versions():
+            rparts = part(0)
+        po, pm, pl = parts
+        ident = torch.isneginf(pm)
+        if not torch.equal(ident, torch.isneginf(rparts[1])) \
+                or pl[ident].any() or po[ident].any():
+            raise AssertionError(f"vpu_attention {case}: the identity "
+                                 "splits differ from the plain version")
+        live = ~ident
+        for name, got, want in (("m", pm, rparts[1]), ("l", pl, rparts[2])):
+            rerr = float(((got[live] - want[live]).abs()
+                          / want[live].abs()).max())
+            if not rerr <= 1e-5:
+                raise AssertionError(f"vpu_attention {case} partial {name}: "
+                                     f"relative error {rerr}")
+        err, osc = rel_err(po, rparts[0])
+
+        def merge(i):
+            return va._vpu_merge(po, pm, pl, dt)
+
+        mo, mlse = merge(0)
+        with plain_versions():
+            rmo, rmlse = merge(0)
+        merr, msc = rel_err(mo, rmo)
+        lse_check(f"vpu_attention_merge {case}", mlse, rmlse)
         o, lse = fn(0)
         with plain_versions():
             o_ref, lse_ref = fn(0)
-        lerr = float(((lse - lse_ref).abs() / lse_ref.abs()).max())
-        if not lerr <= 1e-5:
-            raise AssertionError(f"vpu_attention lse: relative error {lerr}")
-        err, sc = rel_err(o, o_ref)
-        # f32: the JAX test's 2e-5 absolute on unit-normal inputs; bf16:
-        # the attention bound, 1e-2 * max
-        tol, scale = (2e-5, 1.0) if dt == torch.float32 else (1e-2, sc)
-        ms = time_ms(fn)
+        lerr = lse_check(f"vpu_attention {case}", lse, lse_ref)
+        oerr, sc = rel_err(o, o_ref)
+        obound = tol * (1.0 if dt == torch.float32 else sc)
+        if not oerr <= obound:
+            raise AssertionError(f"vpu_attention {case}: o error {oerr} > "
+                                 f"{obound}")
+        ms, mms, both_ms = time_ms(part), time_ms(merge), time_ms(fn)
         with plain_versions():
-            pms = time_ms(fn, calls=4, replays=3)
+            pms = time_ms(part, calls=4, replays=3)
+            pmms = time_ms(merge, calls=4, replays=3)
         vis = va._visible(T, S, lengths, causal, q0, dev)
         lib = None
         if min(lens) > 0:
@@ -1111,19 +1205,26 @@ def phase_vpu_kernels(dev, seed, res: Results):
         # weighs all S keys
         pairs = int(vis.sum()) * H
         pairs += H * T * S * lens.count(0)
-        keys = sum(min(n, q0 + T if causal else S) if n else S for n in lens)
+        keys = sum(min(x, q0 + T if causal else S) if x else S for x in lens)
         es = q.element_size()
-        nbytes = es * (2 * B * H * T * D + 2 * H * keys * D) \
-            + 4 * B * H * T + 4 * B
-        res.add("vpu_attention",
-                f"B={B} H={H} T={T} S={S} D={D} {str(dt)[6:]} "
-                f"{'causal' if causal else 'full'} len={lens}",
-                err, scale, tol, ms, pms,
-                spec.bound_ms(nbytes, 4 * pairs * D, "f32"),
-                headline=(D, B) == (128, 1), library_ms=lib)
-        log(f"    lse relative error {lerr:.2e} (bound 1e-5); "
-            f"{_rate(nbytes, 4 * pairs * D, ms, 'f32')}")
-        del q, k, v
+        part_bytes = 4 * B * H * T * n * (D + 2)
+        nbytes = es * (B * H * T * D + 2 * H * keys * D) + part_bytes + 4 * B
+        headline = (D, B) == (128, 1)
+        res.add("vpu_attention", f"{case} splits={n}x{span}", err, osc,
+                tol, ms, pms, spec.bound_ms(nbytes, 4 * pairs * D, "f32"),
+                headline=headline, library_ms=lib)
+        res.add("vpu_attention_merge", f"{case} splits={n}", merr,
+                1.0 if dt == torch.float32 else msc, tol, mms, pmms,
+                spec.bound_ms(part_bytes + B * H * T * (es * D + 4),
+                              3 * B * H * T * n * D, "f32"),
+                headline=headline)
+        ratio = "" if lib is None else \
+            f", {(ms + mms) / lib:.2f}x SDPA's {lib:.4f} ms"
+        log(f"    the two launches {ms + mms:.4f} ms (the op timed whole "
+            f"{both_ms:.4f} ms){ratio}; o {oerr:.3e} (bound {obound:.3e}), "
+            f"lse relative error {lerr:.2e} (bound 1e-5) against the unsplit "
+            f"plain version; {_rate(nbytes, 4 * pairs * D, ms, 'f32')}")
+        del q, k, v, parts, rparts, po, pm, pl
 
     # the gradient: autograd through the op (the kernel forward, the plain
     # backward) against autograd of the plain formula, within 5e-5
@@ -1159,7 +1260,7 @@ def phase_vpu_kernels(dev, seed, res: Results):
         if not err <= (2e-5 if name == "o" else 5e-5):
             raise AssertionError(f"vpu_attention gradient {name}: {err}")
     want = {key: 0 for key in counts}
-    want["vpu_attention"] = 1
+    want.update(vpu_attention=1, vpu_attention_merge=1)
     _assert_counts("vpu_attention", counts, want)
     return {"vpu_attention": counts}
 

@@ -98,10 +98,12 @@ SIGNATURES = {
     "grid_sum": (_P, _P, _P, _I, _I, _I, _P),
     # x, mx, sm, n, d, kind, stream
     "lane_reduce": (_P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, lengths, o, lse, B, H, T, S, D, scale, causal, q0_pos, dtype,
-    # vec, stream
-    "vpu_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                          _I, _I, _I, _P),
+    # q, k, v, lengths, o_part, m_part, l_part, B, H, T, S, D, scale,
+    # causal, q0_pos, span, n_splits, dtype, vec, stream
+    "vpu_attention_partials": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _I, _I, _I, _P),
+    # o_part, m_part, l_part, o, lse, rows, D, n_splits, dtype, stream
+    "vpu_attention_merge": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the q4_k stage ladder: mode, act, x, qs, es, em, y, N, K, ctas,
     # stream; x's int8 operands into device memory: x, out, K, stream
     "q4_ladder": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -118,6 +120,9 @@ SIGNATURES = {
     "q4k_q8_matvec_info": (_I, _P),
     "q80_matvec_info": (_I, _P),
     "q4_ladder_info": (_I, _I, _P),
+    # D / dtype, D
+    "flash_attention_info": (_I, _P),
+    "vpu_attention_info": (_I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),
 }

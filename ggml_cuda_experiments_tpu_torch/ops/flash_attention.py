@@ -3,9 +3,11 @@
 Port of the reference's ``ops/flash_attention.py`` (``flash_attention`` and
 its ``_flash_kernel``), with its lse residual (``return_residuals=True``,
 the per-row log-sum-exp that ring attention merges by). The CUDA kernel
-(``csrc/flash_attention.cu``) takes 64-query tiles against 64-key tiles with bf16 tensor-core products, f32 online softmax, P
-rounded to bf16 before P.V as in the reference, and skips key tiles past the
-causal frontier. The additive f32 mask is read in place through its strides,
+(``csrc/flash_attention.cu``) takes 64-query tiles against 64-key tiles fed
+by a cp.async ring, with S, P and O in registers (mma.sync bf16, f32
+accumulation), the online softmax in f32, P rounded to bf16 before P.V as
+in the reference; it skips key tiles past the causal frontier and launches
+the heaviest query tiles first. The additive f32 mask is read in place through its strides,
 so a broadcast dim (stride 0) is never materialized. Causality follows the
 reference's decode convention: the Sq queries are the last Sq positions of
 the Sk-long context (query i attends key j iff j <= i + Sk - Sq). GQA maps

@@ -301,6 +301,61 @@ def test_flash_attention_lse(dev, case):
     assert torch.equal(fa.flash_attention(q, k, v, mask, causal=causal), o)
 
 
+def test_flash_attention_verify_window(dev):
+    """The speculative verify window (models/speculative.py): Sq = 5
+    against the whole 1024-slot cache, the additive mask kv_pos <= q_pos,
+    the windows at positions 600-604 and 1019-1023; every key tile runs."""
+    T, S = 5, 1024
+    q = _randn(50, 2, 32, T, 128).to(dev, torch.bfloat16)
+    k = _randn(51, 2, 32, S, 128).to(dev, torch.bfloat16)
+    v = _randn(52, 2, 32, S, 128).to(dev, torch.bfloat16)
+    positions = torch.tensor([600, 1019], device=dev)[:, None] + torch.arange(
+        T, device=dev)
+    kv_pos = torch.arange(S, device=dev)[None, None, None, :]
+    mask = torch.where(kv_pos <= positions[:, None, :, None], 0.0,
+                       -torch.inf)
+    _check(fa.flash_attention, q, k, v, mask, tol=1e-2)
+
+
+# Sq = 200: not a multiple of the 64-row query tile nor the 64-key tile;
+# Hq 32 / Hkv 8 at D 128 (llama3-8b's GQA); Sk - Sq = 130 and 930: causal
+# offsets that are not multiples of the tile
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", [
+    (4, 4, 128, 200, 200), (32, 8, 128, 128, 128), (4, 2, 64, 100, 230),
+    (2, 2, 128, 70, 1000)])
+def test_flash_attention_tile_edges(dev, hq, hkv, d, sq, sk):
+    q = _randn(53, 2, hq, sq, d).to(dev, torch.bfloat16)
+    k = _randn(54, 2, hkv, sk, d).to(dev, torch.bfloat16)
+    v = _randn(55, 2, hkv, sk, d).to(dev, torch.bfloat16)
+    _check(fa.flash_attention, q, k, v, causal=True, tol=1e-2)
+
+
+def test_flash_attention_lse_of_a_dead_row_in_a_live_tile(dev):
+    """Rows whose every key is masked, inside query and key tiles that
+    other rows use: O = 0 and lse = -inf exactly there, the other rows as
+    the plain version."""
+    q = _randn(56, 1, 2, 100, 128).to(dev, torch.bfloat16)
+    k = _randn(57, 1, 2, 130, 128).to(dev, torch.bfloat16)
+    v = _randn(58, 1, 2, 130, 128).to(dev, torch.bfloat16)
+    mask = torch.zeros((1, 2, 100, 130), device=dev)
+    mask[:, 1, 5] = -torch.inf
+    mask[:, 0, 70] = -torch.inf
+    mask[:, 0, 71, 1:] = -torch.inf                    # one visible key
+    o, lse = fa.flash_attention(q, k, v, mask, causal=True,
+                                return_residuals=True)
+    with plain_versions():
+        ro, rlse = fa.flash_attention(q, k, v, mask, causal=True,
+                                      return_residuals=True)
+    torch.cuda.synchronize()
+    dead = torch.isneginf(rlse)
+    assert int(dead.sum()) == 2 and torch.equal(torch.isneginf(lse), dead)
+    assert not o[dead].any() and torch.isfinite(o).all()
+    assert (o.float() - ro.float()).abs().max() <= 1e-2 * ro.float().abs(
+    ).max()
+    assert (lse[~dead] - rlse[~dead]).abs().max() <= 1e-4 * rlse[
+        ~dead].abs().max()
+
+
 @pytest.mark.parametrize("t,nh,nkv", [(128, 4, 2), (256, 32, 32)])
 def test_rope_pack_is_exact(dev, t, nh, nkv):
     y = _randn(15, t, (nh + 2 * nkv) * 128).to(dev, torch.bfloat16)
@@ -753,6 +808,46 @@ def test_vpu_attention_raises(dev):
     with pytest.raises(ValueError):                    # not contiguous
         va.vpu_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
                          v, lengths)
+
+
+# S 64 / 65 / 4096 at 1, 2 and many splits of the keys; lengths 0 (every
+# split computes: m = MASK, l = its keys) and 1 (every later split the
+# identity)
+@pytest.mark.parametrize("S,span,lens", [
+    (64, 64, (64, 0)), (65, 64, (65, 0)), (65, 128, (65, 1)),
+    (4096, 64, (4096, 0)), (4096, 1024, (3000, 1))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vpu_attention_splits(dev, S, span, lens, dtype):
+    """The partials kernel against ``_vpu_partials_ref`` (the identity
+    exactly, m and l 1e-5 relative, o to o's bound times the largest |o|
+    of the partials), and the merge kernel on them against the unsplit
+    plain version (o 2e-5 / 1e-2 * max, lse 1e-5 relative)."""
+    B, H, T, D = 2, 3, 5, 64
+    q, k, v = _vpu_inputs(S, B, H, T, S, D, dtype, dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=D ** -0.5, q0_pos=S - T)
+    before = dict(va.LAUNCHES)
+    po, pm, pl = va._vpu_partials(q, k, v, lengths, span=span, **kw)
+    o, lse = va._vpu_merge(po, pm, pl, dtype)
+    torch.cuda.synchronize()
+    assert va.LAUNCHES["vpu_attention"] == before["vpu_attention"] + 1
+    assert va.LAUNCHES["vpu_attention_merge"] == before[
+        "vpu_attention_merge"] + 1
+    with plain_versions():
+        ro_, rm, rl = va._vpu_partials(q, k, v, lengths, span=span, **kw)
+        ro, rlse = va._vpu_attention_fwd_impl(q, k, v, lengths, **kw)
+    assert po.shape == (B, H, T, -(-S // span), D)
+    ident = torch.isneginf(rm)
+    assert torch.equal(torch.isneginf(pm), ident)
+    assert not pl[ident].any() and not po[ident].any()
+    assert ((pm - rm).abs() <= 1e-5 * rm.abs())[~ident].all()
+    assert ((pl - rl).abs() <= 1e-5 * rl.abs())[~ident].all()
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert (po - ro_).abs().max() <= tol * ro_.abs().max()
+    assert o.dtype == dtype
+    bound = tol if dtype == torch.float32 else tol * ro.float().abs().max()
+    assert (o.float() - ro.float()).abs().max() <= bound
+    assert ((lse - rlse).abs() <= 1e-5 * rlse.abs()).all()
 
 
 def _debug_pair(dev):

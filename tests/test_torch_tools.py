@@ -11,6 +11,8 @@
   bounds: f32 logits within 2e-3, quantized PPL within 2% and the largest
   logit difference under 0.35; and it passes against its own oracle.
 - ``perplexity --gguf`` waits for the GGUF reader.
+- ``fa_tiles`` (the flash-attention kernel's tile variants) finds the two
+  lines it replaces, and refuses to start without a card.
 """
 
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from ggml_cuda_experiments_tpu.models.config import PRESETS as JPRESETS
 from ggml_cuda_experiments_tpu.oracle import model as jom
 from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.tools import (
-    gemm_bench, kernel_test, perplexity)
+    fa_tiles, gemm_bench, kernel_test, perplexity)
 
 _SMALL = ["--cpu", "--kv-size", "256", "--heads", "8", "--kv-heads", "2",
           "--head-dim", "64", "--kv-splits", "4"]
@@ -58,6 +60,22 @@ def test_gemm_bench_needs_a_card_to_time():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gemm_bench.main(["--sizes", "64"])
+
+
+def test_fa_tiles_variant_source():
+    """``fa_tiles`` builds its variants by replacing the kernel's FA_WARPS
+    and FA_STAGES lines: both are found, once each, and replaced."""
+    src = fa_tiles.variant_source(8, 2)
+    assert "constexpr int FA_WARPS = 8;" in src
+    assert "constexpr int FA_STAGES = 2;" in src
+    assert all(a not in src for a in fa_tiles.ANCHORS)
+
+
+def test_fa_tiles_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fa_tiles.main(["--variants", "4x3"])
 
 
 def _jax_tree(p, dtype):
