@@ -391,14 +391,18 @@ def phase_build():
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             log("  ptxas:", line.strip())
-    # the attention kernels redesigned for Hopper: ptxas's registers, spills
-    # and static shared memory by function, and the runtime's view at their
+    # the kernels redesigned for Hopper (attention, the wgmma GEMM, the
+    # split-KV decode): ptxas's registers, spills and static shared memory
+    # by function, and the runtime's view of the attention kernels at their
     # launch shapes (dynamic shared memory, CTAs resident per SM)
     fn = None
+    redesigned = ("flash_attention_kernel", "vpu_attention_",
+                  "wgmma_gemm_kernel", "flash_decode_partials_kernel",
+                  "lse_merge_kernel")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-        elif fn and ("flash_attention_kernel" in fn or "vpu_attention_" in fn) \
+        elif fn and any(r in fn for r in redesigned) \
                 and ("Used" in line or "spill" in line):
             log(f"  ptxas {fn[:60]}: {line.strip()}")
     from ggml_cuda_experiments_tpu_torch.ops.probes import _info
@@ -563,6 +567,16 @@ def phase_kernels(dev, seed, res: Results):
                     spec.bound_ms(part_bytes + Hq * D * 2, 3 * n * Hq * D,
                                   "f32"),
                     headline=(Hq == Hkv and length == 1024))
+            # the split count at about half and twice pick_splits' choice
+            for nn in (max(1, n // 2), n, 2 * n):
+                t1 = time_ms(lambda i: fd.flash_decode_partials(
+                    q, kc, vc, lens, scale=scale, n_splits=nn, layer=i % L))
+                pp = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
+                                              n_splits=nn, layer=layer)
+                t2 = time_ms(lambda i: fd.lse_merge(pp))
+                log(f"    kv_splits {nn:3d}: partials {t1 * 1e3:.1f} us + "
+                    f"lse_merge {t2 * 1e3:.1f} us = "
+                    f"{(t1 + t2) / lib:.3f}x SDPA")
         del kc, vc
 
     # flash_attention, causal prefill; the PyTorch call: causal SDPA
@@ -882,11 +896,12 @@ def phase_q4km_kernels(dev, seed, res: Results):
     # flash_decode on int8 / fp8 caches at length 1024: the 7B cache (MHA
     # 32/32, D = 128, all 32 layers, rotated) and tinyllama's (GQA 32/4,
     # D = 64, 22 layers)
+    # (and the 7B int8 cache at length 300, where the split of the valid
+    # keys leaves 11 of 16 tiles unread)
     for (L, Hq, Hkv, D) in ((32, 32, 32, 128), (22, 32, 4, 64)):
-        S = length = 1024
+        S = 1024
         q = randn(1, Hq, D, dtype=torch.bfloat16)
         kf, vf = randn(L, 1, Hkv, S, D), randn(L, 1, Hkv, S, D)
-        lens = torch.full((1,), length, dtype=torch.int32, device=dev)
         n = fd.pick_splits(1, Hkv, S, fd._sm_count(0))
         # GQA rounds p * v_scale to bf16 (the reference's numerics), where
         # one ulp of expf may flip a rounding: 2^-8 of one term
@@ -894,29 +909,35 @@ def phase_q4km_kernels(dev, seed, res: Results):
         for fmt in ("int8", "fp8"):
             kc, ks = llama._quantize_rowwise(kf, fmt)
             vc, vs = llama._quantize_rowwise(vf, fmt)
-            kv_bytes = 2 * Hkv * length * (D + 4)      # payload and scales
-            part_bytes = n * Hq * (D + 2) * 4
-            # the error of the whole attention (partials + merge), the time
-            # of the partials kernel (the merge is lse_merge's, phase 4)
-            kw = dict(layer=L - 1, k_scale=ks, v_scale=vs)
-            got = fd.flash_decode(q, kc, vc, lens, **kw)
-            with plain_versions():
-                ref = fd.flash_decode(q, kc, vc, lens, **kw)
-            err, sc = rel_err(got, ref)
+            for length in ((1024, 300) if Hkv == 32 and fmt == "int8"
+                           else (1024,)):
+                lens = torch.full((1,), length, dtype=torch.int32,
+                                  device=dev)
+                kv_bytes = 2 * Hkv * length * (D + 4)  # payload and scales
+                part_bytes = n * Hq * (D + 2) * 4
+                # the error of the whole attention (partials + merge), the
+                # time of the partials kernel (the merge is lse_merge's,
+                # phase 4)
+                kw = dict(layer=L - 1, k_scale=ks, v_scale=vs)
+                got = fd.flash_decode(q, kc, vc, lens, **kw)
+                with plain_versions():
+                    ref = fd.flash_decode(q, kc, vc, lens, **kw)
+                err, sc = rel_err(got, ref)
 
-            def partials(i):
-                return fd.flash_decode_partials(
-                    q, kc, vc, lens, scale=D ** -0.5, n_splits=n,
-                    layer=i % L, k_scale=ks, v_scale=vs)
-            ms = time_ms(partials)
-            with plain_versions():
-                pms = time_ms(partials, calls=2, replays=3)
-            res.add("flash_decode_q",
-                    f"[{L},1,{Hkv},{S},{D}] {fmt} Hq={Hq} len={length} "
-                    f"splits={n}", err, sc, tol, ms, pms,
-                    spec.bound_ms(kv_bytes + Hq * D * 2 + part_bytes,
-                                  4 * Hq * length * D, "bf16"),
-                    headline=(Hkv == 32 and fmt == "int8"))
+                def partials(i):
+                    return fd.flash_decode_partials(
+                        q, kc, vc, lens, scale=D ** -0.5, n_splits=n,
+                        layer=i % L, k_scale=ks, v_scale=vs)
+                ms = time_ms(partials)
+                with plain_versions():
+                    pms = time_ms(partials, calls=2, replays=3)
+                res.add("flash_decode_q",
+                        f"[{L},1,{Hkv},{S},{D}] {fmt} Hq={Hq} len={length} "
+                        f"splits={n}", err, sc, tol, ms, pms,
+                        spec.bound_ms(kv_bytes + Hq * D * 2 + part_bytes,
+                                      4 * Hq * length * D, "bf16"),
+                        headline=(Hkv == 32 and fmt == "int8"
+                                  and length == 1024))
             del kc, vc, ks, vs
         del kf, vf
 
@@ -1034,9 +1055,10 @@ def phase_lab_kernels(dev, seed, res: Results):
                                               op(ws[i % copies], tb))
         else:
             library = lambda i: torch.matmul(op(x, ta), op(ws[i % copies], tb))
+        route = mm.route(x, ws[0], **kw)
         ms = _versus_plain(res, "matmul",
                            f"{str(dtype)[6:]} M={m} K={k} N={n} "
-                           f"ta={int(ta)} tb={int(tb)}"
+                           f"ta={int(ta)} tb={int(tb)} {route}"
                            + (f" ({copies} weight copies)" if copies > 1
                               else ""),
                            lambda i: mm.matmul(x, ws[i % copies], **kw),
@@ -1048,6 +1070,7 @@ def phase_lab_kernels(dev, seed, res: Results):
     gemm(torch.bfloat16, 4096, 4096, 4096, headline=True)
     gemm(torch.float16, 4096, 4096, 4096)
     gemm(torch.int8, 4096, 4096, 4096)
+    gemm(torch.int8, 4096, 4096, 4096, tb=True)     # both K-major: wgmma
     gemm(torch.float32, 2048, 2048, 2048)
     for ta, tb in ((False, True), (True, False), (True, True)):
         gemm(torch.bfloat16, 4096, 4096, 4096, ta, tb)

@@ -1,23 +1,47 @@
 // Split-KV flash decode for Hopper (sm_90a): single-token attention against
-// the stacked bf16 KV cache [L, B, Hkv, S, D], plus the LSE merge.
+// the stacked KV cache [L, B, Hkv, S, D], plus the LSE merge.
 //
 // Replaces ops/flash_decode.py::_decode_kernel (GQA) and ::_decode_kernel_ht
 // (MHA) of the JAX package, and the pure-jnp lse_combine_stacked /
-// lse_finalize that merge their splits (ops/lse.py).
-//   Bound on the H100: bytes. One 7B layer at S = 1024 holds 16.8 MB of
-//   K/V; the work per byte is a multiply-add per query head.
-//   Design: grid (B * Hkv, n_splits). A CTA takes the G query heads of one
-//   KV head as rows that share every K/V row it reads (no replicated query)
-//   and walks its split in chunks of 64 keys with an f32 online softmax.
-//   Scores: one warp per key, lanes across D (coalesced K rows), one warp
-//   reduction per query head. P.V: one thread per (head, d) output element,
-//   reading V rows coalesced. The CTA reads `lengths` from device memory and
-//   stops at the length, so a split wholly past it emits the LSE identity
-//   (m = -inf, s = 0, o = 0). The layer is a pointer offset: no per-layer
-//   copy of the cache exists.
-//   lse_merge folds the n_splits partials of every (sequence, head) with the
-//   guarded combine of ops/lse.py (an empty split weighs 0, never NaN) and
-//   writes o / s in bf16.
+// lse_finalize that merge their splits (ops/lse.py, the merge at
+// ops/flash_decode.py:386).
+//   Bound on the H100: bytes. The K / V rows of the valid length (one 7B
+//   layer at length 1024: 16.8 MB of bf16), q, and the f32 partials; the
+//   work is two multiply-adds a K / V element per query head.
+//
+// flash_decode_partials_kernel: grid (B * Hkv, n_splits), 8 warps. A CTA
+// takes the G = Hq / Hkv query heads of one KV head (G <= 16, D 64 or 128).
+//   The split covers the valid keys, not the padded cache: the CTA reads
+//   lengths[b] itself (the host reads nothing, so a captured graph replays
+//   with new lengths), cuts [0, len), len = min(lengths[b], S), into
+//   ceil(len / 64) tiles of 64 keys and takes tiles [sp * t, sp * t + t)
+//   with t = ceil(tiles / n_splits)
+//   (ops/flash_decode.py::pick_splits chooses n_splits for about one CTA an
+//   SM over a full cache: 4 splits of 4 tiles at 7B MHA, S = 1024). A split
+//   with no tile (every split when len == 0) writes the identity m = -inf,
+//   s = 0, o = 0 and reads nothing.
+//   K and V of one (layer, sequence, KV head) are contiguous [S, D] rows, so
+//   a tile is one contiguous block (16 KB of K and 16 KB of V at bf16 D 128;
+//   8 KB each at int8 / fp8, with its 64 k and 64 v scales). The tiles
+//   stream through a ring of 4 stages by 16-byte cp.async (4-byte for the
+//   scales), keys past the split's end zero-filled; the copies of tile
+//   t + 3 are issued before tile t's math, and one CTA barrier a tile frees
+//   the stage. The entry refuses (cudaErrorInvalidValue) a K or V base that
+//   is not 16-byte aligned.
+//   Each warp owns 8 keys of every tile, with its own m, l and o (G x D / 32
+//   floats a lane). Scores: the lanes of a key row each read one 16-byte
+//   vector of it (16 lanes a bf16 row at D 128), multiply by q in f32 (q in
+//   registers where G x 16 bytes of it fit), and a reduce-scatter of
+//   shuffles leaves every key's score with the lanes of one chunk group; m
+//   and l over the warp's 8 keys by shuffles. p goes through the warp's own
+//   shared memory to P.V, where a lane holds D / 32 columns of every head
+//   and reads V rows as 2 / 4 contiguous elements. No phase waits on
+//   another warp. At the end of the split the 8 warps fold in warp order
+//   through shared memory, so o, m and s do not depend on the schedule.
+//   Shared memory: the 4-stage ring (128 KB at bf16 D 128, 66 KB at int8 /
+//   fp8 D 128), q and p (0.8-13 KB). ptxas (chip_smoke.py phase 2 prints
+//   each instance): 68 registers at bf16 G 1 D 128, 114 at G 4, 196 at
+//   G 16; 95 at int8 G 1 D 128; no spill.
 //
 // flash_decode_partials_q is the quantized cache's variant (the k_scale /
 // v_scale path of the same two TPU kernels): int8 or fp8 (e4m3) K / V with
@@ -26,180 +50,460 @@
 // scale each probability row in P.V (the row sum l takes p unscaled), and
 // with GQA groups (G > 1, its _decode_kernel) p * v_scale is rounded to
 // bf16 before the product; its MHA kernel (_decode_kernel_ht) keeps it in
-// f32. Bound: bytes, half the bf16 cache's plus 8 bytes of scales per key
-// and head.
+// f32.
+//
+// lse_merge folds the n_splits partials of every (sequence, head) in split
+// order with the guarded combine of ops/lse.py (an empty split weighs 0,
+// never NaN) and writes o / s in bf16; one warp a row, its lanes loading
+// the m and s of 32 splits at once, a lane D / 32 columns.
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <math.h>
 
 #include "common.cuh"
 
-constexpr int FD_THREADS = 128;
+constexpr int FD_THREADS = 256;
 constexpr int FD_WARPS = FD_THREADS / 32;
-constexpr int FD_CHUNK = 64;        // keys per online-softmax step
-constexpr int FD_MAXG = 16;         // query heads per KV head
-constexpr int FD_MAXD = 128;
-constexpr int FD_PER_THREAD = FD_MAXG * FD_MAXD / FD_THREADS;
+constexpr int FD_TILE = 64;                   // keys a tile
+constexpr int FD_KW = FD_TILE / FD_WARPS;     // keys of a tile a warp owns
+constexpr int FD_MAXG = 16;                   // query heads per KV head
+constexpr int FD_STAGES = 4;                  // the K / V ring's depth
 
 enum { FD_BF16 = 0, FD_INT8 = 1, FD_FP8 = 2 };
 
-// element i of a K / V array of the given kind, as f32
+__device__ __forceinline__ unsigned fd_smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of `bytes` (4 or 16); src-size 0 reads nothing and zero-fills
+template <int BYTES>
+__device__ __forceinline__ void fd_cp_async(unsigned dst, const void* src,
+                                            bool valid) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void fd_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fd_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2 packed elements of the given kind as floats
 template <int KIND>
-__device__ __forceinline__ float fd_load(const void* p, size_t i) {
+__device__ __forceinline__ float2 fd_pair(unsigned v) {
   if constexpr (KIND == FD_BF16) {
-    return __bfloat162float(static_cast<const bf16*>(p)[i]);
+    return make_float2(__uint_as_float(v << 16),
+                       __uint_as_float(v & 0xffff0000u));
   } else if constexpr (KIND == FD_INT8) {
-    return (float)static_cast<const int8_t*>(p)[i];
+    return make_float2((float)(int8_t)(v & 0xff),
+                       (float)(int8_t)((v >> 8) & 0xff));
   } else {
-    __nv_fp8_e4m3 e;
-    e.__x = static_cast<const __nv_fp8_storage_t*>(p)[i];
-    return static_cast<float>(e);
+    const __half2_raw h =
+        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(v & 0xffff),
+                                   __NV_E4M3);
+    return __half22float2(__half2(h));
   }
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(FD_THREADS)
+// N elements of a K / V row in shared memory as floats (N * bytes a
+// multiple of 2 bytes; 16-byte vectors where N fills one)
+template <int KIND, int N>
+__device__ __forceinline__ void fd_load(const unsigned char* p,
+                                        float (&f)[N]) {
+  constexpr int ES = KIND == FD_BF16 ? 2 : 1;
+  constexpr int BYTES = N * ES;
+  unsigned w[(BYTES + 3) / 4];
+  if constexpr (BYTES == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x; w[1] = u.y;
+  } else if constexpr (BYTES == 4) {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+  if constexpr (ES == 2) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 t = fd_pair<KIND>(w[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 t = fd_pair<KIND>(w[i / 2] >> (16 * (i & 1)));
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+}
+
+// the split [t0, t1) of 64-key tiles of a sequence of length len
+__device__ __forceinline__ void fd_split(int len, int n_splits, int sp,
+                                         int* t0, int* t1) {
+  const int tiles = (len + FD_TILE - 1) / FD_TILE;
+  const int per = (tiles + n_splits - 1) / n_splits;
+  *t0 = min(sp * per, tiles);
+  *t1 = min(*t0 + per, tiles);
+}
+
+// GP: G rounded up to a power of two (the unrolled head loop); D 64 or 128
+template <int KIND, int GP, int D>
+__global__ void __launch_bounds__(FD_THREADS, 1)
 flash_decode_partials_kernel(const bf16* __restrict__ q,
-                             const void* __restrict__ k,
-                             const void* __restrict__ v,
+                             const unsigned char* __restrict__ k,
+                             const unsigned char* __restrict__ v,
                              const float* __restrict__ k_scale,
                              const float* __restrict__ v_scale,
                              const int* __restrict__ lengths,
                              float* __restrict__ o_part,
                              float* __restrict__ m_part,
                              float* __restrict__ s_part, int B, int Hq,
-                             int Hkv, int S, int D, int layer, int n_splits,
+                             int Hkv, int S, int layer, int n_splits,
                              int round_pv, float scale) {
-  __shared__ float q_sm[FD_MAXG * FD_MAXD];
-  __shared__ float p_sm[FD_MAXG][FD_CHUNK];
-  __shared__ float m_sm[FD_MAXG], l_sm[FD_MAXG], a_sm[FD_MAXG];
+  constexpr bool QUANT = KIND != FD_BF16;
+  constexpr int ES = QUANT ? 1 : 2;
+  constexpr int ROW = D * ES;                  // bytes of a K / V row
+  constexpr int EPC = 16 / ES;                 // elements of a 16-byte chunk
+  constexpr int LPK = ROW / 16;                // lanes reading one key row
+  constexpr int KPL = 32 / LPK;                // keys one 16-byte load covers
+  constexpr int NL = FD_KW / KPL;              // loads for a warp's 8 keys
+  constexpr int DUP = LPK / NL;                // lanes left holding one key
+  constexpr int DPL = D / 32;                  // P.V columns a lane holds
+  constexpr int STAGES = FD_STAGES;
+  constexpr int KV = FD_TILE * ROW;            // bytes of a K (or V) tile
+  constexpr int STAGE = 2 * KV + (QUANT ? 2 * FD_TILE * 4 : 0);
+  constexpr int PP = GP >= 4 ? GP + 4 : GP;    // p row pitch, floats
+  constexpr bool QREG = GP * EPC <= 32;       // q of my chunk in registers
+  static_assert(NL >= 1 && NL * DUP == LPK, "keys of a warp per load");
+
+  extern __shared__ __align__(16) unsigned char fd_smem[];
+  unsigned char* ring = fd_smem;                          // STAGES * STAGE
+  float* q_sm = reinterpret_cast<float*>(fd_smem + STAGES * STAGE);
+  float* p_sm = q_sm + GP * D;                            // [warp][8][PP]
+  __shared__ float m_fold[FD_WARPS][GP], l_fold[FD_WARPS][GP];
 
   const int bh = blockIdx.x, sp = blockIdx.y;
   const int b = bh / Hkv, h = bh % Hkv;
-  const int G = Hq / Hkv, GD = G * D;
+  const int G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t part = (size_t)bh * n_splits + sp;
+
+  const int len = max(0, min(lengths[b], S));
+  int t0, t1;
+  fd_split(len, n_splits, sp, &t0, &t1);
+  if (t0 >= t1) {                           // no key: the LSE identity
+    for (int i = tid; i < G * D; i += FD_THREADS) o_part[part * G * D + i] = 0.f;
+    if (tid < G) {
+      m_part[part * G + tid] = -INFINITY;
+      s_part[part * G + tid] = 0.f;
+    }
+    return;
+  }
+  const int hi = min(t1 * FD_TILE, len);      // the split's keys: [t0*64, hi)
+
   // the (layer, sequence, head) row of keys, in scale and element units
   const size_t key_off = (((size_t)layer * B + b) * Hkv + h) * (size_t)S;
-  const size_t head_off = key_off * D;
-  const bf16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  const unsigned char* kg = k + key_off * ROW;
+  const unsigned char* vg = v + key_off * ROW;
 
-  for (int i = tid; i < GD; i += FD_THREADS) q_sm[i] = __bfloat162float(qg[i]);
-  if (tid < G) {
-    m_sm[tid] = -INFINITY;
-    l_sm[tid] = 0.f;
-  }
-  float acc[FD_PER_THREAD];
+  // tile `t` into stage `st`: K and V rows (keys >= hi zero-filled), scales
+  auto issue = [&](int t, int st) {
+    const unsigned dst = fd_smem_u32(ring + st * STAGE);
+    const int key0 = t * FD_TILE;
 #pragma unroll
-  for (int i = 0; i < FD_PER_THREAD; ++i) acc[i] = 0.f;
+    for (int i = 0; i < KV / 16 / FD_THREADS; ++i) {
+      const int c = tid + i * FD_THREADS;
+      const int key = key0 + c / (ROW / 16);
+      const bool ok = key < hi;
+      const size_t off = (size_t)key0 * ROW + (size_t)c * 16;
+      fd_cp_async<16>(dst + c * 16, ok ? kg + off : kg, ok);
+      fd_cp_async<16>(dst + KV + c * 16, ok ? vg + off : vg, ok);
+    }
+    if (QUANT && tid < 2 * FD_TILE) {
+      const int j = tid & (FD_TILE - 1), key = key0 + j;
+      const bool ok = key < hi;
+      const float* src = (tid < FD_TILE ? k_scale : v_scale) + key_off +
+                         (ok ? key : 0);
+      fd_cp_async<4>(dst + 2 * KV + (tid < FD_TILE ? 0 : FD_TILE * 4) + j * 4,
+                     src, ok);
+    }
+  };
 
-  const int len = min(lengths[b], S);
-  const int span = (S + n_splits - 1) / n_splits;
-  const int lo = sp * span;
-  const int hi = min(min(lo + span, S), len);
-  const int dpl = D / 32;            // elements of a K row per lane: 2 or 4
+  const int nt = t1 - t0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nt) issue(t0 + s, s);
+    fd_commit();
+  }
+
+  // q of the G heads in f32 (heads past G: zeros)
+  const bf16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int i = tid; i < GP * D; i += FD_THREADS)
+    q_sm[i] = i < G * D ? __bfloat162float(qg[i]) : 0.f;
   __syncthreads();
 
-  for (int c0 = lo; c0 < hi; c0 += FD_CHUNK) {
-    // scores of this chunk, scaled; keys past `hi` are -inf
-    for (int j = warp; j < FD_CHUNK; j += FD_WARPS) {
-      const int key = c0 + j;
-      if (key < hi) {
-        const size_t kr = head_off + (size_t)key * D + lane * dpl;
-        float kv[4];
+  float m[GP], l[GP], o[GP][DPL];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          kv[e] = e < dpl ? fd_load<KIND>(k, kr + e) : 0.f;
-        const float ks =
-            KIND == FD_BF16 ? scale : k_scale[key_off + key] * scale;
-        for (int g = 0; g < G; ++g) {
-          const float* qr = q_sm + g * D + lane * dpl;
-          float part = 0.f;
+  for (int g = 0; g < GP; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (e < dpl) part += qr[e] * kv[e];
-          part = warp_sum(part);
-          if (lane == 0) p_sm[g][j] = part * ks;
-        }
-      } else if (lane < G) {
-        p_sm[lane][j] = -INFINITY;
-      }
-    }
-    __syncthreads();
-    // online-softmax update, one warp per query head; the chunk holds at
-    // least one valid key, so m_new is finite. l takes p; P.V takes
-    // p * v_scale on a quantized cache.
-    for (int g = warp; g < G; g += FD_WARPS) {
-      const float s0 = p_sm[g][lane], s1 = p_sm[g][lane + 32];
-      const float m_old = m_sm[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-      const float psum = warp_sum(p0 + p1);
-      if (KIND != FD_BF16) {
-        p0 = c0 + lane < hi ? p0 * v_scale[key_off + c0 + lane] : 0.f;
-        p1 = c0 + lane + 32 < hi ? p1 * v_scale[key_off + c0 + lane + 32]
-                                 : 0.f;
-        if (round_pv) {
-          p0 = __bfloat162float(__float2bfloat16(p0));
-          p1 = __bfloat162float(__float2bfloat16(p1));
-        }
-      }
-      p_sm[g][lane] = p0;
-      p_sm[g][lane + 32] = p1;
-      if (lane == 0) {
-        m_sm[g] = m_new;
-        l_sm[g] = l_sm[g] * alpha + psum;
-        a_sm[g] = alpha;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P . V, one thread per (head, d)
-    const int nk = min(FD_CHUNK, hi - c0);
+    for (int e = 0; e < DPL; ++e) o[g][e] = 0.f;
+  }
+  const int c = lane % LPK;                   // the 16-byte chunk of a row
+  const int kl = lane / LPK;                  // the key within a load
+  const int my_key = (c / DUP) * KPL + kl;    // the key whose score I hold
+  float* pw = p_sm + warp * FD_KW * PP;
+  float qr[QREG ? GP : 1][EPC];
+  if constexpr (QREG) {
 #pragma unroll
-    for (int i = 0; i < FD_PER_THREAD; ++i) {
-      const int idx = tid + i * FD_THREADS;
-      if (idx < GD) {
-        const int g = idx / D, d = idx % D;
-        const size_t vc = head_off + (size_t)c0 * D + d;
-        float a = acc[i] * a_sm[g];
-        for (int j = 0; j < nk; ++j)
-          a += p_sm[g][j] * fd_load<KIND>(v, vc + (size_t)j * D);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) qr[g][e] = q_sm[g * D + c * EPC + e];
   }
 
-  const size_t part = (size_t)bh * n_splits + sp;
+  for (int it = 0; it < nt; ++it) {
+    fd_wait<STAGES - 2>();
+    __syncthreads();            // tile it landed; every warp left tile it-1
+    if (it + STAGES - 1 < nt)
+      issue(t0 + it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    fd_commit();
+
+    const unsigned char* st = ring + (it % STAGES) * STAGE;
+    const unsigned char* ks = st + warp * FD_KW * ROW;   // my 8 K rows
+    const unsigned char* vs = st + KV + warp * FD_KW * ROW;
+    const int key0 = (t0 + it) * FD_TILE + warp * FD_KW;
+    const bool valid = key0 + my_key < hi;
+    float mult = scale, vmul = 1.f;
+    if constexpr (QUANT) {
+      const float* sc = reinterpret_cast<const float*>(st + 2 * KV);
+      mult = sc[warp * FD_KW + my_key] * scale;
+      vmul = sc[FD_TILE + warp * FD_KW + my_key];
+    }
+
 #pragma unroll
-  for (int i = 0; i < FD_PER_THREAD; ++i) {
-    const int idx = tid + i * FD_THREADS;
-    if (idx < GD) o_part[part * GD + idx] = acc[i];
+    for (int g = 0; g < GP; ++g) {
+      // partial dot products of my chunk for the keys of each load
+      float part[NL];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        float kv[EPC], qv[EPC];
+        fd_load<KIND, EPC>(ks + (i * KPL + kl) * ROW + c * 16, kv);
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) qv[e] = qr[g][e];
+        } else {
+          const float* qs = q_sm + g * D + c * EPC;
+#pragma unroll
+          for (int e = 0; e < EPC; e += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(qs + e);
+            qv[e] = t.x; qv[e + 1] = t.y; qv[e + 2] = t.z; qv[e + 3] = t.w;
+          }
+        }
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) a = fmaf(qv[e], kv[e], a);
+        part[i] = a;
+      }
+      // reduce-scatter over the LPK lanes of a row: each step over the top
+      // chunk bit left halves the keys a lane holds; the DUP lanes of a
+      // chunk group that end with load i's key then sum plainly
+      int mask = LPK / 2;
+#pragma unroll
+      for (int n = NL; n > 1; n >>= 1, mask >>= 1) {
+        const bool up = c & mask;
+#pragma unroll
+        for (int i = 0; i < n / 2; ++i) {
+          const float send = up ? part[i] : part[i + n / 2];
+          const float keep = up ? part[i + n / 2] : part[i];
+          part[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+        }
+      }
+      float s = part[0];
+#pragma unroll
+      for (int x = DUP / 2; x >= 1; x >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, x);
+      s = valid ? s * mult : -INFINITY;
+      // the warp's online softmax over its 8 keys (DUP lanes hold one)
+      float tmax = s;
+#pragma unroll
+      for (int x = DUP; x < 32; x <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, x));
+      const float m_new = fmaxf(m[g], tmax);
+      float p = 0.f, alpha = 1.f;
+      if (m_new != -INFINITY) {
+        p = expf(s - m_new);
+        alpha = expf(m[g] - m_new);
+      }
+      float ps = p;
+#pragma unroll
+      for (int x = DUP; x < 32; x <<= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, x);
+      l[g] = l[g] * alpha + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[g][e] *= alpha;
+      if constexpr (QUANT) {
+        p *= vmul;
+        if (round_pv) p = __bfloat162float(__float2bfloat16(p));
+      }
+      if (c % DUP == 0) pw[my_key * PP + g] = p;
+    }
+    __syncwarp();
+    // P.V over my 8 keys: a lane holds columns lane * DPL .. + DPL
+#pragma unroll
+    for (int j = 0; j < FD_KW; ++j) {
+      float vv[DPL];
+      fd_load<KIND, DPL>(vs + j * ROW + lane * DPL * ES, vv);
+      const float* pj = pw + j * PP;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float pg = pj[g];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[g][e] = fmaf(pg, vv[e], o[g][e]);
+      }
+    }
+    __syncwarp();
   }
-  if (tid < G) {
-    m_part[part * G + tid] = m_sm[tid];
-    s_part[part * G + tid] = l_sm[tid];
+
+  // fold the warps in warp order; the ring is free once every warp is here
+  fd_wait<0>();
+  __syncthreads();
+  float* o_fold = reinterpret_cast<float*>(ring);          // [warp][GP][D]
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      o_fold[(warp * GP + g) * D + lane * DPL + e] = o[g][e];
+    if (lane == 0) {
+      m_fold[warp][g] = m[g];
+      l_fold[warp][g] = l[g];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += FD_THREADS) {
+    const int g = i / D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < FD_WARPS; ++w) mx = fmaxf(mx, m_fold[w][g]);
+    float acc = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < FD_WARPS; ++w) {
+      const float mw = m_fold[w][g];
+      const float wt = mw == -INFINITY ? 0.f : expf(mw - mx);
+      acc += o_fold[w * GP * D + i] * wt;
+      sum += l_fold[w][g] * wt;
+    }
+    o_part[part * G * D + i] = acc;
+    if (i % D == 0) {
+      m_part[part * G + g] = mx;
+      s_part[part * G + g] = sum;
+    }
   }
 }
 
-// grid B * Hq (row = (b * Hkv + h) * G + g), block D threads
-__global__ void lse_merge_kernel(const float* __restrict__ o,
-                                 const float* __restrict__ m,
-                                 const float* __restrict__ s,
-                                 bf16* __restrict__ out, int G, int D,
-                                 int n_splits) {
-  const int row = blockIdx.x, bh = row / G, g = row % G, d = threadIdx.x;
+// one warp a row (row = (b * Hkv + h) * G + g), a lane D / 32 columns: the
+// lanes hold the m and s of 32 splits at a time, the sums run in split order
+__global__ void __launch_bounds__(32)
+lse_merge_kernel(const float* __restrict__ o, const float* __restrict__ m,
+                 const float* __restrict__ s, bf16* __restrict__ out, int G,
+                 int D, int n_splits) {
+  const int row = blockIdx.x, lane = threadIdx.x;
+  const int bh = row / G, g = row % G, dpl = D / 32;
+  const size_t base = (size_t)bh * n_splits;
   float mx = -INFINITY;
-  for (int sp = 0; sp < n_splits; ++sp)
-    mx = fmaxf(mx, m[((size_t)bh * n_splits + sp) * G + g]);
-  float st = 0.f, ot = 0.f;
-  for (int sp = 0; sp < n_splits; ++sp) {
-    const size_t pi = ((size_t)bh * n_splits + sp) * G + g;
-    const float mi = m[pi];
-    const float w = mi == -INFINITY ? 0.f : expf(mi - mx);
-    st += s[pi] * w;
-    ot += o[pi * D + d] * w;
+  for (int sp = lane; sp < n_splits; sp += 32)
+    mx = fmaxf(mx, m[(base + sp) * G + g]);
+  mx = warp_max(mx);
+  float st = 0.f, ot[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < n_splits; c0 += 32) {
+    float w = 0.f, sv = 0.f;
+    if (c0 + lane < n_splits) {
+      const size_t pi = (base + c0 + lane) * G + g;
+      const float mi = m[pi];
+      w = mi == -INFINITY ? 0.f : expf(mi - mx);
+      sv = s[pi];
+    }
+    const int cnt = min(32, n_splits - c0);
+#pragma unroll 4
+    for (int j = 0; j < cnt; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      st += __shfl_sync(0xffffffffu, sv, j) * wj;
+      const float* op = o + ((base + c0 + j) * G + g) * D + lane * dpl;
+      if (dpl == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(op);
+        ot[0] += t.x * wj; ot[1] += t.y * wj;
+        ot[2] += t.z * wj; ot[3] += t.w * wj;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(op);
+        ot[0] += t.x * wj; ot[1] += t.y * wj;
+      }
+    }
   }
-  out[(size_t)row * D + d] = __float2bfloat16(ot / (st == 0.f ? 1.f : st));
+  const float den = st == 0.f ? 1.f : st;
+  bf16* dst = out + (size_t)row * D + lane * dpl;
+  dst[0] = __float2bfloat16(ot[0] / den);
+  dst[1] = __float2bfloat16(ot[1] / den);
+  if (dpl == 4) {
+    dst[2] = __float2bfloat16(ot[2] / den);
+    dst[3] = __float2bfloat16(ot[3] / den);
+  }
+}
+
+template <int KIND, int GP, int D>
+static int launch_gp(const bf16* q, const void* k, const void* v,
+                     const float* ks, const float* vs, const int* lengths,
+                     float* o, float* m, float* s, int B, int Hq, int Hkv,
+                     int S, int layer, int n_splits, int round_pv,
+                     float scale, void* stream) {
+  constexpr int ES = KIND == FD_BF16 ? 2 : 1;
+  constexpr int STAGES = FD_STAGES;
+  constexpr int STAGE = 2 * FD_TILE * D * ES + (KIND == FD_BF16 ? 0 : 512);
+  constexpr int PP = GP >= 4 ? GP + 4 : GP;
+  constexpr int SMEM = STAGES * STAGE + (GP * D + FD_WARPS * FD_KW * PP) * 4;
+  static_assert(FD_WARPS * GP * D * 4 <= STAGES * STAGE,
+                "the warps' fold fits in the ring");
+  static int granted = 0;
+  auto kernel = flash_decode_partials_kernel<KIND, GP, D>;
+  cudaError_t e = allow_smem(kernel, SMEM, &granted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hkv, n_splits);
+  kernel<<<grid, FD_THREADS, SMEM, (cudaStream_t)stream>>>(
+      q, static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v), ks, vs, lengths, o, m, s, B, Hq,
+      Hkv, S, layer, n_splits, round_pv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND, int D>
+static int launch_d(int G, const bf16* q, const void* k, const void* v,
+                    const float* ks, const float* vs, const int* lengths,
+                    float* o, float* m, float* s, int B, int Hq, int Hkv,
+                    int S, int layer, int n_splits, int round_pv, float scale,
+                    void* stream) {
+#define FD_GP(GPV)                                                          \
+  launch_gp<KIND, GPV, D>(q, k, v, ks, vs, lengths, o, m, s, B, Hq, Hkv, S, \
+                          layer, n_splits, round_pv, scale, stream)
+  if (G == 1) return FD_GP(1);
+  if (G == 2) return FD_GP(2);
+  if (G <= 4) return FD_GP(4);
+  if (G <= 8) return FD_GP(8);
+  return FD_GP(16);
+#undef FD_GP
 }
 
 template <int KIND>
@@ -209,15 +513,18 @@ static int launch_partials(const bf16* q, const void* k, const void* v,
                            int B, int Hq, int Hkv, int S, int D, int layer,
                            int n_splits, int round_pv, float scale,
                            void* stream) {
-  if ((D != 64 && D != 128) || Hq % Hkv || Hq / Hkv > FD_MAXG ||
-      n_splits < 1 || (KIND != FD_BF16 && (!ks || !vs)))
+  if ((D != 64 && D != 128) || Hkv < 1 || Hq % Hkv ||
+      Hq / Hkv > FD_MAXG || n_splits < 1 || n_splits > 65535 ||
+      (KIND != FD_BF16 && (!ks || !vs)) ||
+      (((uintptr_t)k | (uintptr_t)v) & 15))  // 16-byte cp.async of K / V rows
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * Hkv, n_splits);
-  flash_decode_partials_kernel<KIND>
-      <<<grid, FD_THREADS, 0, (cudaStream_t)stream>>>(
-          q, k, v, ks, vs, lengths, o, m, s, B, Hq, Hkv, S, D, layer,
-          n_splits, round_pv, scale);
-  return (int)cudaGetLastError();
+  const int G = Hq / Hkv;
+  if (D == 128)
+    return launch_d<KIND, 128>(G, q, k, v, ks, vs, lengths, o, m, s, B, Hq,
+                               Hkv, S, layer, n_splits, round_pv, scale,
+                               stream);
+  return launch_d<KIND, 64>(G, q, k, v, ks, vs, lengths, o, m, s, B, Hq, Hkv,
+                            S, layer, n_splits, round_pv, scale, stream);
 }
 
 GCT_EXPORT int flash_decode_partials(const bf16* q, const bf16* k,
@@ -253,7 +560,9 @@ GCT_EXPORT int flash_decode_partials_q(const bf16* q, const void* k,
 GCT_EXPORT int lse_merge(const float* o, const float* m, const float* s,
                          bf16* out, int B, int Hq, int Hkv, int D,
                          int n_splits, void* stream) {
-  lse_merge_kernel<<<B * Hq, D, 0, (cudaStream_t)stream>>>(
+  if ((D != 64 && D != 128) || Hkv < 1 || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  lse_merge_kernel<<<B * Hq, 32, 0, (cudaStream_t)stream>>>(
       o, m, s, out, Hq / Hkv, D, n_splits);
   return (int)cudaGetLastError();
 }

@@ -88,8 +88,8 @@ SIGNATURES = {
     "q6k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     "q6k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     # x, w, out, M, N, K, lda, ldb, a_kmajor, b_kmajor, in_kind, out_kind,
-    # stream
-    "matmul_nt": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P),
+    # route, stream
+    "matmul_nt": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _P),
     # x, out, R, in_bytes, out_bytes, stream
     "stage_pad": (_P, _P, _I, _I, _I, _P),
     # n -> the row blocks (partial rows) of grid_sum

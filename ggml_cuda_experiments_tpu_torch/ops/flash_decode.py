@@ -5,14 +5,17 @@ Port of the reference's ``ops/flash_decode.py`` (``flash_decode`` with its
 ``csrc/flash_decode.cu`` carry it:
 
 - ``flash_decode_partials``: grid (B * Hkv, n_splits); a CTA holds the G
-  query heads of one KV head as the rows that share each K/V chunk, and
+  query heads of one KV head as the rows that share each K/V tile, and
   emits that split's (o, m, s) partial;
 - ``lse_merge``: folds the splits with the ``ops/lse.py`` combine and writes
   o / s in bf16.
 
-n_splits depends only on the padded cache length and the SM count, so the
-launch needs nothing from the device: ``lengths`` stays on the card, and a
-split wholly past a sequence's length emits the LSE identity.
+A split covers whole 64-key tiles of the valid keys (``split_tiles``): the
+kernel reads ``lengths`` on the card and cuts [0, len) into ceil(len / 64)
+tiles, ceil(tiles / n_splits) to a split; a split with no key emits the LSE
+identity. n_splits depends only on the padded cache length and the SM
+count (``pick_splits``), so the launch needs nothing from the device and a
+captured graph replays with new lengths.
 
 A quantized cache (int8 or ``float8_e4m3fn`` K / V with f32 per-token
 ``k_scale`` / ``v_scale`` [(L,) B, Hkv, S]) takes the reference's scale
@@ -37,8 +40,9 @@ from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
 LAUNCHES = {"flash_decode": 0, "flash_decode_q": 0, "lse_merge": 0}
 _KV_KIND = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
-_KEYS_PER_CHUNK = 64       # keys per online-softmax step of the kernel
+TILE_KEYS = 64             # keys a tile of the kernel
 _MAX_GROUP = 16            # query heads per KV head the kernel takes
+_CTAS_PER_SM = 1           # CTAs an SM in the wave pick_splits aims for
 
 
 @functools.cache
@@ -47,10 +51,20 @@ def _sm_count(index: int) -> int:
 
 
 def pick_splits(batch: int, n_kv_heads: int, seq: int, sms: int) -> int:
-    """Splits per (sequence, KV head): enough CTAs for about two waves of
-    the card, each split holding at least one chunk of keys."""
-    want = -(-2 * sms // (batch * n_kv_heads))
-    return max(1, min(want, -(-seq // _KEYS_PER_CHUNK)))
+    """Splits per (sequence, KV head): the fewest tiles a split that still
+    give about one CTA an SM over a full cache, each split a whole number
+    of 64-key tiles."""
+    tiles = -(-seq // TILE_KEYS)
+    per = -(-tiles * batch * n_kv_heads // (_CTAS_PER_SM * sms))
+    return max(1, -(-tiles // max(1, per)))
+
+
+def split_tiles(lengths: torch.Tensor, n_splits: int) -> torch.Tensor:
+    """Tiles a split of each sequence takes, [B]: ceil(ceil(len / 64) /
+    n_splits), at least 1. Split i holds keys [i * span, (i + 1) * span) of
+    [0, len), with span = 64 times this (the kernel's ``fd_split``)."""
+    tiles = (lengths.clamp(min=0) + TILE_KEYS - 1) // TILE_KEYS
+    return ((tiles + n_splits - 1) // n_splits).clamp(min=1)
 
 
 def _layer_view(k, v, layer, k_scale=None, v_scale=None):
@@ -73,8 +87,9 @@ def _layer_view(k, v, layer, k_scale=None, v_scale=None):
 def _partials_ref(q, k, v, lengths, scale, n_splits, k_scale=None,
                   v_scale=None):
     """Plain per-split partials: o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1]
-    f32, splitting S into n spans of ceil(S / n) keys like the kernel. With
-    scales (a quantized cache), the scale path of the module docstring."""
+    f32, splitting each sequence's valid keys into n spans of whole 64-key
+    tiles like the kernel (``split_tiles``). With scales (a quantized
+    cache), the scale path of the module docstring."""
     B, Hq, D = q.shape
     _, Hkv, S, _ = k.shape
     G = Hq // Hkv
@@ -84,23 +99,25 @@ def _partials_ref(q, k, v, lengths, scale, n_splits, k_scale=None,
         s = s * scale
     else:
         s = s * (k_scale * scale)[:, :, None, :]
-    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-    s = torch.where(valid[:, None, None, :], s, -torch.inf)
-    span = -(-S // n_splits)
+    keys = torch.arange(S, device=q.device)
+    valid = keys[None, :] < lengths[:, None]
+    span = split_tiles(lengths.to(q.device).clamp(0, S), n_splits)
+    span = span * TILE_KEYS
+    split_of = keys[None, :] // span[:, None]                    # [B, S]
     os_, ms, ss = [], [], []
-    for lo in range(0, span * n_splits, span):
-        sc = s[..., lo:lo + span]
-        m = sc.amax(-1, keepdim=True) if sc.shape[-1] else torch.full_like(
-            s[..., :1], -torch.inf)
-        p = torch.where(m == -torch.inf, torch.zeros_like(sc),
-                        torch.exp(sc - m))
+    for i in range(n_splits):
+        inside = (valid & (split_of == i))[:, None, None, :]
+        sc = torch.where(inside, s, -torch.inf)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(inside, torch.exp(sc - torch.where(
+            m == -torch.inf, 0.0, m)), 0.0)
         pv = p
         if v_scale is not None:
-            pv = p * v_scale[:, :, None, lo:lo + span]
+            pv = p * v_scale[:, :, None, :]
             if G > 1:
                 pv = pv.to(torch.bfloat16).float()
-        os_.append(torch.einsum("bhgs,bhsd->bhgd", pv,
-                                v[:, :, lo:lo + span].float()))
+        vi = torch.where(inside[:, :, 0, :, None], v.float(), 0.0)
+        os_.append(torch.einsum("bhgs,bhsd->bhgd", pv, vi))
         ms.append(m)
         ss.append(p.sum(-1, keepdim=True))
     return AttnPartial(torch.stack(os_, 2), torch.stack(ms, 2),
@@ -129,14 +146,10 @@ def flash_decode_ref(q, k, v, lengths=None, *, scale=None, kv_splits=1,
                                     k_scale, v_scale), q.dtype)
 
 
-def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None,
-                          k_scale=None, v_scale=None) -> AttnPartial:
-    """Kernel 1 of ``flash_decode``: the per-split partials,
-    o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1] f32. With ``k_scale`` /
-    ``v_scale`` the cache is int8 or fp8 (``flash_decode_partials_q``)."""
-    kl, vl, ksl, vsl, li = _layer_view(k, v, layer, k_scale, v_scale)
-    if not kernels_for(q):
-        return _partials_ref(q, kl, vl, lengths, scale, n_splits, ksl, vsl)
+def _check_partials_args(q, k, v, kl, lengths, n_splits, k_scale, v_scale):
+    """What the partials kernel takes, checked before its launch; returns the
+    cache's dtype. ``kl`` is k's layer view. The kernel copies K and V rows
+    16 bytes at a time, so their bases must be 16-byte aligned."""
     B, Hkv, S, D = kl.shape
     Bq, Hq, Dq = q.shape
     quantized = k_scale is not None
@@ -148,6 +161,10 @@ def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None,
                         ("v", v, kv_dtype)):
         if t.device != q.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous {dt} on {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte rows, its "
+                             f"base must be 16-byte aligned")
     if quantized:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t.device != q.device or t.dtype != torch.float32 \
@@ -165,6 +182,23 @@ def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None,
     if lengths.device != q.device or lengths.dtype != torch.int32 \
             or tuple(lengths.shape) != (B,) or not lengths.is_contiguous():
         raise ValueError("lengths: need contiguous int32 [B] on q's device")
+    return kv_dtype
+
+
+def flash_decode_partials(q, k, v, lengths, *, scale, n_splits, layer=None,
+                          k_scale=None, v_scale=None) -> AttnPartial:
+    """Kernel 1 of ``flash_decode``: the per-split partials,
+    o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1] f32. With ``k_scale`` /
+    ``v_scale`` the cache is int8 or fp8 (``flash_decode_partials_q``)."""
+    kl, vl, ksl, vsl, li = _layer_view(k, v, layer, k_scale, v_scale)
+    if not kernels_for(q):
+        return _partials_ref(q, kl, vl, lengths, scale, n_splits, ksl, vsl)
+    kv_dtype = _check_partials_args(q, k, v, kl, lengths, n_splits, k_scale,
+                                    v_scale)
+    B, Hkv, S, D = kl.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    quantized = k_scale is not None
     o = torch.empty((B, Hkv, n_splits, G, D), dtype=torch.float32,
                     device=q.device)
     m = torch.empty((B, Hkv, n_splits, G, 1), dtype=torch.float32,

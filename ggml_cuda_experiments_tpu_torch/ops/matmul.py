@@ -2,19 +2,28 @@
 
 Port of the JAX package's ``ops/matmul.py`` (``matmul`` and its
 ``_matmul_kernel``, the analog of the reference's WMMA HMMA / IMMA GEMMs).
-The kernel is ``matmul_nt`` in ``csrc/matmul.cu``: bf16 and f16 through the
-tensor cores with f32 accumulators, int8 through them with int32 ones
-(bitwise exact), f32 by FFMA on the CUDA cores (never TF32, which would
-miss the JAX tests' 1e-4). Any M, N, K: the kernel masks its tile loads,
-so nothing is padded, and the transposes are read through strides, so
-nothing is copied (an operand none of whose strides is 1 is made
-contiguous first).
+The kernels are behind ``matmul_nt`` in ``csrc/matmul.cu``, and ``route``
+picks one from dtype, layout and alignment alone:
+
+- ``"wgmma"``: bf16 / f16 in every transpose combination, and int8 when
+  both operands are K-major, where TMA can describe both operands (base
+  16-byte aligned, leading stride a multiple of 16 bytes): wgmma fed by a
+  TMA ring, f32 (int32) accumulators;
+- ``"mma"``: the other bf16 / f16 / int8 operands (int8 with an M- or
+  N-major operand, strides TMA cannot take): mma.sync tiles;
+- ``"ffma"``: f32, by FFMA on the CUDA cores (never TF32, which would miss
+  the JAX tests' 1e-4).
+
+Any M, N, K: nothing is padded, and the transposes are read through
+strides, so nothing is copied (an operand none of whose strides is 1 is
+made contiguous first). The C side refuses a route the operands cannot
+take; no route gives way to another.
 
 Same signature as the JAX function. ``block_m`` / ``block_n`` / ``block_k``
 are accepted so that callers port unchanged; the JAX result does not depend
-on them, and neither does this one (the kernel's tiles are fixed). The
-default output dtype follows the JAX one: int32 for int8 inputs, else the
-inputs' dtype, rounded from the f32 accumulator at the store.
+on them, and neither do this one or its route (the kernels' tiles are
+fixed). The default output dtype follows the JAX one: int32 for int8
+inputs, else the inputs' dtype, rounded from the accumulator at the store.
 
 ``matmul`` runs ``matmul_ref`` for a CPU tensor and launches its kernel, or
 raises, for a CUDA tensor.
@@ -87,6 +96,39 @@ def _layout(t: torch.Tensor):
     return True, K, t.contiguous()
 
 
+def _tma_ok(t: torch.Tensor, kmajor: bool, ld: int) -> bool:
+    """Can TMA describe the operand view t [R, K]: base 16-byte aligned and
+    a leading stride of a multiple of 16 bytes (one stored row needs no
+    stride)."""
+    rows = t.shape[0] if kmajor else t.shape[1]
+    return t.data_ptr() % 16 == 0 and (
+        rows == 1 or ld * t.element_size() % 16 == 0)
+
+
+def _plan(a: torch.Tensor, b: torch.Tensor):
+    """The route and the operands' layouts for op(x) = a [M, K], op(w) =
+    b [K, N]: (route, (a_k, lda, a), (b_k, ldb, op(w)^T [N, K]))."""
+    pa, pb = _layout(a), _layout(b.T)
+    if a.dtype == torch.float32:
+        return "ffma", pa, pb
+    tma = _tma_ok(pa[2], pa[0], pa[1]) and _tma_ok(pb[2], pb[0], pb[1])
+    if tma and (a.dtype != torch.int8 or (pa[0] and pb[0])):
+        return "wgmma", pa, pb
+    return "mma", pa, pb
+
+
+def route(x: torch.Tensor, w: torch.Tensor, *, transpose_a: bool = False,
+          transpose_b: bool = False) -> str:
+    """The kernel ``matmul`` launches for these operands: "wgmma", "mma" or
+    "ffma" (see the module docstring). A plain function of dtype, layout
+    and alignment; the block sizes do not enter it."""
+    a, b, _ = _operands(x, w, None, transpose_a, transpose_b)
+    return _plan(a, b)[0]
+
+
+_ROUTE_ID = {"wgmma": 0, "mma": 1, "ffma": 2}
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 256,
            block_n: int = 256, block_k: int = 512, out_dtype=None,
            transpose_a: bool = False, transpose_b: bool = False
@@ -106,13 +148,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 256,
     (M, K), N = a.shape, b.shape[1]
     if min(M, N, K) == 0:
         return torch.zeros((M, N), dtype=out_dtype, device=x.device)
-    a_k, lda, a = _layout(a)
-    b_k, ldb, bt = _layout(b.T)              # op(w)^T [N, K]
+    kind, (a_k, lda, a), (b_k, ldb, bt) = _plan(a, b)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     rc = _build.lib().matmul_nt(
         a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, N, K, lda, ldb,
         int(a_k), int(b_k), _IN_KIND[x.dtype], _OUT_KIND[out_dtype],
-        _build.stream_of(x))
+        _ROUTE_ID[kind], _build.stream_of(x))
     _build.check(rc, "matmul_nt")
     LAUNCHES["matmul"] += 1
     return out

@@ -218,6 +218,81 @@ def test_flash_decode_quantized(dev, fmt, hq, hkv, d, splits):
     assert fd.LAUNCHES["flash_decode"] == before["flash_decode"]
 
 
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_partials_split_edges(dev, fmt, g, d):
+    """The partials kernel against ``_partials_ref`` split for split, at
+    lengths 0, 1, 63, 64, 65, S = 320 (5 tiles) and S + 200 (the kernel
+    splits min(len, S)), with 1 split, 3, and 7 (more than the tiles): an
+    identity split exact, m within 1e-5 of the
+    largest |m| and s within 1e-5 relative (f32 sums in another order), o
+    within the attention bound times the largest |o| (bf16 1e-2; a
+    quantized cache 2e-3 at MHA, 1e-2 where p * v_scale rounds to bf16)."""
+    L, S, hkv = 2, 320, 2
+    lens = torch.tensor([0, 1, 63, 64, 65, S, S + 200], dtype=torch.int32,
+                        device=dev)
+    B = len(lens)
+    q = _randn(61, B, g * hkv, d).to(dev, torch.bfloat16)
+    kf = _randn(62, L, B, hkv, S, d).to(dev)
+    vf = _randn(63, L, B, hkv, S, d).to(dev)
+    if fmt == "bf16":
+        k, v, kw = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+        tol = 1e-2
+    else:
+        k, ks = llama._quantize_rowwise(kf, fmt)
+        v, vs = llama._quantize_rowwise(vf, fmt)
+        kw = dict(k_scale=ks, v_scale=vs)
+        tol = 2e-3 if g == 1 else 1e-2
+    for n in (1, 3, 7):
+        key = "flash_decode" if fmt == "bf16" else "flash_decode_q"
+        before = fd.LAUNCHES[key]
+        got = fd.flash_decode_partials(q, k, v, lens, scale=d ** -0.5,
+                                       n_splits=n, layer=1, **kw)
+        with plain_versions():
+            ref = fd.flash_decode_partials(q, k, v, lens, scale=d ** -0.5,
+                                           n_splits=n, layer=1, **kw)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES[key] == before + 1
+        empty = ref.m == -torch.inf
+        assert torch.equal(got.m == -torch.inf, empty)
+        assert not got.s[empty].any()
+        assert not got.o[empty.expand_as(got.o)].any()
+        live = ~empty
+        m_err = (got.m[live] - ref.m[live]).abs().max()
+        assert m_err <= 1e-5 * ref.m[live].abs().max(), float(m_err)
+        s_err = ((got.s[live] - ref.s[live]).abs() / ref.s[live]).max()
+        assert s_err <= 1e-5, float(s_err)
+        o_err = (got.o - ref.o).abs().max()
+        assert o_err <= tol * ref.o.abs().max(), float(o_err)
+
+
+
+def test_flash_decode_partials_refuse_an_unaligned_kv_base(dev):
+    """K / V rows are copied 16 bytes at a time: the wrapper refuses a
+    contiguous view whose base is off 16 bytes, and so does the C entry
+    (cudaErrorInvalidValue) if handed one, before anything launches."""
+    from ggml_cuda_experiments_tpu_torch.ops import _build
+    b, hkv, s_, d = 1, 2, 64, 64
+    q = torch.zeros((b, 4, d), dtype=torch.bfloat16, device=dev)
+    n = b * hkv * s_ * d
+    good = torch.zeros((b, hkv, s_, d), dtype=torch.bfloat16, device=dev)
+    bad = torch.zeros(n + 1, dtype=torch.bfloat16,
+                      device=dev)[1:].view(b, hkv, s_, d)
+    lens = torch.tensor([s_], dtype=torch.int32, device=dev)
+    before = fd.LAUNCHES["flash_decode"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fd.flash_decode_partials(q, bad, good, lens, scale=0.125, n_splits=2)
+    o = torch.empty((b, hkv, 2, 2, d), dtype=torch.float32, device=dev)
+    m = torch.empty((b, hkv, 2, 2, 1), dtype=torch.float32, device=dev)
+    rc = _build.lib().flash_decode_partials(
+        q.data_ptr(), good.data_ptr(), bad.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), m.data_ptr(), m.data_ptr(), b, 4, hkv, s_, d, 0, 2,
+        0.125, _build.stream_of(q))
+    torch.cuda.synchronize()
+    assert rc == 1                                    # cudaErrorInvalidValue
+    assert fd.LAUNCHES["flash_decode"] == before
+
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (2, 2, 128)])
 @pytest.mark.parametrize("sq,sk", [(8, 8), (100, 100), (128, 128),
                                    (40, 200)])
@@ -667,6 +742,70 @@ def test_matmul_strided_views(dev):
         got = mm.matmul(a, b, out_dtype=torch.float32)
         want = mm.matmul_ref(a, b, out_dtype=torch.float32)
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype,m,k,n,ta,tb,want", [
+    (torch.bfloat16, 256, 512, 512, False, False, "wgmma"),
+    (torch.float16, 200, 136, 264, True, True, "wgmma"),
+    (torch.int8, 256, 512, 512, False, True, "wgmma"),
+    (torch.int8, 256, 512, 512, False, False, "mma"),
+    (torch.int8, 96, 256, 160, True, True, "mma"),
+    (torch.bfloat16, 257, 383, 129, False, False, "mma"),
+    (torch.float32, 64, 128, 96, False, False, "ffma")])
+def test_matmul_routes(dev, dtype, m, k, n, ta, tb, want):
+    """Each route launches one counted kernel and holds its tolerance."""
+    x = _mm_operand(1, (k, m) if ta else (m, k), dtype, dev)
+    w = _mm_operand(2, (n, k) if tb else (k, n), dtype, dev)
+    assert mm.route(x, w, transpose_a=ta, transpose_b=tb) == want
+    _mm_check(dev, dtype, m, k, n, ta, tb)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True),
+                                   (True, False), (True, True)])
+@pytest.mark.parametrize("m,k,n", [(129, 4104, 200), (4097, 136, 72),
+                                   (200, 8, 264)])
+def test_matmul_wgmma_ragged_edges(dev, dtype, ta, tb, m, k, n):
+    """M, N and K ragged against the 128 x 256 tiles and the 64-value K
+    slices (K = 8: one partial slice), in every layout, on the wgmma
+    route. An M-major x has M as its leading stride, which TMA takes at a
+    multiple of 8 elements: M = 129 / 4097 become 136 / 4104 there."""
+    m = -(-m // 8) * 8 if ta else m
+    x = _mm_operand(3, (k, m) if ta else (m, k), dtype, dev)
+    w = _mm_operand(4, (n, k) if tb else (k, n), dtype, dev)
+    assert mm.route(x, w, transpose_a=ta, transpose_b=tb) == "wgmma"
+    _mm_check(dev, dtype, m, k, n, ta, tb)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (32768, 4096, 256),
+                                   (32768, 2048, 128)])
+def test_matmul_int8_transpose_b_bitwise(dev, m, k, n):
+    """int8 with both operands K-major (the q6_probe nib rungs' products:
+    [N, 256] over K = 4096, and [N, 128] over a 2048 column slice) is
+    bitwise the plain version's."""
+    _mm_check(dev, torch.int8, m, k, n, tb=True)
+    x = _mm_operand(5, (m, 2 * k), torch.int8, dev)[:, k:]
+    w = _mm_operand(6, (n, k), torch.int8, dev)
+    assert mm.route(x, w, transpose_b=True) == "wgmma"
+    got = mm.matmul(x, w, transpose_b=True)
+    with plain_versions():
+        assert torch.equal(got, mm.matmul(x, w, transpose_b=True))
+
+
+@pytest.mark.parametrize("ld,want", [(520, "wgmma"), (521, "mma")])
+def test_matmul_column_slice(dev, ld, want):
+    """A column slice of a wider bf16 matrix: a leading stride of a
+    multiple of 8 elements takes the wgmma route, an odd one does not."""
+    wide = _mm_operand(7, (300, ld), torch.bfloat16, dev)
+    x = wide[:, 8:264]
+    w = _mm_operand(8, (256, 136), torch.bfloat16, dev)
+    assert mm.route(x, w) == want
+    got = mm.matmul(x, w)
+    with plain_versions():
+        ref = mm.matmul(x, w)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= 2e-2 * ref.float().abs().max(), float(err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])

@@ -67,7 +67,9 @@ def test_partials_and_merge_compose():
 
 
 def test_pick_splits():
-    assert tfd.pick_splits(1, 32, 1024, 132) == 9
+    """Whole 64-key tiles a split, as few as give one CTA an SM over a
+    full cache: 7B MHA at S = 1024 takes 4 tiles a split, GQA 32/8 one."""
+    assert tfd.pick_splits(1, 32, 1024, 132) == 4
     assert tfd.pick_splits(1, 8, 1024, 132) == 16
     assert tfd.pick_splits(1, 32, 64, 132) == 1
     assert tfd.pick_splits(64, 32, 4096, 132) == 1
