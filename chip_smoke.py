@@ -72,7 +72,9 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      f32 at 2048^3, the three transposes, a ragged 1000^3, the batch-1
      matvec at 4096 x 4096), stage_pad, grid_sum (int32 exact, f32 the
      same bits on every run) and lane_reduce, each against its plain
-     version, with the library call's time beside it;
+     version, with the library call's time beside it; grid_sum's int32
+     and f32 cases also timed against torch.sum in 3 interleaved pairs
+     (each side's median and min-max);
   4g. (after 4f, also with --kernels-only) the VPU attention op: its
      partials kernel (the split over the keys) against the plain partials,
      its merge kernel on those partials, and the op's o and lse against the
@@ -108,6 +110,8 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      32768 rows, and the seven Mosaic probes (csrc/mosaic_probes.cu), each
      against its plain version, with the library call's time where one
      computes the same function (the floor: torch.sum over its bytes);
+     dyn_sublane, lane_extract and tiny_call also timed against their
+     library calls in 3 interleaved pairs;
   9. (decode: after 8 on phase 5's weights, and in 5d on its weights in
      q4_k) the benchmark entry's --decode (tools/bench.py): tok/s at batch
      1 (8 and 40 replays of one captured step), TTFT p50 at 512 tokens,
@@ -392,13 +396,14 @@ def phase_build():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             log("  ptxas:", line.strip())
     # the kernels redesigned for Hopper (attention, the wgmma GEMM, the
-    # split-KV decode): ptxas's registers, spills and static shared memory
-    # by function, and the runtime's view of the attention kernels at their
-    # launch shapes (dynamic shared memory, CTAs resident per SM)
+    # split-KV decode, the one-launch grid sum, dyn_sublane): ptxas's
+    # registers, spills and static shared memory by function, and the
+    # runtime's view of the attention kernels at their launch shapes
+    # (dynamic shared memory, CTAs resident per SM)
     fn = None
     redesigned = ("flash_attention_kernel", "vpu_attention_",
                   "wgmma_gemm_kernel", "flash_decode_partials_kernel",
-                  "lse_merge_kernel")
+                  "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -781,6 +786,25 @@ def _versus_plain(res: Results, name, case, fn, tol, bound, headline=False,
     return ms
 
 
+def _pairs(name, case, kernel, library, n=3):
+    """``n`` interleaved pairs of the kernel's and the library call's times
+    (``time_ms`` each; the order alternates from pair to pair): each
+    side's median and min-max, and whether the two ranges overlap (the gap
+    within the spread)."""
+    ks, ls = [], []
+    for i in range(n):
+        sides = ((ks, kernel), (ls, library))
+        for out, fn in sides if i % 2 == 0 else sides[::-1]:
+            out.append(time_ms(fn))
+    km, lm = statistics.median(ks), statistics.median(ls)
+    overlap = min(ks) <= max(ls) and min(ls) <= max(ks)
+    log(f"    {name} {case}, {n} interleaved pairs: kernel median "
+        f"{1e3 * km:.2f} us ({1e3 * min(ks):.2f}-{1e3 * max(ks):.2f}), "
+        f"library median {1e3 * lm:.2f} us ({1e3 * min(ls):.2f}-"
+        f"{1e3 * max(ls):.2f}), ratio {km / lm:.3f}: "
+        + ("within the spread" if overlap else "outside the spread"))
+
+
 def phase_fused_kernels(dev, seed, res: Results):
     """The fused batch-1 decode kernels against their plain versions at the
     llama2-7b shapes (weights rotated past the L2 where one copy fits)."""
@@ -1095,6 +1119,8 @@ def phase_lab_kernels(dev, seed, res: Results):
                   spec.bound_ms(4 * n * d + 4, n * d, "f32"),
                   library=lambda i: torch.sum(xi, dtype=torch.int32),
                   headline=True)
+    _pairs("grid_sum", f"[{n}, {d}] int32", lambda i: pr.grid_sum(xi),
+           lambda i: torch.sum(xi, dtype=torch.int32))
     del xi
     xf = operand((n, d), torch.float32)
     again = [pr.grid_sum(xf) for _ in range(3)]
@@ -1105,6 +1131,8 @@ def phase_lab_kernels(dev, seed, res: Results):
                   spec.bound_ms(4 * n * d + 4, n * d, "f32"),
                   library=lambda i: torch.sum(xf),
                   scale=float(xf.double().abs().sum()))
+    _pairs("grid_sum", f"[{n}, {d}] f32", lambda i: pr.grid_sum(xf),
+           lambda i: torch.sum(xf))
     del xf
     # lane_reduce: 32,768 rows of 4,096 f32 (537 MB): the max exact, the
     # sum within 1e-6 * max |sum|
@@ -1440,6 +1468,8 @@ def phase_probe_kernels(dev, seed, res: Results):
         _versus_plain(res, f"mosaic_{name}", f"{tuple(arg.shape)} f32", fn,
                       0.0, spec.bound_ms(nb, arg.numel(), "f32"),
                       headline=True, library=lib, scale=1.0)
+        if name in ("dyn_sublane", "lane_extract", "tiny_call"):
+            _pairs(f"mosaic_{name}", f"{tuple(arg.shape)} f32", fn, lib)
     return composite
 
 

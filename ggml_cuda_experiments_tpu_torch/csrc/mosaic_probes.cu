@@ -8,7 +8,11 @@
 //                    for x [128, 128];
 //   2 roll64         out [R, 128] = roll(x, 64) along the lanes;
 //   3 dyn_sublane    out = 2 x, block i writing the 8-row slice at 8 i that
-//                    its index selects (the probe's grid of 4 steps);
+//                    its index selects (the probe's grid of 4 steps): one
+//                    float4 a thread (8 C / 4 threads, 256 at C = 128), or
+//                    one float where C % 4 != 0 or a pointer is not 16-byte
+//                    aligned; a slice of more than 1,024 items spreads over
+//                    blockIdx.y. One load and one store a thread, no loop;
 //   4 lane_extract   out [32, 128]: row h = x[0, 128h : 128h + 128];
 //   5 read_output    out = 3 x + 1 through a value kept across two steps of
 //                    one block: step 0 writes s = 3x to device memory, step
@@ -19,6 +23,8 @@
 //                    CUDA graph, tools/probe_mosaic_r3.py).
 // Each was a Mosaic compiler limit on the TPU; Hopper has none of them.
 // Bound: a few KB of bytes; launch cost is all they measure.
+#include <algorithm>
+
 #include "common.cuh"
 
 __global__ void mp_transpose_dot(const float* x, const float* e, float* out,
@@ -46,10 +52,20 @@ __global__ void mp_roll64(const float* x, float* out, int R) {
   out[i] = x[r * 128 + ((l + 64) & 127)];
 }
 
-__global__ void mp_dyn_sublane(const float* x, float* out, int C) {
-  const int r0 = 8 * blockIdx.x;                          // pl.ds(8 i, 8)
-  for (int t = threadIdx.x; t < 8 * C; t += blockDim.x)
-    out[r0 * C + t] = x[r0 * C + t] * 2.f;
+// V: float4 items (else floats); `items` of them in each 8-row slice.
+template <bool V>
+__global__ void mp_dyn_sublane(const float* __restrict__ x,
+                               float* __restrict__ out, int C, int items) {
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  if (t >= items) return;
+  const size_t r0 = 8 * (size_t)blockIdx.x * C;           // pl.ds(8 i, 8)
+  if (V) {
+    float4 v = reinterpret_cast<const float4*>(x + r0)[t];
+    v.x *= 2.f, v.y *= 2.f, v.z *= 2.f, v.w *= 2.f;
+    reinterpret_cast<float4*>(out + r0)[t] = v;
+  } else {
+    out[r0 + t] = x[r0 + t] * 2.f;
+  }
 }
 
 __global__ void mp_lane_extract(const float* x, float* out) {
@@ -95,10 +111,20 @@ GCT_EXPORT int mosaic_probe(int which, const float* x, const float* e,
       if (C != 128) return (int)cudaErrorInvalidValue;
       mp_roll64<<<(R * 128 + 127) / 128, 128, 0, s>>>(x, out, R);
       break;
-    case 3:
+    case 3: {
       if (R % 8) return (int)cudaErrorInvalidValue;
-      mp_dyn_sublane<<<R / 8, 128, 0, s>>>(x, out, C);
+      const bool vec = C % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                       (uintptr_t)out % 16 == 0;
+      const int items = vec ? 2 * C : 8 * C;
+      const int threads = std::min(1024, (items + 31) / 32 * 32);
+      const dim3 grid(R / 8, (items + threads - 1) / threads);
+      if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+      if (vec)
+        mp_dyn_sublane<true><<<grid, threads, 0, s>>>(x, out, C, items);
+      else
+        mp_dyn_sublane<false><<<grid, threads, 0, s>>>(x, out, C, items);
       break;
+    }
     case 4:
       if (R * C != 4096) return (int)cudaErrorInvalidValue;
       mp_lane_extract<<<32, 128, 0, s>>>(x, out);

@@ -12,20 +12,30 @@
 //   to 64 rows into shared memory with 16-byte cp.async (one contiguous span
 //   of rows), then writes them out padded with 16-byte stores; rows whose
 //   byte widths are not multiples of 16 go byte by byte.
-// grid_sum: x [n, d] -> one total. Pass 1: CTA b sums the columns of its
-//   row block (32 columns x 8 row lanes, the 8 lanes folded in order) into
-//   part[b, :]; pass 2: one CTA of 1024 threads folds part in a fixed
-//   order and a fixed shuffle tree. int32 is exact (two's complement, as
-//   the plain version); f32 is the same bits on every run.
+// grid_sum: x [n, d] -> one total, in one launch. x is contiguous, so it is
+//   streamed flat: a scalar head up to the first 16-byte boundary, 16-byte
+//   vectors, a scalar tail. A persistent grid (a few CTAs an SM) walks the
+//   vectors grid-stride, each thread keeping GS_UNROLL loads in flight
+//   (read-only, no L1 allocation) and folding them in a fixed order; the
+//   CTA folds in a fixed shuffle tree into part[blockIdx.x]. Then each CTA
+//   fences and draws a ticket; the CTA that draws the last folds part[0, nb)
+//   in index order, writes the total and puts the ticket back to 0 (so the
+//   calls of a captured graph and its replays find it at 0). No atomic
+//   touches the total: int32 is exact (wrapping, as the plain version), and
+//   f32 gives the same bits on every run for a given card and shape. One
+//   ticket a device, so two streams must not run grid_sum at once.
 // lane_reduce: x [n, d] -> (max [n], sum [n]) in x's dtype, one warp per
 //   row: each lane walks its 16-byte vectors (f32 sums in four lanes of
 //   its own), then xor-shuffle trees. The max is exact.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int SP_THREADS = 256, SP_MAX_ROWS = 64, SP_SMEM = 20480;
-constexpr int GS_THREADS = 256, GS_MERGE = 1024;
+constexpr int GS_THREADS = 256, GS_UNROLL = 4, GS_CTAS_PER_SM = 4;
+constexpr int GS_MAX_BLOCKS = 4 * GS_THREADS;   // the merge's reach
 constexpr int LR_THREADS = 256;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -80,48 +90,94 @@ __device__ __forceinline__ T shfl_sum(T v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GS_THREADS)
-colsum_partials_kernel(const T* __restrict__ x, T* __restrict__ part, int n,
-                       int d, int rpc) {
-  __shared__ T red[GS_THREADS / 32][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * rpc, r1 = min(n, r0 + rpc);
-  for (int c0 = 0; c0 < d; c0 += 32) {
-    const int c = c0 + tx;
-    T s = T(0);
-    if (c < d) {
-#pragma unroll 8
-      for (int r = r0 + ty; r < r1; r += GS_THREADS / 32)
-        s += x[(size_t)r * d + c];
-    }
-    red[ty][tx] = s;
-    __syncthreads();
-    if (ty == 0 && c < d) {
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < GS_THREADS / 32; ++i) acc += red[i][tx];
-      part[(size_t)blockIdx.x * d + c] = acc;
-    }
-    __syncthreads();
-  }
+// A 16-byte streaming load: read-only path, no L1 allocation, L2 fetches of
+// 256 bytes.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GS_MERGE)
-grid_sum_merge_kernel(const T* __restrict__ part, T* __restrict__ total,
-                      long long count) {
-  __shared__ T red[GS_MERGE / 32];
-  T s = T(0);
-#pragma unroll 8
-  for (long long i = threadIdx.x; i < count; i += GS_MERGE) s += part[i];
-  s = shfl_sum(s);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+// The sum's arithmetic type: int32 adds in unsigned (two's complement
+// wrap-around, defined), f32 in f32.
+template <typename T> struct GsAcc { using type = float; };
+template <> struct GsAcc<int> { using type = unsigned; };
+__device__ __forceinline__ float gs_lane(unsigned u, float) {
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ unsigned gs_lane(unsigned u, unsigned) { return u; }
+
+// The CTA's total of v in a fixed tree, on thread 0.
+template <typename A>
+__device__ __forceinline__ A gs_block_sum(A v, A* red) {
+  v = shfl_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
+  A s = A(0);
   if (threadIdx.x < 32) {
-    T v = red[threadIdx.x];
-    v = shfl_sum(v);
-    if (threadIdx.x == 0) *total = v;
+    s = threadIdx.x < GS_THREADS / 32 ? red[threadIdx.x] : A(0);
+    s = shfl_sum(s);
+  }
+  return s;
+}
+
+// x + head is 16-byte aligned; head < 4 and head <= count.
+template <typename T>
+__global__ void __launch_bounds__(GS_THREADS)
+grid_sum_kernel(const T* __restrict__ x, T* __restrict__ part,
+                unsigned* __restrict__ ticket, T* __restrict__ total,
+                long long count, int head) {
+  using A = typename GsAcc<T>::type;
+  __shared__ A red[GS_THREADS / 32];
+  __shared__ bool last;
+  const long long nvec = (count - head) / 4;
+  const int tail = (int)((count - head) % 4);
+  const long long g = (long long)blockIdx.x * GS_THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * GS_THREADS;
+  const uint4* v = reinterpret_cast<const uint4*>(x + head);
+  const unsigned* xs = reinterpret_cast<const unsigned*>(x);
+  A s[4] = {A(0), A(0), A(0), A(0)};
+  if (g < head) s[0] = gs_lane(xs[g], A(0));
+  if (g < tail) s[1] = gs_lane(xs[head + 4 * nvec + g], A(0));
+  for (long long i = g; i < nvec; i += GS_UNROLL * stride) {
+    uint4 r[GS_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GS_UNROLL; ++u) {
+      const long long j = i + u * stride;
+      r[u] = j < nvec ? ld_stream(v + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < GS_UNROLL; ++u) {
+      s[0] += gs_lane(r[u].x, A(0));
+      s[1] += gs_lane(r[u].y, A(0));
+      s[2] += gs_lane(r[u].z, A(0));
+      s[3] += gs_lane(r[u].w, A(0));
+    }
+  }
+  const A b = gs_block_sum((s[0] + s[1]) + (s[2] + s[3]), red);
+  if (threadIdx.x == 0) {
+    reinterpret_cast<A*>(part)[blockIdx.x] = b;
+    __threadfence();                      // the partial before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;           // uniform: the CTA returns together
+  // The last CTA: part[j] for j = t, t + 256, ... (gridDim.x <=
+  // GS_MAX_BLOCKS), all loads issued at once, then the same tree.
+  const A* p = reinterpret_cast<const A*>(part);
+  A m = A(0);
+#pragma unroll
+  for (int k = 0; k < GS_MAX_BLOCKS / GS_THREADS; ++k) {
+    const int j = threadIdx.x + k * GS_THREADS;
+    if (j < (int)gridDim.x) m += __ldcg(p + j);
+  }
+  m = gs_block_sum(m, red);
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<A*>(total) = m;
+    *ticket = 0u;
   }
 }
 
@@ -187,34 +243,39 @@ GCT_EXPORT int stage_pad(const void* x, void* out, int R, int in_bytes,
   return (int)cudaGetLastError();
 }
 
-// The number of row blocks (partial rows) grid_sum uses for n rows.
-GCT_EXPORT int grid_sum_blocks(int n) {
+// The number of CTAs (and partials) grid_sum uses for `count` elements:
+// enough for GS_UNROLL vectors a thread, at most GS_CTAS_PER_SM an SM.
+GCT_EXPORT int grid_sum_blocks(long long count) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return max(1, min((n + 63) / 64, 2 * sms));
+  const long long per_cta = 4LL * GS_UNROLL * GS_THREADS;
+  const long long want = (count + per_cta - 1) / per_cta;
+  return (int)std::max(1LL, std::min(want, (long long)std::min(
+                                               GS_CTAS_PER_SM * sms,
+                                               GS_MAX_BLOCKS)));
 }
 
-// x [n, d] (kind 0 int32, 1 f32), part [grid_sum_blocks(n), d] scratch,
-// total: one element of x's dtype.
-GCT_EXPORT int grid_sum(const void* x, void* part, void* total, int n, int d,
-                        int kind, void* stream) {
-  if (n < 1 || d < 1 || kind < 0 || kind > 1)
+// x: `count` contiguous elements (kind 0 int32, 1 f32), 4-byte aligned;
+// part: grid_sum_blocks(count) elements of scratch; ticket: one uint32, 0
+// between calls; total: one element of x's dtype.
+GCT_EXPORT int grid_sum(const void* x, void* part, void* ticket, void* total,
+                        long long count, int kind, void* stream) {
+  if (count < 1 || kind < 0 || kind > 1 || (uintptr_t)x % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const int nb = grid_sum_blocks(n), rpc = (n + nb - 1) / nb;
+  const int nb = grid_sum_blocks(count);
+  const int head =
+      (int)std::min<long long>((16 - (uintptr_t)x % 16) % 16 / 4, count);
   cudaStream_t s = (cudaStream_t)stream;
-  const long long count = (long long)nb * d;
-  if (kind == 0) {
-    colsum_partials_kernel<int><<<nb, GS_THREADS, 0, s>>>(
-        static_cast<const int*>(x), static_cast<int*>(part), n, d, rpc);
-    grid_sum_merge_kernel<int><<<1, GS_MERGE, 0, s>>>(
-        static_cast<const int*>(part), static_cast<int*>(total), count);
-  } else {
-    colsum_partials_kernel<float><<<nb, GS_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(part), n, d, rpc);
-    grid_sum_merge_kernel<float><<<1, GS_MERGE, 0, s>>>(
-        static_cast<const float*>(part), static_cast<float*>(total), count);
-  }
+  unsigned* t = static_cast<unsigned*>(ticket);
+  if (kind == 0)
+    grid_sum_kernel<int><<<nb, GS_THREADS, 0, s>>>(
+        static_cast<const int*>(x), static_cast<int*>(part), t,
+        static_cast<int*>(total), count, head);
+  else
+    grid_sum_kernel<float><<<nb, GS_THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(part), t,
+        static_cast<float*>(total), count, head);
   return (int)cudaGetLastError();
 }
 

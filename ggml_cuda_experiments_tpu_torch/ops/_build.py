@@ -92,10 +92,10 @@ SIGNATURES = {
     "matmul_nt": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _P),
     # x, out, R, in_bytes, out_bytes, stream
     "stage_pad": (_P, _P, _I, _I, _I, _P),
-    # n -> the row blocks (partial rows) of grid_sum
-    "grid_sum_blocks": (_I,),
-    # x, part, total, n, d, kind, stream
-    "grid_sum": (_P, _P, _P, _I, _I, _I, _P),
+    # element count -> the CTAs (partials) of grid_sum
+    "grid_sum_blocks": (_L,),
+    # x, part, ticket, total, count, kind, stream
+    "grid_sum": (_P, _P, _P, _P, _L, _I, _P),
     # x, mx, sm, n, d, kind, stream
     "lane_reduce": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, lengths, o_part, m_part, l_part, B, H, T, S, D, scale,

@@ -12,10 +12,11 @@ one kernel file, ``csrc/primitives.cu``:
   copied through shared memory with 16-byte ``cp.async`` (the JAX kernel's
   HBM -> VMEM async copy). Exact.
 - ``grid_sum(x)``: the sum of every element of x [n, d], as a 0-d tensor of
-  x's dtype (int32 or f32): per-CTA column partials over row blocks, then a
-  fixed-order merge in a second launch (the JAX kernel accumulates its
-  (1, d) partial row across grid steps and sums it outside). int32 is exact;
-  f32 gives the same bits on every run.
+  x's dtype (int32 or f32), in one launch: x streamed flat in 16-byte
+  vectors, a partial a CTA, and the CTA that finishes last folding the
+  partials in index order (the JAX kernel accumulates its (1, d) partial
+  row across grid steps and sums it outside). int32 is exact; f32 gives the
+  same bits on every run.
 - ``lane_reduce(x)``: (max [n, 1], sum [n, 1]) of x [n, d] in x's dtype
   (f32 or bf16, summed in f32), one warp per row with shuffle trees. The
   max is exact.
@@ -82,19 +83,36 @@ def grid_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=x.dtype)
 
 
+# one ticket a device for grid_sum's last-CTA merge (the kernel leaves it 0)
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    t = _TICKETS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("grid_sum: call it once outside a CUDA graph "
+                               "capture first (its ticket is made then)")
+        t = _TICKETS[device.index] = torch.zeros(1, dtype=torch.int32,
+                                                 device=device)
+    return t
+
+
 def grid_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of every element of x [n, d] (int32 or f32), 0-d, x's
-    dtype."""
+    dtype. One launch, whose last CTA merges the partials through a ticket
+    kept a device: two streams must not run grid_sum at once."""
     if not kernels_for(x):
         return grid_sum_ref(x)
     _check_2d("grid_sum", x, _SUM_KIND)
     _check_kernel_input("grid_sum", x)
-    n, d = x.shape
     lib = _build.lib()
-    part = torch.empty((lib.grid_sum_blocks(n), d), dtype=x.dtype,
+    count = x.numel()
+    part = torch.empty(lib.grid_sum_blocks(count), dtype=x.dtype,
                        device=x.device)
     total = torch.empty((), dtype=x.dtype, device=x.device)
-    rc = lib.grid_sum(x.data_ptr(), part.data_ptr(), total.data_ptr(), n, d,
+    rc = lib.grid_sum(x.data_ptr(), part.data_ptr(),
+                      _ticket(x.device).data_ptr(), total.data_ptr(), count,
                       _SUM_KIND[x.dtype], _build.stream_of(x))
     _build.check(rc, "grid_sum")
     LAUNCHES["grid_sum"] += 1

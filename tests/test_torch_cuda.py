@@ -820,8 +820,10 @@ def test_stage_pad_is_exact(dev, dtype, r, d, dpad):
     assert torch.equal(got, pr.stage_pad_ref(x, dpad))
 
 
+# n * d odd (a scalar tail: 1001 x 37), one row, and less than one CTA's
+# chunk of 4,096 elements (3 x 100) beside the earlier shapes
 @pytest.mark.parametrize("n,d", [(64, 128), (1000, 37), (20000, 128),
-                                 (3, 5000)])
+                                 (3, 5000), (1001, 37), (1, 5), (3, 100)])
 def test_grid_sum(dev, n, d):
     rng = np.random.default_rng(n + d)
     xi = torch.from_numpy(rng.integers(-1000, 1000, size=(n, d)).astype(
@@ -835,6 +837,61 @@ def test_grid_sum(dev, n, d):
     assert got.dtype == torch.float32 and got.shape == ()
     assert torch.equal(got, again)                      # the same bits
     assert abs(float(got) - float(want)) <= 1e-6 * float(xf.abs().sum())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_grid_sum_off_16_byte_alignment(dev, offset):
+    """A contiguous view whose first element is 4, 8 or 12 bytes past a
+    16-byte boundary: the kernel's scalar head takes 3, 2 or 1 elements."""
+    n, d = 1000, 37
+    flat = torch.from_numpy(np.random.default_rng(offset).integers(
+        -1000, 1000, size=n * d + 3).astype(np.int32)).to(dev)
+    xi = flat[offset:offset + n * d].view(n, d)
+    assert xi.is_contiguous() and xi.data_ptr() % 16 == 4 * offset
+    assert int(pr.grid_sum(xi)) == int(xi.long().sum())
+    xf = _randn(offset, n * d + 3).to(dev)[offset:offset + n * d].view(n, d)
+    got, again = pr.grid_sum(xf), pr.grid_sum(xf)
+    assert torch.equal(got, again)
+    assert (abs(float(got) - float(xf.double().sum()))
+            <= 1e-6 * float(xf.abs().sum()))
+
+
+def test_grid_sum_is_one_launch(dev):
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn(4, 4096, 129).to(dev)
+    pr.grid_sum(x)                            # makes the ticket
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pr.grid_sum(x)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    assert sum(e.count for e in rows) == 1, [(e.key, e.count) for e in rows]
+    assert "grid_sum" in rows[0].key
+
+
+def test_grid_sum_graph_replays_reset_the_ticket(dev):
+    """Three calls captured in one CUDA graph, replayed twice: each total
+    right each time (the outputs are overwritten with a sentinel before
+    each replay), f32 bit-equal to the eager calls and across replays."""
+    xs = [_randn(30 + i, 777, 129).to(dev) for i in range(2)]
+    xs.insert(1, torch.from_numpy(np.random.default_rng(33).integers(
+        -1000, 1000, size=(4097, 3)).astype(np.int32)).to(dev))
+    eager = [pr.grid_sum(x) for x in xs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [pr.grid_sum(x) for x in xs]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e, x in zip(outs, eager, xs):
+            assert torch.equal(o, e)
+        assert int(outs[1]) == int(xs[1].long().sum())
+        for o, x in ((outs[0], xs[0]), (outs[2], xs[2])):
+            assert (abs(float(o) - float(x.double().sum()))
+                    <= 1e-6 * float(x.abs().sum()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1140,6 +1197,17 @@ def test_mosaic_probes(dev):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert torch.equal(g, r), fn.__name__
+    # dyn_sublane's other paths: a slice of 2,000 float4s over two blocks,
+    # a float a thread (C % 4 != 0), and a base off 16-byte alignment
+    unaligned = _randn(11, 32 * 128 + 1).to(dev)[1:].view(32, 128)
+    for x in (_randn(12, 64, 1000).to(dev), _randn(13, 16, 3).to(dev),
+              unaligned):
+        before = mp.LAUNCHES["mosaic_dyn_sublane"]
+        got = mp.dyn_sublane(x)
+        torch.cuda.synchronize()
+        assert mp.LAUNCHES["mosaic_dyn_sublane"] == before + 1
+        with plain_versions():
+            assert torch.equal(got, mp.dyn_sublane(x)), tuple(x.shape)
 
 
 def test_probe_tools_on_the_card(dev):

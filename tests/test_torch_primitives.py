@@ -65,6 +65,38 @@ def test_grid_sum_f32_matches_jax(rng, shape):
     assert abs(got - want) <= 1e-6 * float(np.abs(x).sum())
 
 
+# The shapes that the kernel's flat stream splits on: n * d odd (a scalar
+# tail), one CTA's chunk and less (8 x 37), several CTAs with a tail
+# (1024 x 129). n stays a multiple of 8: the JAX kernel's 8-row grid drops
+# any rows past it.
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("shape", [(8, 37), (1024, 129)])
+def test_grid_sum_at_the_kernel_paths_equals_jax(rng, shape, dtype):
+    if dtype == np.int32:
+        x = rng.integers(-1000, 1000, size=shape).astype(np.int32)
+    else:
+        x = rng.normal(size=shape).astype(np.float32)
+    got = pr.grid_sum(torch.from_numpy(x))
+    want = RED.grid_sum(jnp.asarray(x))
+    assert got.shape == () and got.dtype == torch.from_numpy(x).dtype
+    if dtype == np.int32:
+        assert int(got) == int(want) == int(x.astype(np.int64).sum())
+    else:
+        assert abs(float(got) - float(want)) <= 1e-6 * float(np.abs(x).sum())
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_grid_sum_of_one_row_equals_numpy(rng, dtype):
+    x = (rng.integers(-1000, 1000, size=(1, 37)) if dtype == np.int32
+         else rng.normal(size=(1, 37))).astype(dtype)
+    got = pr.grid_sum(torch.from_numpy(x))
+    want = x.astype(np.float64).sum()
+    if dtype == np.int32:
+        assert int(got) == int(want)
+    else:
+        assert abs(float(got) - want) <= 1e-6 * float(np.abs(x).sum())
+
+
 def test_lane_reduce_matches_jax(rng):
     x = rng.normal(size=(8, 128)).astype(np.float32)
     mx, sm = pr.lane_reduce(torch.from_numpy(x))

@@ -137,6 +137,17 @@ def test_mosaic_probes_on_other_inputs():
                                   x * np.float32(1.0001))
 
 
+# dyn_sublane at the shapes its kernel splits on: a float a thread (C % 4
+# != 0) and a slice of more than 1,024 float4s. The JAX probe has one fixed
+# shape, so the port is held to its oracle, x * 2.0, exactly.
+@pytest.mark.parametrize("shape", [(16, 3), (64, 1000)])
+def test_dyn_sublane_at_the_kernel_paths(shape):
+    x = np.random.default_rng(shape[1]).normal(size=shape).astype(np.float32)
+    got = mp.dyn_sublane(torch.from_numpy(x))
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), x * np.float32(2.0))
+
+
 def test_probe_mosaic_tool_cpu_runs(capsys):
     assert probe_mosaic_r3.main(["--cpu"]) == 0
     out = capsys.readouterr().out
