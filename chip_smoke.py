@@ -14,7 +14,10 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      paths' shapes: max error, bound, and both times (CUDA events, 20
      calls in one CUDA graph, median of 5 replays, weights rotated past
      the 50 MB L2), and a PyTorch call computing the same function where
-     one exists; 4b. the engine path's kernels (paged decode over bf16,
+     one exists; the dequantizing GEMM at every 7B linear and both
+     routes' edges, beside torch.matmul on the weight already dequantized
+     (logged), its launches by route logged at the end; 4b. the engine
+     path's kernels (paged decode over bf16,
      int8 and fp8 pools, masked flash attention: the prompt's length mask,
      a chunk mask, the speculative verify window beside SDPA; rope_pack);
      4c. the fused batch-1 decode kernels (int8-activation matvec, fused
@@ -240,7 +243,7 @@ KERNELS = {
                    "ggml_cuda_experiments_tpu/ops/quant_matmul.py:670",
                    ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1034",
                     "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
-    "q4k_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+    "q4k_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_gemm.cu",
                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
                  ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115"]),
@@ -289,12 +292,12 @@ KERNELS = {
     "q40_q8_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_q8.cu",
                       "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1465",
                       ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1540"]),
-    "q80_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+    "q80_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_gemm.cu",
                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
                  ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
-    "q40_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+    "q40_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_gemm.cu",
                  "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
                  ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
                   "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115",
@@ -396,14 +399,16 @@ def phase_build():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             log("  ptxas:", line.strip())
     # the kernels redesigned for Hopper (attention, the wgmma GEMM, the
-    # split-KV decode, the one-launch grid sum, dyn_sublane): ptxas's
+    # split-KV decode, the one-launch grid sum, dyn_sublane, both routes of
+    # the dequantizing GEMM): ptxas's
     # registers, spills and static shared memory by function, and the
     # runtime's view of the attention kernels at their launch shapes
     # (dynamic shared memory, CTAs resident per SM)
     fn = None
     redesigned = ("flash_attention_kernel", "vpu_attention_",
                   "wgmma_gemm_kernel", "flash_decode_partials_kernel",
-                  "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane")
+                  "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane",
+                  "gemm_stream_kernel", "gemm_tc_kernel")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -467,6 +472,48 @@ def _rate(nbytes, flops, ms, kind="bf16"):
             f"({100 * tfs * 1e12 / spec.peak(kind):.1f}% of {kind})")
 
 
+def _gemm_cases(res, spec, fmt, make):
+    """The dequantizing GEMM of ``fmt`` at its cases in
+    ``tools/qgemm_bench.py`` (the same cases, x and timing as that tool's):
+    x [m, k] bf16 against weight copies ``make(n, k)`` that stream past the
+    L2, the kernel against its plain version; at M = 8 and 512 a log line
+    with torch.matmul of bf16 x against the weight already dequantized to
+    bf16 (the product alone: not the same function, so not the library
+    column). The headline: w_gu at M = 512."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    name = qb.NAMES[fmt]
+    fn = getattr(qm, name)
+    ws = key = None
+    for _, layer, (n, k), m in qb.cases(fmt):
+        if key != layer:
+            ws = key = None
+            torch.cuda.empty_cache()
+            ws, key = _rotating(lambda i: make(n, k), make(8, k).nbytes
+                                * n // 8), layer
+        x = qb.gemm_x(m, n, k, ws[0].qs.device)
+        y = fn(x, ws[0])
+        with plain_versions():
+            ref = fn(x, ws[0])
+        err, sc = rel_err(y, ref)
+        t = qb.gemm_times(qm, fn, x, ws)
+        with plain_versions():
+            pms = qb.time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
+                             replays=3)
+        nbytes = ws[0].nbytes + 2 * m * k + 4 * m * n
+        res.add(name, f"M={m} N={n} K={k} ({qm.gemm_route(m)}, {len(ws)} "
+                f"weight copies)", err, sc, 2e-2, t["ms"], pms,
+                spec.bound_ms(nbytes, 2 * m * n * k, "bf16"),
+                headline=(layer, m) == ("w_gu", 512))
+        log(f"    {layer}: {_rate(nbytes, 2 * m * n * k, t['ms'])}")
+        if "matmul_ms" in t:
+            log(f"    torch.matmul of bf16 x [{m}, {k}] against the "
+                f"dequantized bf16 W: {t['matmul_ms']:.4f} ms (the kernel "
+                f"{t['ms'] / t['matmul_ms']:.2f}x)")
+
+
 def phase_kernels(dev, seed, res: Results):
     import torch
     import torch.nn.functional as F
@@ -508,24 +555,10 @@ def phase_kernels(dev, seed, res: Results):
         log(f"    {_rate(nbytes, 2 * n * k, ms)}")
         del ws
 
-    # q4k_gemm at the engine's batch-8 decode rows and both prefill ranges
-    for n, k in ((24576, 4096), (4096, 12288)):
-        w = weight(n, k)
-        for m in (8, 16, 128, 512):
-            x = randn(m, k, dtype=torch.bfloat16)
-            y = qm.q4k_gemm(x, w)
-            with plain_versions():
-                ref = qm.q4k_gemm(x, w)
-            err, sc = rel_err(y, ref)
-            ms = time_ms(lambda i: qm.q4k_gemm(x, w))
-            with plain_versions():
-                pms = time_ms(lambda i: qm.q4k_gemm(x, w))
-            nbytes = w.nbytes + 2 * m * k + 4 * m * n
-            res.add("q4k_gemm", f"M={m} N={n} K={k}", err, sc, 2e-2, ms, pms,
-                    spec.bound_ms(nbytes, 2 * m * n * k, "bf16"),
-                    headline=(m, n) == (512, 24576))
-            log(f"    {_rate(nbytes, 2 * m * n * k, ms)}")
-        del w
+    # q4k_gemm at every llama2-7b linear: w_gu at both routes' edges (the
+    # speculative verify rows, the engine's batch-8 decode, the crossover, a
+    # prefill chunk and a 512-token prompt), the others at M = 8 and 512
+    _gemm_cases(res, spec, "q4_k", weight)
 
     # flash_decode (+ lse_merge) on the stacked 7B MHA cache, and GQA 32/8;
     # the PyTorch call for the same function: one SDPA over the layer with
@@ -1019,21 +1052,10 @@ def phase_format_kernels(dev, seed, res: Results):
             f"{_rate(nbytes, 2 * n * k, ms)}")
         del ws
 
-    # the GEMMs at the engine's decode batch (M = 8) and a 512-token
-    # prefill, w_gu [24576, 4096]
-    n, k = 24576, 4096
-    for name, fmt in (("q80_gemm", "q8_0"), ("q40_gemm", "q4_0")):
-        wq = qm.quantize(randn(n, k, scale=k ** -0.5), fmt)
-        fn = getattr(qm, name)
-        for m in (8, 512):
-            x = randn(m, k, dtype=torch.bfloat16)
-            nbytes = wq.nbytes + 2 * m * k + 4 * m * n
-            ms = _versus_plain(res, name, f"M={m} N={n} K={k}",
-                               lambda i: fn(x, wq), 2e-2,
-                               spec.bound_ms(nbytes, 2 * m * n * k, "bf16"),
-                               headline=m == 512)
-            log(f"    {_rate(nbytes, 2 * m * n * k, ms)}")
-        del wq
+    # the GEMMs at both routes' edges, w_gu [24576, 4096]
+    for fmt in ("q8_0", "q4_0"):
+        _gemm_cases(res, spec, fmt, lambda n, k, fmt=fmt: qm.quantize(
+            randn(n, k, scale=k ** -0.5), fmt))
 
 
 def phase_lab_kernels(dev, seed, res: Results):
@@ -1644,6 +1666,23 @@ def _log_top(events, per, unit, n=10):
                 f" calls/{unit}  {e.key[:70]}")
 
 
+def _profile_prefill(params, cfg, prompt, request, dev):
+    """torch.profiler over one prefill of ``prompt`` into a fresh cache of
+    ``request`` (prompt, generated): its wall time, the device's busy share
+    of it, and the dequantizing GEMMs' part of the busy time."""
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    cache = _cache(cfg, *request, dev, {})
+    _, wall_us, busy, events = _profiled(
+        lambda: llama.prefill(params, cfg, prompt, cache))
+    gemm = sum(_dev_us(e) for e in events
+               if "gemm_stream_kernel" in e.key or "gemm_tc_kernel" in e.key)
+    log(f"  prefill of {prompt.shape[1]} tokens under torch.profiler: wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%), the dequantizing GEMMs "
+        f"{gemm / 1e3:.2f} ms of it")
+    _log_top(events, 1, "prefill", n=5)
+
+
 def _profile_decode(params, cfg, prompt, dev, trace_dir, tag="generate",
                     steps: int = 4):
     """torch.profiler over a few decode steps: device time by kernel and
@@ -1840,6 +1879,7 @@ def phase_model(dev, seed, profile=None):
         f"prefill {4 * L} q4k_gemm, {L} rope_pack at prompts 128 and 512, "
         "0 at 16)")
     timing = _time_requests(params, cfg, prompts, REQUESTS, outs, dev)
+    _profile_prefill(params, cfg, prompts[-1], REQUESTS[-1], dev)
 
     # teacher-forced against the plain versions on the card, same weights:
     # request 1's prompt, then its first 4 generated tokens. Forced at the
@@ -3657,6 +3697,9 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shape": k["shape"]})
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    log(f"dequantizing GEMM launches by route over the run (gemm_route): "
+        f"{dict(qm.GEMM_ROUTE_LAUNCHES)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "requests": timing,
                       "requests_bench_decode": fused_timing,

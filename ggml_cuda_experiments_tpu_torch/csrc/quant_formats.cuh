@@ -11,6 +11,11 @@
 // element j low and element j + 16 high) or 32 (the int8 values).
 // q * scale is exact in f32 (4 or 8 bits times an 8- or 11-bit mantissa),
 // and so is q * scale - min for Q4_0 (the exact difference is (q - 8) d).
+//
+// For the GEMM (q4k_gemm.cu), which copies the raw scale arrays into shared
+// memory: NARR scale arrays (arr(j)), scale_min() from their raw 16-bit
+// words, and the unsigned code of a payload byte: byte ^ QXOR, which as the
+// low byte of the float 2^23 + code gives q = float - QOFF exactly.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -27,6 +32,17 @@ struct Q4K {
   __device__ __forceinline__ float min(size_t i) const {
     return __bfloat162float(em[i]);
   }
+  static constexpr int NARR = 2;
+  static constexpr uint32_t QXOR = 0u;
+  static constexpr float QOFF = 8388608.f;
+  __host__ __device__ const void* arr(int j) const {
+    return j ? static_cast<const void*>(em) : static_cast<const void*>(es);
+  }
+  __device__ static void scale_min(uint16_t a, uint16_t b, float& s,
+                                   float& m) {
+    s = __uint_as_float((uint32_t)a << 16);
+    m = __uint_as_float((uint32_t)b << 16);
+  }
 };
 
 struct Q40 {
@@ -38,6 +54,15 @@ struct Q40 {
   __device__ __forceinline__ float min(size_t i) const {
     return 8.f * scale(i);
   }
+  static constexpr int NARR = 1;
+  static constexpr uint32_t QXOR = 0u;
+  static constexpr float QOFF = 8388608.f;
+  __host__ __device__ const void* arr(int) const { return d; }
+  __device__ static void scale_min(uint16_t a, uint16_t, float& s,
+                                   float& m) {
+    s = __half2float(__ushort_as_half(a));
+    m = 8.f * s;
+  }
 };
 
 struct Q80 {
@@ -47,42 +72,16 @@ struct Q80 {
     return __half2float(d[i]);
   }
   __device__ __forceinline__ float min(size_t) const { return 0.f; }
-};
-
-// The 32 values q of one block's payload p (16-byte aligned), as floats.
-template <int QB>
-__device__ __forceinline__ void block_values(const uint8_t* p, float v[32]);
-
-template <>
-__device__ __forceinline__ void block_values<16>(const uint8_t* p,
-                                                 float v[32]) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t byte = (u[t] >> (8 * i)) & 0xFFu;
-      v[4 * t + i] = (float)(byte & 0xF);
-      v[16 + 4 * t + i] = (float)(byte >> 4);
-    }
-}
-
-template <>
-__device__ __forceinline__ void block_values<32>(const uint8_t* p,
-                                                 float v[32]) {
-  const uint4* w = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint4 x = w[h];
-    const uint32_t u[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        v[16 * h + 4 * t + i] = (float)(int8_t)((u[t] >> (8 * i)) & 0xFFu);
+  static constexpr int NARR = 1;
+  static constexpr uint32_t QXOR = 0x80808080u;   // int8 q -> q + 128
+  static constexpr float QOFF = 8388608.f + 128.f;
+  __host__ __device__ const void* arr(int) const { return d; }
+  __device__ static void scale_min(uint16_t a, uint16_t, float& s,
+                                   float& m) {
+    s = __half2float(__ushort_as_half(a));
+    m = 0.f;
   }
-}
+};
 
 // The grid of a matvec that walks its rows over every warp of the grid:
 // N / (rows per CTA) CTAs, capped at the CTAs that are resident at this

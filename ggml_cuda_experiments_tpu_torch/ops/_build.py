@@ -25,11 +25,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("q4k_matmul.cu", "flash_decode.cu", "flash_attention.cu",
-           "rope_pack.cu", "paged_attention.cu", "q4k_q8.cu",
-           "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu", "matmul.cu",
-           "primitives.cu", "vpu_attention.cu", "q4_probe.cu", "q6_probe.cu",
-           "mosaic_probes.cu")
+SOURCES = ("q4k_matmul.cu", "q4k_gemm.cu", "flash_decode.cu",
+           "flash_attention.cu", "rope_pack.cu", "paged_attention.cu",
+           "q4k_q8.cu", "fused_decode.cu", "q6k_matvec.cu", "q80_matvec.cu",
+           "matmul.cu", "primitives.cu", "vpu_attention.cu", "q4_probe.cu",
+           "q6_probe.cu", "mosaic_probes.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,15 +41,15 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, qs, es, em, y, N, K, stream
     "q4k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # x, qs, es, em, y, M, N, K, stream
-    "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, qs, es, em, y, M, N, K, route, stream
+    "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the 32-block formats (fp16 d): x, qs, d, y, N, K, stream
     "q40_matvec": (_P, _P, _P, _P, _I, _I, _P),
     "q80_matvec": (_P, _P, _P, _P, _I, _I, _P),
     "q40_q8_matvec": (_P, _P, _P, _P, _I, _I, _P),
-    # x, qs, d, y, M, N, K, stream
-    "q40_gemm": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "q80_gemm": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, qs, d, y, M, N, K, route, stream
+    "q40_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "q80_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, lengths, o, m, s, B, Hq, Hkv, S, D, layer, n_splits,
     # scale, stream
     "flash_decode_partials": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -29,9 +29,11 @@ Kernels:
 - ``q80_matvec`` (``csrc/q80_matvec.cu``) — q8_0, B = 1, the reference's
   ``_mxu_kernel`` rounding: sum_j bf16(x_j) * bf16(q_j * d) in f32; also
   takes its any-K ``_vpu_e_kernel`` route.
-- ``q4k_gemm`` / ``q40_gemm`` / ``q80_gemm`` (``csrc/q4k_matmul.cu``) —
+- ``q4k_gemm`` / ``q40_gemm`` / ``q80_gemm`` (``csrc/q4k_gemm.cu``) —
   B >= 2, bf16 operands with f32 accumulation (the reference's numerics);
-  replace ``_mxu_kernel``, ``_pipe_sub_kernel`` and ``_pipe_kernel``.
+  replace ``_mxu_kernel``, ``_pipe_sub_kernel`` and ``_pipe_kernel``. One
+  launch a call, on the route ``gemm_route`` picks from M: a weight stream
+  on ``mma.sync`` for decode batches, ``wgmma`` above.
 - ``q4k_q8_matvec`` / ``q40_q8_matvec`` (``csrc/q4k_q8.cu``) — B = 1 with
   int8 activations (``x_quant8``); replace ``_chunk8_kernel`` /
   ``_chunk8_compute``.
@@ -540,20 +542,27 @@ def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
             dtype: torch.dtype, gemm: bool = False) -> torch.Tensor:
     """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight,
     launch the C entry ``name`` (x, qs, its scale arrays, y, [M,] N, K,
-    stream) and count the launch."""
+    [route,] stream) and count the launch; a GEMM takes ``gemm_route``'s
+    route and needs x on 16 bytes."""
     n, k = _check_weight(ql, x, fmt)
     if x.dtype != dtype or (x.shape[0] != 1 and not gemm):
         raise ValueError(f"{name}: x must be {dtype} "
                          f"{'[M, K]' if gemm else '[1, K]'}, got {x.dtype} "
                          f"{tuple(x.shape)}")
     m = x.shape[0]
+    route = gemm_route(m) if gemm else None
+    if gemm and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start on 16 bytes")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     scales = (ql.es, ql.em) if fmt == "q4_k" else (ql.d,)
     rc = getattr(_build.lib(), name)(
         x.data_ptr(), ql.qs.data_ptr(), *(t.data_ptr() for t in scales),
-        y.data_ptr(), *((m,) if gemm else ()), n, k, _build.stream_of(x))
+        y.data_ptr(), *((m,) if gemm else ()), n, k,
+        *((GEMM_ROUTE_ID[route],) if gemm else ()), _build.stream_of(x))
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    if gemm:
+        GEMM_ROUTE_LAUNCHES[route] += 1
     return y
 
 
@@ -577,6 +586,24 @@ def q80_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     if not kernels_for(x):
         return qmatmul_ref(x, ql, torch.bfloat16)
     return _launch("q80_matvec", "q8_0", x, ql, torch.float32)
+
+
+# The GEMM's two routes (csrc/q4k_gemm.cu): "stream" (mma.sync, the
+# weight stream of a decode batch) for M <= STREAM_MAX_M, "tc" (wgmma with
+# the dequantized weight as register A) above. The stream kernel takes at
+# most 32 rows, and on the H100 it beats the tensor-core route up to there
+# (PERF.md §6).
+STREAM_MAX_M = 32
+GEMM_ROUTE_ID = {"stream": 0, "tc": 1}
+# GEMM launches by route, counted beside LAUNCHES
+GEMM_ROUTE_LAUNCHES = {"stream": 0, "tc": 0}
+
+
+def gemm_route(m: int) -> str:
+    """The route of a GEMM over ``m`` rows of x: a plain function of M."""
+    if m < 1:
+        raise ValueError(f"gemm_route: m must be positive, got {m}")
+    return "stream" if m <= STREAM_MAX_M else "tc"
 
 
 def q4k_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:

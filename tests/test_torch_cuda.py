@@ -169,23 +169,73 @@ def test_q40_q8_matvec(dev, n, k):
     assert qm.LAUNCHES["q40_q8_matvec"] == before + 1
 
 
-@pytest.mark.parametrize("name,fmt", [("q80_gemm", "q8_0"),
-                                      ("q40_gemm", "q4_0")])
-@pytest.mark.parametrize("m,k", [(2, 512), (17, 544), (70, 96), (8, 5632)])
-def test_q32_gemm(dev, name, fmt, m, k):
-    """K = 544 and 96 end on half of the GEMM's 64-wide K step."""
-    ql = qm.quantize(_q32_weight(55, 130, k, dev), fmt)
+GEMMS = {"q4_k": "q4k_gemm", "q4_0": "q40_gemm", "q8_0": "q80_gemm"}
+# M at each route's edges (gemm_route) and a part-empty tile of every
+# instance the C side launches (stream: 8, 16 or 32 token rows, M 5, 12,
+# 17; tc: 64, 128 or 256 tokens a CTA, M 33, 70, 300), N ragged against
+# both kernels' row tiles, K ending on half a stage (544, 96: 32-block
+# formats only), tinyllama's w_down (5632) and the unpadded 7B w_down (11008)
+GEMM_MS = (2, 5, 8, 12, 17, qm.STREAM_MAX_M, qm.STREAM_MAX_M + 1, 70, 128,
+           300, 512)
+GEMM_CASES = [(fmt, m, n, k) for fmt in GEMMS for m in GEMM_MS
+              for n in (130, 300) for k in (512, 544, 96, 4096, 5632, 11008)
+              if fmt != "q4_k" or k % 256 == 0]
+
+
+def _gemm_weight(fmt, n, k, dev):
+    if fmt == "q4_k":
+        return qm.quantize(_randn(2, n, k, scale=k ** -0.5).to(dev))
+    return qm.quantize(_q32_weight(55, n, k, dev), fmt)
+
+
+@pytest.mark.parametrize("fmt,m,n,k", GEMM_CASES,
+                         ids=[f"{f}-M{m}-N{n}-K{k}" for f, m, n, k in GEMM_CASES])
+def test_quant_gemm(dev, fmt, m, n, k):
+    """Each format's GEMM on both routes against its plain version, one
+    launch a call on the route gemm_route picks."""
+    name = GEMMS[fmt]
+    ql = _gemm_weight(fmt, n, k, dev)
     x = _randn(56, m, k).to(dev, torch.bfloat16)
-    before = qm.LAUNCHES[name]
+    route = qm.gemm_route(m)
+    before = qm.LAUNCHES[name], qm.GEMM_ROUTE_LAUNCHES[route]
     _check(getattr(qm, name), x, ql, tol=2e-2)
-    assert qm.LAUNCHES[name] == before + 1
+    assert (qm.LAUNCHES[name], qm.GEMM_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
 
 
-@pytest.mark.parametrize("m", [2, 17, 70])
-def test_q4k_gemm(dev, m):
-    ql = qm.quantize(_randn(2, 130, 512, scale=512 ** -0.5).to(dev))
-    x = _randn(3, m, 512).to(dev, torch.bfloat16)
-    _check(qm.q4k_gemm, x, ql, tol=2e-2)
+@pytest.mark.parametrize("fmt", sorted(GEMMS))
+@pytest.mark.parametrize("m", [8, 200])
+def test_quant_gemm_is_bitwise_repeatable(dev, fmt, m):
+    """Fixed-order sums: repeated calls and the replays of a captured graph
+    give the same bits."""
+    fn = getattr(qm, GEMMS[fmt])
+    ql = _gemm_weight(fmt, 300, 4096, dev)
+    x = _randn(57, m, 4096).to(dev, torch.bfloat16)
+    first = fn(x, ql)
+    assert all(torch.equal(first, fn(x, ql)) for _ in range(3))
+    fn(x, ql)                                   # warm-up outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fn(x, ql)
+    for _ in range(3):
+        y.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, first)
+
+
+@pytest.mark.parametrize("fmt", sorted(GEMMS))
+def test_quant_gemm_refuses_an_unaligned_x_base(dev, fmt):
+    """x must start on 16 bytes (the kernels copy it 16 bytes at a time)."""
+    ql = _gemm_weight(fmt, 64, 512, dev)
+    buf = torch.zeros(4 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    x = buf[1:].view(4, 512)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = dict(qm.LAUNCHES)
+    with pytest.raises(ValueError):
+        getattr(qm, GEMMS[fmt])(x, ql)
+    assert qm.LAUNCHES == before
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 2, 128)])

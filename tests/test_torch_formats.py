@@ -192,6 +192,13 @@ ROUTES = [
     ("q4_k", 1, 4096, True, "q4k_q8_matvec"),
     ("q4_k", 1, 2048, True, "q4k_matvec"),
     ("q4_k", 8, 1024, False, "q4k_gemm"),
+    # the GEMM's route edges (gemm_route: stream to 32 rows, tc above)
+    ("q8_0", 5, 1024, False, "q80_gemm"),
+    ("q8_0", 33, 1024, False, "q80_gemm"),
+    ("q4_0", 32, 1024, False, "q40_gemm"),
+    ("q4_0", 128, 1024, False, "q40_gemm"),
+    ("q4_k", 2, 1024, True, "q4k_gemm"),
+    ("q4_k", 33, 1024, False, "q4k_gemm"),
 ]
 WRAPPERS = ("q80_matvec", "q40_matvec", "q40_q8_matvec", "q80_gemm",
             "q40_gemm", "q4k_matvec", "q4k_q8_matvec", "q4k_gemm")

@@ -59,9 +59,14 @@ def test_matvec_matches_jax(k):
     assert np.abs(got - want).max() < 1e-4 * scale
 
 
-@pytest.mark.parametrize("batch,pipelined", [(16, False), (64, True)])
+@pytest.mark.parametrize("batch,pipelined", [
+    (16, False), (64, True),
+    # the route edges of the port's GEMM (gemm_route): 2 to 32 rows stream,
+    # 33 and more take the tensor-core route
+    (2, False), (5, False), (8, False), (32, False), (33, False),
+    (128, True), (512, True)])
 def test_gemm_matches_jax(batch, pipelined):
-    """B=16 reaches _mxu_kernel, B=64 with pipelined _pipe_sub_kernel."""
+    """B <= 64 reaches _mxu_kernel, pipelined _pipe_sub_kernel."""
     n, k = 256, 1024
     t = quant_ref.quantize_q4_k(_weight(4, n, k))
     x = np.random.default_rng(5).normal(size=(batch, k)).astype(np.float32)
