@@ -897,24 +897,30 @@ def phase_fused_kernels(dev, seed, res: Results):
              spec.bound_ms(nbytes, ops, "int8"), headline=hkv == 32)
         del kc, vc, ws
 
-    # one 7B layer of the layer kernel (layer_step) at cache length 1024
-    kc = randn(2, 1, 32, 1024, 128, dtype=torch.bfloat16)
-    vc = randn(2, 1, 32, 1024, 128, dtype=torch.bfloat16)
-    lens = torch.full((1,), 1023, dtype=torch.int32, device=dev)
-    layer = {"wqkv": weight(12288, 4096), "wo": weight(4096, 4096),
-             "w_gu": weight(24576, 4096), "w_down": weight(4096, 12288),
-             "attn_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16),
-             "mlp_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16)}
-    pack = lk.pack_layers([layer])
-    h = randn(1, 4096)
-    nbytes = (sum(layer[k].nbytes for k in lk.STREAM)
-              + 2 * 32 * 1024 * 128 * 2 + 8 * 4096)
-    ops = 2 * sum(layer[k].array_shape[0] * layer[k].array_shape[1]
-                  for k in lk.STREAM)
-    both("layer_kernel", "layer_step, one 7B layer, len 1024",
-         lambda i: lk.layer_step(h, pack, kc, vc, lens, i % 2, n_heads=32,
-                                 n_kv_heads=32, head_dim=128), 5e-3,
-         spec.bound_ms(nbytes, ops, "int8"))
+    # one 7B layer of the layer kernel (layer_step) at cache length 1024:
+    # MHA 32/32 (7B) and GQA 32/8
+    for hkv in (32, 8):
+        kc = randn(2, 1, hkv, 1024, 128, dtype=torch.bfloat16)
+        vc = randn(2, 1, hkv, 1024, 128, dtype=torch.bfloat16)
+        lens = torch.full((1,), 1023, dtype=torch.int32, device=dev)
+        layer = {"wqkv": weight((32 + 2 * hkv) * 128, 4096),
+                 "wo": weight(4096, 4096), "w_gu": weight(24576, 4096),
+                 "w_down": weight(4096, 12288),
+                 "attn_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16),
+                 "mlp_norm": (1 + 0.1 * randn(4096)).to(torch.bfloat16)}
+        pack = lk.pack_layers([layer])
+        h = randn(1, 4096)
+        nbytes = (sum(layer[k].nbytes for k in lk.STREAM)
+                  + 2 * hkv * 1024 * 128 * 2 + 8 * 4096)
+        ops = 2 * sum(layer[k].array_shape[0] * layer[k].array_shape[1]
+                      for k in lk.STREAM)
+        both("layer_kernel", f"layer_step, one 7B layer, Hkv={hkv}, "
+             "len 1024",
+             lambda i: lk.layer_step(h, pack, kc, vc, lens, i % 2,
+                                     n_heads=32, n_kv_heads=hkv,
+                                     head_dim=128), 5e-3,
+             spec.bound_ms(nbytes, ops, "int8"))
+        del kc, vc, layer, pack
 
 
 def phase_q4km_kernels(dev, seed, res: Results):
@@ -2062,9 +2068,26 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
             lerr, 1.0, 5e-3, ms, pms,
             spec.bound_ms(wbytes + kv + 8 * cfg.dim, ops, "int8"),
             headline=True)
+    _layer_probe(card)
     if profile:
         _profile_decode(pb, cfg, prompts[0], dev, profile, "model_step")
     return paths, timing
+
+
+def _layer_probe(card):
+    """tools/layer_probe.py's variant table: one 7B layer (random q4_k
+    weights, bf16 cache of 1024) at lengths 57 and 513, us a layer beside
+    its byte bound (measurement-only variants, outside any counted path)."""
+    from ggml_cuda_experiments_tpu_torch.tools import layer_probe
+    log(f"  [{card}] layer_probe: the layer kernel's phase variants and "
+        "mega2 (fused_attention + fused_mlp), 10 calls a graph, median of 5")
+    rows = layer_probe.run(layer_probe.parse(["--lengths", "57,513",
+                                              "--calls", "10"]))
+    alls = {r["length"]: r["us"] for r in rows if r["variant"] == "all"}
+    for r in rows:
+        log(f"    {r['variant']:9s} len {r['length']:4d}: {r['us']:7.1f} us "
+            f"a layer ({r['us'] - alls[r['length']]:+6.1f} vs all), bound "
+            f"{r['bound_us']:.1f} us")
 
 
 def _log_stream(params):

@@ -68,29 +68,33 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
+// The operands of block b from its values xl = element t and xh = element
+// t + 16, by the half-warp of lane t (0..15) of it. Both halves of the
+// warp must call it together, as the shuffles need.
+__device__ __forceinline__ void q8_quant_vals(float xl, float xh,
+                                              const Q8Act& a, int b, int t) {
+  const float bv = __fdiv_rn(xh, 16.f);              // exact
+  const float av = __fsub_rn(xl, bv);
+  const float ma = half_max(fabsf(av)), mb = half_max(fabsf(bv));
+  const float sxh = half_sum(xh), sx = half_sum(__fadd_rn(xl, xh));
+  const float sa = ma == 0.f ? 1.f : __fdiv_rn(ma, 127.f);
+  const float sb = mb == 0.f ? 1.f : __fdiv_rn(mb, 127.f);
+  a.aq[16 * b + t] = (int8_t)q8_round(av, sa);
+  a.bq[16 * b + t] = (int8_t)q8_round(bv, sb);
+  if (t == 0) {
+    a.c[b] = __fmul_rn(8.f, sxh);
+    a.xs[b] = sx;
+    a.sa[b] = sa;
+    a.sb[b] = sb;
+  }
+}
+
 // The operands of block b of the vector src(i), by the half-warp of lane
-// t (0..15) of it: each lane one nibble pair (elements t and t + 16). Both
-// halves of the warp must call it together, as the shuffles need.
+// t (0..15) of it: each lane one nibble pair (elements t and t + 16).
 template <class Src>
 __device__ __forceinline__ void q8_quant_block(const Src& src, const Q8Act& a,
                                                int b, int t) {
-  {
-    const float xl = src(32 * b + t), xh = src(32 * b + 16 + t);
-    const float bv = __fdiv_rn(xh, 16.f);            // exact
-    const float av = __fsub_rn(xl, bv);
-    const float ma = half_max(fabsf(av)), mb = half_max(fabsf(bv));
-    const float sxh = half_sum(xh), sx = half_sum(__fadd_rn(xl, xh));
-    const float sa = ma == 0.f ? 1.f : __fdiv_rn(ma, 127.f);
-    const float sb = mb == 0.f ? 1.f : __fdiv_rn(mb, 127.f);
-    a.aq[16 * b + t] = (int8_t)q8_round(av, sa);
-    a.bq[16 * b + t] = (int8_t)q8_round(bv, sb);
-    if (t == 0) {
-      a.c[b] = __fmul_rn(8.f, sxh);
-      a.xs[b] = sx;
-      a.sa[b] = sa;
-      a.sb[b] = sb;
-    }
-  }
+  q8_quant_vals(src(32 * b + t), src(32 * b + 16 + t), a, b, t);
 }
 
 // Build the operands of every block of the vector src(i), i < 32 * kb;

@@ -83,7 +83,7 @@ SIGNATURES = {
     # theta, scale, eps, yqkv / part / ygu / h2 scratch, h_out, k_new,
     # v_new, stream
     "layer_kernel": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+                     _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # x, qs, qh, es, y, N, K, stream (both q6_k matvecs)
     "q6k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     "q6k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),

@@ -39,6 +39,39 @@ LAUNCHES = {"layer_step": 0, "model_step": 0}
 
 STREAM = ("wqkv", "wo", "w_gu", "w_down")
 
+# ``phase``: measurement-only variants of the kernel (tools/layer_probe.py),
+# the reference's names plus ``no_sync``, passed to the kernel as an int.
+# "all" is the production kernel; every other variant gives wrong outputs
+# and is timed only. Every variant reads every weight and K / V byte:
+# "no_bound" skips the prologues (RMSNorm and activation quantization, the
+# merge of the attention splits and o's quantization, the mid's), "no_attn"
+# the attention and its merge, "stream" every computation, "only_pack" /
+# "only_down" compute only the wqkv, W_o and w_gu phases / the w_down
+# phase, "no_sync" drops the grid barriers. The plain version takes "all"
+# only.
+PHASES = {"all": 0, "no_bound": 1, "no_attn": 2, "stream": 3,
+          "only_pack": 4, "only_down": 5, "no_sync": 6}
+
+_BARRIERS: dict = {}
+MAX_LAYERS = 256                 # layers of one launch (the kernel's tickets)
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    """The kernel's counters, int32 [2 + MAX_LAYERS * 64] a device: its grid
+    barrier's arrivals and exits, and a merge ticket a layer and KV head
+    (at most 64); zero between launches (the last CTA to use one sets it
+    back). Made at the first call, which must not be inside a CUDA graph
+    capture. Two streams must not run the layer kernel at once."""
+    t = _BARRIERS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("layer kernel: call it once outside a CUDA "
+                               "graph capture first (its barrier counters "
+                               "are made then)")
+        t = _BARRIERS[device.index] = torch.zeros(
+            2 + MAX_LAYERS * 64, dtype=torch.int32, device=device)
+    return t
+
 
 @dataclasses.dataclass
 class LayerPack:
@@ -71,9 +104,12 @@ def pack_layers(layers: list) -> LayerPack:
                 if t.device != dev or t.dtype != dt or not t.is_contiguous():
                     raise ValueError(f"pack_layers: layer {i} {k} needs "
                                      f"contiguous {dt} on {dev}")
-    ptrs = torch.tensor([[getattr(lay[k], f).data_ptr() for k in STREAM
-                          for f in ("qs", "es", "em")] for lay in layers],
-                        dtype=torch.int64).to(dev)
+    table = [[getattr(lay[k], f).data_ptr() for k in STREAM
+              for f in ("qs", "es", "em")] for lay in layers]
+    if dev.type == "cuda" and any(p % 16 for row in table for p in row):
+        raise ValueError("pack_layers: the kernel copies weights by TMA, "
+                         "which needs 16-byte aligned qs / es / em")
+    ptrs = torch.tensor(table, dtype=torch.int64).to(dev)
     norms = torch.stack([torch.stack([lay["attn_norm"].float(),
                                       lay["mlp_norm"].float()])
                          for lay in layers]).to(dev).contiguous()
@@ -129,14 +165,22 @@ def _layers_ref(h, pack, k_cache, v_cache, lengths, layer0, *, n_heads,
 
 
 def _dispatch(h, pack, k_cache, v_cache, lengths, layer0, *, n_heads,
-              n_kv_heads, head_dim, rope_theta, rms_eps, scale, name):
+              n_kv_heads, head_dim, rope_theta, rms_eps, scale, name, phase):
+    if phase not in PHASES:
+        raise ValueError(f"{name}: phase {phase!r} is not one of "
+                         f"{', '.join(PHASES)}")
     if scale is None:
         scale = float(1.0 / head_dim ** 0.5)
     kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
               rope_theta=rope_theta, rms_eps=rms_eps, scale=scale)
     if not kernels_for(h):
+        if phase != "all":
+            raise ValueError(f"{name}: the plain version has no phase "
+                             f"{phase!r} (measurement-only, the kernel's)")
         return _layers_ref(h, pack, k_cache, v_cache, lengths, layer0, **kw)
     nl = len(pack.layers)
+    if nl > MAX_LAYERS:
+        raise ValueError(f"{name}: at most {MAX_LAYERS} layers a launch")
     lay0 = pack.layers[0]
     if not fused_layout_ok(lay0, n_heads, n_kv_heads, head_dim,
                            k_cache.dtype):
@@ -149,6 +193,8 @@ def _dispatch(h, pack, k_cache, v_cache, lengths, layer0, *, n_heads,
         raise ValueError(f"{name}: the pack lies on {pack.ptrs.device}, "
                          f"h on {h.device}")
     check_cache(k_cache, v_cache, lengths, h, n_heads, n_kv_heads, head_dim)
+    if (k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError(f"{name}: the caches must start on 16 bytes (TMA)")
     L, _, _, S, D = k_cache.shape
     if not (0 <= layer0 and layer0 + nl <= L):
         raise ValueError(f"{name}: layers {layer0}..{layer0 + nl - 1} "
@@ -169,7 +215,8 @@ def _dispatch(h, pack, k_cache, v_cache, lengths, layer0, *, n_heads,
         int(k_cache.dtype == torch.float32), float(rope_theta), scale,
         float(rms_eps), ws.data_ptr(), ws[nq:].data_ptr(),
         ws[nq + npart:].data_ptr(), ws[nq + npart + 2 * kd:].data_ptr(),
-        hout.data_ptr(), kn.data_ptr(), vn.data_ptr(), _build.stream_of(h))
+        hout.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        _barrier(h.device).data_ptr(), PHASES[phase], _build.stream_of(h))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return hout, kn, vn
@@ -177,25 +224,29 @@ def _dispatch(h, pack, k_cache, v_cache, lengths, layer0, *, n_heads,
 
 def layer_step(h, w_pack: LayerPack, k_cache, v_cache, lengths, layer, *,
                n_heads, n_kv_heads, head_dim, rope_theta=10000.0,
-               rms_eps=1e-5, scale=None):
+               rms_eps=1e-5, scale=None, phase="all"):
     """One decoder layer. h [1, dim] f32 (pre-norm hidden, logical
     order); w_pack: ``pack_layers([layer])``; k_cache / v_cache
     [L, 1, Hkv, S, D]; lengths int32 [1], BEFORE this token; layer: the
-    cache layer. Returns (h_next [1, dim] f32, k_new, v_new [Hkv, D])."""
+    cache layer; phase: ``PHASES`` (measurement only). Returns (h_next
+    [1, dim] f32, k_new, v_new [Hkv, D])."""
     hn, kn, vn = _dispatch(h, w_pack, k_cache, v_cache, lengths, int(layer),
                            n_heads=n_heads, n_kv_heads=n_kv_heads,
                            head_dim=head_dim, rope_theta=rope_theta,
-                           rms_eps=rms_eps, scale=scale, name="layer_step")
+                           rms_eps=rms_eps, scale=scale, name="layer_step",
+                           phase=phase)
     return hn, kn[0], vn[0]
 
 
 def model_step(h, m_pack: LayerPack, k_cache, v_cache, lengths, *,
                n_heads, n_kv_heads, head_dim, rope_theta=10000.0,
-               rms_eps=1e-5, scale=None):
+               rms_eps=1e-5, scale=None, phase="all"):
     """Every decoder layer in one launch, h carried in f32 between layers.
-    h [1, dim] f32 (the embedded token). Returns (h_last [1, dim] f32,
-    k_new, v_new [L, Hkv, D]) for the caller's cache append."""
+    h [1, dim] f32 (the embedded token); phase: ``PHASES`` (measurement
+    only). Returns (h_last [1, dim] f32, k_new, v_new [L, Hkv, D]) for the
+    caller's cache append."""
     return _dispatch(h, m_pack, k_cache, v_cache, lengths, 0,
                      n_heads=n_heads, n_kv_heads=n_kv_heads,
                      head_dim=head_dim, rope_theta=rope_theta,
-                     rms_eps=rms_eps, scale=scale, name="model_step")
+                     rms_eps=rms_eps, scale=scale, name="model_step",
+                     phase=phase)

@@ -573,15 +573,15 @@ def test_fused_attention(dev, hkv, length, cache_dtype):
         _close(g, r, 2e-2, floor=1.0)
 
 
-def _layers(seed, n, hkv, dev):
+def _layers(seed, n, hkv, dev, kd=4096):
     layers = []
     for i in range(n):
         wqkv, wo = _attn_weights(seed + 10 * i, 32, hkv, dev)
         layers.append({
             "wqkv": wqkv, "wo": wo,
-            "w_gu": qm.quantize(_randn(seed + 10 * i + 2, 8192, 4096,
+            "w_gu": qm.quantize(_randn(seed + 10 * i + 2, 2 * kd, 4096,
                                        scale=1 / 64).to(dev)),
-            "w_down": qm.quantize(_randn(seed + 10 * i + 3, 4096, 4096,
+            "w_down": qm.quantize(_randn(seed + 10 * i + 3, 4096, kd,
                                          scale=1 / 64).to(dev)),
             "attn_norm": (1 + 0.1 * _randn(seed + 10 * i + 4, 4096)).to(
                 dev, torch.bfloat16),
@@ -590,32 +590,83 @@ def _layers(seed, n, hkv, dev):
     return layers
 
 
-@pytest.mark.parametrize("hkv", [32, 8])
-def test_layer_step_and_model_step(dev, hkv):
-    """Each layer's launch against its plain version; model_step against
-    the layer launches chained with h carried in f32."""
-    layers = _layers(30, 2, hkv, dev)
-    kc = _randn(31, 2, 1, hkv, 256, 128).to(dev, torch.bfloat16)
-    vc = _randn(32, 2, 1, hkv, 256, 128).to(dev, torch.bfloat16)
-    lens = torch.tensor([100], dtype=torch.int32, device=dev)
+# cache lengths before the token: empty, one key, the edges of the
+# kernel's 32-key bf16 (16-key f32) tiles, a ragged one, 513, the last slot
+# and past the cache (a token past it attends over the cache alone)
+LAYER_S = 640
+LAYER_LENGTHS = (0, 1, 15, 16, 31, 32, 63, 64, 65, 100, 513, LAYER_S - 1,
+                 LAYER_S + 5)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hkv", [32, 8, 4])
+def test_layer_step_and_model_step(dev, hkv, cache_dtype):
+    """Each layer's launch (nL = 1) against its plain version, every
+    layer's input forced to the plain version's (as chip_smoke.py's forced
+    check: the kernel and its plain version sum in other orders, and int8
+    activations turn the ulps that earlier layers leave into whole steps);
+    and model_step (nL = 3) against the layer launches chained on their own
+    outputs with h carried in f32, bit for bit, at every length of
+    LAYER_LENGTHS. The kernel's ring of 9 slots of 20 KB (units of 8 rows)
+    wraps several times a layer, so it wraps within each layer and from
+    layer to layer."""
+    layers = _layers(30, 3, hkv, dev)
+    kc = _randn(31, 3, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
+    vc = _randn(32, 3, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
     kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
     h = _randn(33, 1, 4096).to(dev)
-    hs, kns = h, []
-    for li, layer in enumerate(layers):
-        pack = lk.pack_layers([layer])
-        got = lk.layer_step(hs, pack, kc, vc, lens, li, **kw)
-        with plain_versions():
-            ref = lk.layer_step(hs, pack, kc, vc, lens, li, **kw)
-        _close(got[0], ref[0], 5e-3)
-        _close(got[1], ref[1], 2e-2, floor=1.0)
-        hs = got[0]
-        kns.append(got[1])
-    before = lk.LAUNCHES["model_step"]
-    hm, kn, vn = lk.model_step(h, lk.pack_layers(layers), kc, vc, lens, **kw)
+    packs = [lk.pack_layers([layer]) for layer in layers]
+    m_pack = lk.pack_layers(layers)
+    for length in LAYER_LENGTHS:
+        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        hp, hk, kns, vns = h, h, [], []
+        for li, pack in enumerate(packs):
+            got = lk.layer_step(hp, pack, kc, vc, lens, li, **kw)
+            with plain_versions():
+                ref = lk.layer_step(hp, pack, kc, vc, lens, li, **kw)
+            _close(got[0], ref[0], 5e-3)
+            for g_, r_ in zip(got[1:], ref[1:]):
+                assert g_.dtype == cache_dtype
+                _close(g_, r_, 2e-2, floor=1.0)
+            hp = ref[0]
+            hk, kn, vn = lk.layer_step(hk, pack, kc, vc, lens, li, **kw)
+            kns.append(kn)
+            vns.append(vn)
+        before = lk.LAUNCHES["model_step"]
+        hm, kn, vn = lk.model_step(h, m_pack, kc, vc, lens, **kw)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES["model_step"] == before + 1
+        assert torch.equal(hm, hk), length
+        assert torch.equal(kn, torch.stack(kns)), length
+        assert torch.equal(vn, torch.stack(vns)), length
+
+
+def test_model_step_graph_replays_are_bitwise(dev):
+    """model_step (3 layers, GQA 32/8, intermediate 8192: a w_down row in
+    two 4096-wide segments) captured in a CUDA graph and replayed 20 times
+    gives the same bits every time, equal to an eager call, and
+    phase="all" is the default call."""
+    layers = _layers(40, 3, 8, dev, kd=8192)
+    m_pack = lk.pack_layers(layers)
+    kc = _randn(41, 3, 1, 8, LAYER_S, 128).to(dev, torch.bfloat16)
+    vc = _randn(42, 3, 1, 8, LAYER_S, 128).to(dev, torch.bfloat16)
+    lens = torch.tensor([300], dtype=torch.int32, device=dev)
+    h = _randn(43, 1, 4096).to(dev)
+    kw = dict(n_heads=32, n_kv_heads=8, head_dim=128)
+    want = lk.model_step(h, m_pack, kc, vc, lens, **kw)
+    same = lk.model_step(h, m_pack, kc, vc, lens, **kw, phase="all")
+    for w_, s_ in zip(want, same):
+        assert torch.equal(w_, s_)
+    out = {}
     torch.cuda.synchronize()
-    assert lk.LAUNCHES["model_step"] == before + 1
-    assert torch.equal(hm, hs)
-    assert torch.equal(kn, torch.stack(kns))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out["y"] = lk.model_step(h, m_pack, kc, vc, lens, **kw)
+    for _ in range(20):
+        graph.replay()
+        torch.cuda.synchronize()
+        for w_, g_ in zip(want, out["y"]):
+            assert torch.equal(w_, g_)
 
 
 def test_engine_on_the_card_matches_the_cpu(dev):
