@@ -7,8 +7,9 @@
 Phases, each printing its own lines; any failure ends the run nonzero:
   1. environment: torch/CUDA versions, nvcc, the card and its power limit;
   2. build: compile csrc/*.cu for sm_90a, one nvcc per source, all at
-     once (seconds, ptxas register lines; the attention kernels' by name,
-     with their shared memory and CTAs per SM);
+     once (seconds, ptxas register lines; the redesigned kernels' by name;
+     the attention kernels', the exact-f32 matvec's and paged decode's
+     shared memory and CTAs per SM);
   3. device quantizer against the NumPy oracle, bit for bit;
   4. every kernel against its plain PyTorch version on the card at the
      paths' shapes: max error, bound, and both times (CUDA events, 20
@@ -16,9 +17,12 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      the 50 MB L2), and a PyTorch call computing the same function where
      one exists; the dequantizing GEMM at every 7B linear and both
      routes' edges, beside torch.matmul on the weight already dequantized
-     (logged), its launches by route logged at the end; 4b. the engine
-     path's kernels (paged decode over bf16,
-     int8 and fp8 pools, masked flash attention: the prompt's length mask,
+     (logged), its launches by route logged at the end; the exact-f32
+     matvecs at every 7B and tinyllama linear (tools/qgemm_bench.py's
+     cases and timing, the split matvec_splits picks); 4b. the engine
+     path's kernels (paged decode over bf16, int8 and fp8 pools at the
+     ragged headline and the Engine's shape, and with GQA 32/8 where its
+     split count is 2 and 8, masked flash attention: the prompt's length mask,
      a chunk mask, the speculative verify window beside SDPA; rope_pack);
      4c. the fused batch-1 decode kernels (int8-activation matvec, fused
      MLP, fused attention, one layer of the layer kernel) at the 7B
@@ -176,29 +180,11 @@ def log(*a):
 
 
 def time_ms(fn, calls: int = 20, replays: int = 5) -> float:
-    """Device time of one call of fn(i), in ms: ``calls`` calls captured
-    into one CUDA graph (so host launch overhead is out of the reading),
-    the graph replayed between CUDA events, median over ``replays``."""
-    import torch
-    for i in range(3):
-        fn(i)                                   # warm-up, outside capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(calls):
-            fn(i)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / calls)
-    del graph
-    return statistics.median(times)
+    """Device time of one call of fn(i), in ms (``utils/bench.py``: ``calls``
+    calls captured into one CUDA graph, the median of ``replays``
+    replays)."""
+    from ggml_cuda_experiments_tpu_torch.utils import bench
+    return bench.time_ms(fn, calls, replays)
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -408,7 +394,8 @@ def phase_build():
     redesigned = ("flash_attention_kernel", "vpu_attention_",
                   "wgmma_gemm_kernel", "flash_decode_partials_kernel",
                   "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane",
-                  "gemm_stream_kernel", "gemm_tc_kernel")
+                  "gemm_stream_kernel", "gemm_tc_kernel", "q4_matvec_kernel",
+                  "paged_decode_kernel")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -423,6 +410,15 @@ def phase_build():
     for dtype, D in ((1, 128), (1, 64), (0, 80), (0, 40)):
         log(f"  vpu_attention_partials_kernel {('f32', 'bf16')[dtype]} "
             f"D={D}: {_info(lib.vpu_attention_info, dtype, D)}")
+    # the exact-f32 matvec (16-byte scale instance) at each K it serves, and
+    # the engine's paged_decode instances (MHA, D 128, a 16-page row)
+    for fmt, K in ((0, 2048), (0, 4096), (0, 5632), (0, 11008), (0, 12288),
+                   (1, 4096)):
+        log(f"  q4_matvec_kernel {('q4_k', 'q4_0')[fmt]} K={K}: "
+            f"{_info(lib.q4_matvec_info, fmt, K)}")
+    for kind in (0, 1, 2):
+        log(f"  paged_decode_kernel {('bf16', 'int8', 'fp8')[kind]} D=128 "
+            f"G=1: {_info(lib.paged_decode_info, kind, 16)}")
 
 
 def phase_quantizer(dev, seed):
@@ -500,7 +496,7 @@ def _gemm_cases(res, spec, fmt, make):
         err, sc = rel_err(y, ref)
         t = qb.gemm_times(qm, fn, x, ws)
         with plain_versions():
-            pms = qb.time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
+            pms = time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
                              replays=3)
         nbytes = ws[0].nbytes + 2 * m * k + 4 * m * n
         res.add(name, f"M={m} N={n} K={k} ({qm.gemm_route(m)}, {len(ws)} "
@@ -512,6 +508,40 @@ def _gemm_cases(res, spec, fmt, make):
             log(f"    torch.matmul of bf16 x [{m}, {k}] against the "
                 f"dequantized bf16 W: {t['matmul_ms']:.4f} ms (the kernel "
                 f"{t['ms'] / t['matmul_ms']:.2f}x)")
+
+
+def _matvec_cases(res, spec, fmt, g, randn):
+    """The exact-f32 matvec of ``fmt`` (q4_k or q4_0) at
+    ``tools/qgemm_bench.py``'s linears, timed as that tool times
+    them: against its plain version at 1e-4 * max, the split
+    ``matvec_splits`` picks logged, the bound by bytes. The headline: the
+    7B w_gu."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    name = qb.MATVECS[fmt]
+    fn = getattr(qm, name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for layer, (n, k) in qb.LINEARS:
+        torch.cuda.empty_cache()
+        ws = qb.matvec_weights(qm, fmt, n, k, g)
+        x = randn(1, k)
+        y = fn(x, ws[0])
+        with plain_versions():
+            ref = fn(x, ws[0])
+        err, sc = rel_err(y, ref)
+        t = qb.matvec_case(qm, fmt, ws, x)
+        with plain_versions():
+            pms = time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
+                          replays=3)
+        res.add(name, f"{layer} N={n} K={k} (splits "
+                f"{qm.matvec_splits(n, k, sms)}, {len(ws)} weight copies)",
+                err, sc, 1e-4, t["ms"], pms,
+                spec.bound_ms(t["bytes"], t["flops"], "f32"),
+                headline=layer == "w_gu")
+        log(f"    {_rate(t['bytes'], t['flops'], t['ms'], 'f32')}")
+        del ws
 
 
 def phase_kernels(dev, seed, res: Results):
@@ -531,29 +561,11 @@ def phase_kernels(dev, seed, res: Results):
     def weight(n, k):
         return qm.quantize(randn(n, k, scale=k ** -0.5))
 
-    # q4k_matvec at every decode linear of llama2-7b (wqkv, wo, w_gu,
-    # w_down, lm_head), then at K/32 outside the reference's repeat-aligned
-    # counts (its _vpu_e_kernel): tinyllama's w_down (K = 5632) and the
-    # unpadded 7B w_down (K = 11008, 50.9 KB of shared memory: the limit is
-    # raised past 48 KB after the smaller calls)
-    for n, k in ((12288, 4096), (4096, 4096), (24576, 4096), (4096, 12288),
-                 (32000, 4096), (2048, 5632), (4096, 11008)):
-        ws = _rotating(lambda i: weight(n, k), weight(8, k).nbytes * n // 8)
-        x = randn(1, k)
-        y = qm.q4k_matvec(x, ws[0])
-        with plain_versions():
-            ref = qm.q4k_matvec(x, ws[0])
-        err, sc = rel_err(y, ref)
-        ms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]))
-        with plain_versions():
-            pms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]))
-        nbytes = ws[0].nbytes + 4 * (k + n)
-        res.add("q4k_matvec", f"N={n} K={k} ({len(ws)} weight copies)",
-                err, sc, 1e-4, ms, pms,
-                spec.bound_ms(nbytes, 2 * n * k, "f32"),
-                headline=(n, k) == (24576, 4096))
-        log(f"    {_rate(nbytes, 2 * n * k, ms)}")
-        del ws
+    # q4k_matvec at every decode linear of llama2-7b (wqkv, W_o, w_gu,
+    # w_down padded and unpadded, the head) and of tinyllama (K = 2048, and
+    # w_down at K = 5632, K/32 outside the reference's repeat-aligned
+    # counts): tools/qgemm_bench.py's cases and timing
+    _matvec_cases(res, spec, "q4_k", g, randn)
 
     # q4k_gemm at every llama2-7b linear: w_gu at both routes' edges (the
     # speculative verify rows, the engine's batch-8 decode, the crossover, a
@@ -688,36 +700,48 @@ def phase_engine_kernels(dev, seed, res: Results):
                 library_ms=lib)
         return ms
 
-    # paged_decode: B = 8, MHA 32/32, D = 128, page 64, ragged lengths up
-    # to 1024 keys over a 2-layer pool of 129 pages (the last one trash)
-    B, H, D, PS, PPS, L = 8, 32, 128, 64, 16, 2
+    # paged_decode at tools/qgemm_bench.py's cases and timing: the headline
+    # (B = 8, MHA 32/32, D = 128, page 64, ragged lengths up to 1024 keys
+    # over a 2-layer pool of 129 pages, the last one spare) on bf16, int8
+    # and fp8 pages, and the Engine's own shape (int8, lengths up to 128):
+    # one split (pick_splits); with GQA 32/8, 2 splits at the headline's
+    # lengths and 8 at B = 2, lengths 1 and 1024 (seven empty splits): the
+    # in-launch merge against the plain version
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    H, D = qb.PAGED_GEOMETRY["H"], qb.PAGED_GEOMETRY["D"]
+    PS, PPS = qb.PAGED_GEOMETRY["ps"], qb.PAGED_GEOMETRY["pps"]
+    B = len(PAGED_LENGTHS)
     n_pages = B * PPS + 1
+    for case, lengths, hkv, fmts in (
+            ("", PAGED_LENGTHS, H, ("bf16", "int8", "fp8")),
+            ("engine, ", qb.ENGINE_LENGTHS, H, ("int8",)),
+            ("", PAGED_LENGTHS, 8, ("bf16", "int8")),
+            ("", (1, 1024), 8, ("bf16", "int8", "fp8"))):
+        n = fd.pick_splits(len(lengths), hkv, PPS * PS, fd._sm_count(0))
+        for fmt in fmts:
+            inputs = qb.paged_inputs(dev, fmt, lengths, hkv, seed=seed + 3)
+            q, kp, vp, lens, pidx, kw = inputs
+            nbytes, flops = qb.paged_bytes(lengths, fmt, hkv)
+            y = pa.paged_decode(q, kp, vp, lens, pidx, layer=1, **kw)
+            with plain_versions():
+                ref = pa.paged_decode(q, kp, vp, lens, pidx, layer=1, **kw)
+            err, sc = rel_err(y, ref)
+            ms = qb.paged_case(pa, inputs)
+            with plain_versions():
+                pms = qb.paged_case(pa, inputs)
+            res.add("paged_decode", f"{case}B={len(lengths)} {H}/{hkv} "
+                    f"D={D} page {PS} {fmt}, len <= {max(lengths)}, "
+                    f"splits {n}", err, sc,
+                    2e-3 if fmt == "bf16" else 2e-2, ms, pms,
+                    spec.bound_ms(nbytes, flops, "bf16"),
+                    headline=not case and hkv == H and fmt == "int8")
+            pages = nbytes - 4 * len(lengths) * (PPS + H * D)
+            log(f"    {pages / ms / 1e6:.0f} GB/s of pages read")
+            del inputs, q, kp, vp, kw
     lens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
     pidx = torch.randperm(n_pages - 1, generator=g, device=dev).reshape(
         B, PPS).to(torch.int32)
     q = randn(B, H, D, dtype=torch.bfloat16)
-    kf, vf = randn(L, n_pages, H, PS, D), randn(L, n_pages, H, PS, D)
-    keys = sum(PAGED_LENGTHS)
-    for fmt in ("bf16", "int8", "fp8"):
-        if fmt == "bf16":
-            kp, vp, kw = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
-        else:
-            kp, ks = llama._quantize_rowwise(kf, fmt)
-            vp, vs = llama._quantize_rowwise(vf, fmt)
-            kw = dict(k_scale_pages=ks, v_scale_pages=vs)
-        # the pages this run's lengths read, q, the table and the output
-        nbytes = keys * H * (2 * D * kp.element_size() + (8 if kw else 0))
-        ms = both("paged_decode",
-                  f"B=8 32/32 D=128 page 64 {fmt}, {n_pages} pages x{L}",
-                  lambda i: pa.paged_decode(q, kp, vp, lens, pidx,
-                                            layer=i % L, **kw),
-                  2e-3 if fmt == "bf16" else 2e-2,
-                  spec.bound_ms(nbytes + 2 * 2 * B * H * D + 4 * B * PPS,
-                                4 * H * keys * D, "bf16"),
-                  headline=fmt == "int8")
-        log(f"    {nbytes / ms / 1e6:.0f} GB/s of pages read")
-        del kp, vp, kw
-    del kf, vf
     # paged_decode on a bf16 pool filled from a contiguous cache against
     # flash_decode on that cache
     kc = randn(1, B, H, PPS * PS, D, dtype=torch.bfloat16)
@@ -1036,12 +1060,11 @@ def phase_format_kernels(dev, seed, res: Results):
     # headline). q80_matvec reproduces its plain version's rounding
     # (bf16(x) * bf16(q d) summed in f32), so it is held to 1e-4 as the
     # exact-f32 ones are; the int8 one's operands equal its plain version's.
+    # (q40_matvec: below, at phase 4's linears.)
     for name, fmt, (n, k), kind, head in (
             ("q80_matvec", "q8_0", (24576, 4096), "bf16", True),
             ("q80_matvec", "q8_0", (32000, 4096), "bf16", False),
             ("q80_matvec", "q8_0", (2048, 5632), "bf16", False),
-            ("q40_matvec", "q4_0", (24576, 4096), "f32", True),
-            ("q40_matvec", "q4_0", (2048, 5632), "f32", False),
             ("q40_q8_matvec", "q4_0", (32000, 4096), "int8", True),
             ("q40_q8_matvec", "q4_0", (24576, 4096), "int8", False)):
         per = 1.0625 if fmt == "q8_0" else 0.5625
@@ -1057,6 +1080,10 @@ def phase_format_kernels(dev, seed, res: Results):
         log(f"    {ws[0].nbytes / 1e6:.1f} MB of weight, "
             f"{_rate(nbytes, 2 * n * k, ms)}")
         del ws
+
+    # q40_matvec at every llama2-7b and tinyllama linear, as q4k_matvec in
+    # phase 4
+    _matvec_cases(res, spec, "q4_0", g, randn)
 
     # the GEMMs at both routes' edges, w_gu [24576, 4096]
     for fmt in ("q8_0", "q4_0"):

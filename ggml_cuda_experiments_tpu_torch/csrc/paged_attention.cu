@@ -8,282 +8,306 @@
 //   offset into the 5-D pool, never a copy. Quantized pages carry f32
 //   per-token scales [(L,) n_pages, Hkv, page_size]: the k scale multiplies
 //   the score row, the v scale the probability row (the row sum l stays
-//   unscaled), as the reference does.
-//   Bound on the H100: bytes. At the engine's 7B shapes (B = 8, MHA, up to
-//   1024 keys) a call reads at most 67 MB of bf16 pages (34 MB int8/fp8),
-//   and does one multiply-add per query head per byte read.
-//   Design: one CTA per (sequence, KV head), 256 CTAs at B = 8 in MHA, so no
-//   split of the keys and no merge pass is needed to fill the card. The CTA
-//   reads its length and page row from device memory (the launch needs no
-//   host value from them) and walks the sequence 64 keys at a time: each
-//   key's K and V rows (and scales) are looked up through the page table and
-//   staged in shared memory as f32 with 16-byte loads; then the G query
-//   heads of the KV head (GQA groups as rows) take the scores, an f32 online
-//   softmax and P.V, as in flash_decode.cu.
-#include <cuda_fp8.h>
-#include <math.h>
+//   unscaled, and p * v_scale stays in f32), as the reference does.
+//   Bound on the H100: bytes: the pages of the valid keys, q, the table and
+//   the output. At the engine's 7B shapes (B = 8, MHA, up to 1024 keys) a
+//   call reads at most 67 MB of bf16 pages (34 MB int8 / fp8).
+//
+// Design: contiguous flash decode's (flash_decode.cu), through kv_tiles.cuh.
+//   Grid (n_splits, B * Hkv), 256 threads; a CTA takes the G query heads of
+//   one KV head. It reads its sequence's length on the card (a captured
+//   graph replays with new lengths), cuts [0, len) into 64-key tiles and
+//   takes its split of them (fd_split; the host picks n_splits with
+//   ops/flash_decode.py::pick_splits from B, Hkv, pps * page_size and the SM
+//   count). A split past its sequence's keys returns at once: it would only
+//   add the LSE identity, which weighs 0 in the merge.
+//   The split's entries of the page table (the sequence's whole row, up to
+//   PD_WHOLE_ROW entries, read beside the length) are read once, clamped,
+//   into shared memory: one lookup a page, not a vector. A tile's K / V rows are
+//   then copied by 16-byte cp.async into the 4-stage ring in their storage
+//   type (a tile is one block of one page at page size 64, whole pages below
+//   it, part of one above), keys past the split zero-filled, and widened in
+//   registers by the warps that own the keys; the warps fold in warp order.
+//   One launch: where one split holds all of a sequence's keys, its CTA
+//   writes its rows of the output. Otherwise each live split's CTA writes
+//   its (o, m, s) partial into the wrapper's scratch and takes a ticket of
+//   its (sequence, KV head); the CTA that draws the last ticket folds the
+//   partials in split order with the guarded combine of ops/lse.py (a split
+//   with m = -inf weighs 0, never NaN), writes the output and puts the
+//   ticket back to 0 (tickets: ops/paged_attention.py, int32 [65535], the
+//   grid's limit on B * Hkv, made once a device outside any graph capture).
+#include "kv_tiles.cuh"
 
-#include "common.cuh"
+constexpr int PD_SMEM_MAX = 232448;   // dynamic shared memory a block may use
 
-constexpr int PD_THREADS = 128;
-constexpr int PD_WARPS = PD_THREADS / 32;
-constexpr int PD_CHUNK = 64;        // keys staged per online-softmax step
-constexpr int PD_MAXG = 16;         // query heads per KV head
-
-enum { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
-
-template <int KIND> struct PdElem { typedef bf16 T; };
-template <> struct PdElem<KV_INT8> { typedef int8_t T; };
-template <> struct PdElem<KV_FP8> { typedef __nv_fp8_storage_t T; };
-
-// 16 bytes of pool elements -> 16 / sizeof(element) floats
-template <int KIND>
-__device__ __forceinline__ void unpack16(const uint4& u, float* f) {
-  if constexpr (KIND == KV_BF16) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(p[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  } else if constexpr (KIND == KV_INT8) {
-    const int8_t* p = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = (float)p[i];
-  } else {
-    const __nv_fp8_storage_t* p =
-        reinterpret_cast<const __nv_fp8_storage_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      __nv_fp8_e4m3 x;
-      x.__x = p[i];
-      f[i] = static_cast<float>(x);
-    }
-  }
-}
-
-template <int D>
-struct PdSmem {
-  static constexpr int LDK = D + 4;   // f32 K rows: conflict-free float4 reads
-  static constexpr int FLOATS = PD_MAXG * D + PD_CHUNK * LDK + PD_CHUNK * D +
-                                PD_MAXG * PD_CHUNK + 2 * PD_CHUNK;
-  static constexpr int BYTES = FLOATS * 4;
+// the (o, m, s) partial of (bh, split) in the scratch: o [bhs][G][D], then
+// m [bhs][G], then s [bhs][G] (bhs = B * Hkv * n_splits)
+struct PdPart {
+  float* o;
+  float* m;
+  float* s;
 };
 
-template <int KIND, int D>
-__global__ void __launch_bounds__(PD_THREADS)
-paged_decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kp,
-                    const void* __restrict__ vp,
+template <int KIND, int GP, int D>
+__global__ void __launch_bounds__(FD_THREADS, 1)
+paged_decode_kernel(const bf16* __restrict__ q,
+                    const unsigned char* __restrict__ kp,
+                    const unsigned char* __restrict__ vp,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ lengths,
                     const int* __restrict__ page_indices,
-                    bf16* __restrict__ out, int Hq, int Hkv, int n_pages,
-                    int ps, int pps, int layer, float scale) {
-  typedef typename PdElem<KIND>::T Elem;
-  using L = PdSmem<D>;
-  constexpr int EPV = 16 / sizeof(Elem);         // elements per 16 bytes
-  constexpr int VPR = D / EPV;                   // 16-byte vectors per row
-  constexpr int PT = PD_MAXG * D / PD_THREADS;   // (head, d) outputs/thread
-  extern __shared__ __align__(16) float pd_smem[];
-  float* q_sm = pd_smem;                         // [G][D]
-  float* k_sm = q_sm + PD_MAXG * D;              // [CHUNK][LDK]
-  float* v_sm = k_sm + PD_CHUNK * L::LDK;        // [CHUNK][D]
-  float* p_sm = v_sm + PD_CHUNK * D;             // [G][CHUNK]
-  float* ks_sm = p_sm + PD_MAXG * PD_CHUNK;      // [CHUNK]
-  float* vs_sm = ks_sm + PD_CHUNK;               // [CHUNK]
-  __shared__ float m_sm[PD_MAXG], l_sm[PD_MAXG], a_sm[PD_MAXG];
+                    bf16* __restrict__ out, PdPart part,
+                    unsigned* __restrict__ tickets, int Hq, int Hkv,
+                    int n_pages, int ps, int pps, int layer, int n_splits,
+                    int whole_row, float scale) {
+  constexpr bool QUANT = KIND != FD_BF16;
+  constexpr int ROW = FdTile<KIND, D>::ROW;    // bytes of a K / V row
+  constexpr int KV = FdTile<KIND, D>::KV;      // bytes of a K (or V) tile
+  constexpr int STAGE = FdTile<KIND, D>::STAGE;
 
-  const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
+  extern __shared__ __align__(16) unsigned char fd_smem[];
+  unsigned char* ring = fd_smem;
+  int* pl = reinterpret_cast<int*>(fd_smem + fd_smem_bytes<KIND, GP, D>());
+  __shared__ bool last;
+
+  // the splits of one (sequence, KV head) are neighbours in launch order
+  const int sp = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / Hkv, h = bh % Hkv;
   const int G = Hq / Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  const Elem* kpool = static_cast<const Elem*>(kp);
-  const Elem* vpool = static_cast<const Elem*>(vp);
-  const int* prow = page_indices + (size_t)b * pps;
-  const size_t layer_pages = (size_t)layer * n_pages;
-
-  for (int i = tid; i < G * D; i += PD_THREADS)
-    q_sm[i] = __bfloat162float(qg[i]);
-  if (tid < G) {
-    m_sm[tid] = -INFINITY;
-    l_sm[tid] = 0.f;
-  }
-  float acc[PT];
-#pragma unroll
-  for (int i = 0; i < PT; ++i) acc[i] = 0.f;
-  const int len = min(lengths[b], pps * ps);
-  __syncthreads();
-
-  for (int c0 = 0; c0 < len; c0 += PD_CHUNK) {
-    const int nk = min(PD_CHUNK, len - c0);
-    // stage this chunk's K / V rows (and scales) through the page table
-    for (int i = tid; i < PD_CHUNK * VPR; i += PD_THREADS) {
-      const int j = i / VPR, c = (i % VPR) * EPV;
-      float kf[EPV], vf[EPV];
-      if (j < nk) {
-        const int pos = c0 + j;
-        const int page = min(prow[pos / ps], n_pages - 1);
-        const size_t row =
-            ((layer_pages + page) * Hkv + h) * (size_t)ps + pos % ps;
-        unpack16<KIND>(*reinterpret_cast<const uint4*>(kpool + row * D + c),
-                       kf);
-        unpack16<KIND>(*reinterpret_cast<const uint4*>(vpool + row * D + c),
-                       vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPV; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < EPV; e += 4) {
-        *reinterpret_cast<float4*>(k_sm + j * L::LDK + c + e) =
-            make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-        *reinterpret_cast<float4*>(v_sm + j * D + c + e) =
-            make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
-      }
-    }
-    if (KIND != KV_BF16) {
-      for (int j = tid; j < PD_CHUNK; j += PD_THREADS) {
-        float ks = 0.f, vs = 0.f;
-        if (j < nk) {
-          const int pos = c0 + j;
-          const int page = min(prow[pos / ps], n_pages - 1);
-          const size_t row =
-              ((layer_pages + page) * Hkv + h) * (size_t)ps + pos % ps;
-          ks = k_scale[row];
-          vs = v_scale[row];
-        }
-        ks_sm[j] = ks;
-        vs_sm[j] = vs;
-      }
-    }
-    __syncthreads();
-    // scores, one thread per (head, key); keys past the length are -inf
-    for (int i = tid; i < G * PD_CHUNK; i += PD_THREADS) {
-      const int g = i / PD_CHUNK, j = i % PD_CHUNK;
-      float s = -INFINITY;
-      if (j < nk) {
-        const float4* qr = reinterpret_cast<const float4*>(q_sm + g * D);
-        const float4* kr = reinterpret_cast<const float4*>(k_sm + j * L::LDK);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D / 4; ++d) {
-          const float4 a = qr[d], k4 = kr[d];
-          dot += a.x * k4.x + a.y * k4.y + a.z * k4.z + a.w * k4.w;
-        }
-        s = KIND == KV_BF16 ? dot * scale : dot * (ks_sm[j] * scale);
-      }
-      p_sm[g * PD_CHUNK + j] = s;
-    }
-    __syncthreads();
-    // online softmax, one warp per query head; the chunk holds at least one
-    // key, so m_new is finite. P.V takes p * v_scale, l takes p.
-    for (int g = warp; g < G; g += PD_WARPS) {
-      float* pr = p_sm + g * PD_CHUNK;
-      const float s0 = pr[lane], s1 = pr[lane + 32];
-      const float m_old = m_sm[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-      const float psum = warp_sum(p0 + p1);
-      pr[lane] = KIND == KV_BF16 ? p0 : p0 * vs_sm[lane];
-      pr[lane + 32] = KIND == KV_BF16 ? p1 : p1 * vs_sm[lane + 32];
-      if (lane == 0) {
-        m_sm[g] = m_new;
-        l_sm[g] = l_sm[g] * alpha + psum;
-        a_sm[g] = alpha;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P . V, one thread per (head, d)
-#pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      const int idx = tid + i * PD_THREADS;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx % D;
-        const float* pr = p_sm + g * PD_CHUNK;
-        float a = acc[i] * a_sm[g];
-        for (int j = 0; j < nk; ++j) a += pr[j] * v_sm[j * D + d];
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
+  const int tid = threadIdx.x;
+  const size_t pi = (size_t)bh * n_splits + sp;     // my partial
   bf16* og = out + ((size_t)b * Hq + (size_t)h * G) * D;
+  const int* prow = page_indices + (size_t)b * pps;
+
+  // the length, and (whole_row) the sequence's whole row of the page table,
+  // clamped, in flight together
+  const int len_b = lengths[b];
+  if (whole_row)
+    for (int i = tid; i < pps; i += FD_THREADS)
+      pl[i] = min(prow[i], n_pages - 1);
+  const int len = max(0, min(len_b, pps * ps));
+  int t0, t1;
+  fd_split(len, n_splits, sp, &t0, &t1);
+  // the splits that hold keys; one of them writes the output itself
+  const int tiles = (len + FD_TILE - 1) / FD_TILE;
+  const int per = (tiles + n_splits - 1) / n_splits;
+  const int live = per ? (tiles + per - 1) / per : 0;
+  if (sp >= max(live, 1)) return;           // no key, nothing to merge
+  const bool direct = live <= 1;
+  if (t0 < t1) {
+    const int hi = min(t1 * FD_TILE, len);    // the split's keys: [t0*64, hi)
+    // the table entries in shared memory start at page `first`: the whole
+    // row, or the split's own pages
+    const int first = whole_row ? 0 : t0 * FD_TILE / ps;
+    if (!whole_row)
+      for (int i = tid, np = (hi - 1) / ps - first + 1; i < np;
+           i += FD_THREADS)
+        pl[i] = min(prow[first + i], n_pages - 1);
+    __syncthreads();
+    const size_t layer_pages = (size_t)layer * n_pages;
+    // the pool row (in rows of D elements, and in scales) of offset o of
+    // table slot `slot`
+    auto row_at = [&](int slot, int o) -> size_t {
+      return ((layer_pages + pl[slot - first]) * Hkv + h) * (size_t)ps + o;
+    };
+    // tile `t` into stage `st`: K and V rows (keys >= hi zero-filled),
+    // scales; one division a tile, more only where the tile crosses pages
+    auto issue = [&](int t, int st) {
+      const unsigned dst = fd_smem_u32(ring + st * STAGE);
+      const int key0 = t * FD_TILE, s0 = key0 / ps, o0 = key0 - s0 * ps;
+      auto row_of = [&](int kk) -> size_t {
+        int slot = s0, o = o0 + kk;
+        if (o >= ps) {
+          const int d = o / ps;
+          slot += d;
+          o -= d * ps;
+        }
+        return row_at(slot, o);
+      };
 #pragma unroll
-  for (int i = 0; i < PT; ++i) {
-    const int idx = tid + i * PD_THREADS;
-    if (idx < G * D) {
-      const float l = l_sm[idx / D];
-      og[idx] = __float2bfloat16(acc[i] / (l == 0.f ? 1.f : l));
-    }
+      for (int i = 0; i < KV / 16 / FD_THREADS; ++i) {
+        const int c = tid + i * FD_THREADS, kk = c / (ROW / 16);
+        const bool ok = key0 + kk < hi;
+        const size_t off = ok ? row_of(kk) * ROW + (c % (ROW / 16)) * 16 : 0;
+        fd_cp_async<16>(dst + c * 16, kp + off, ok);
+        fd_cp_async<16>(dst + KV + c * 16, vp + off, ok);
+      }
+      if (QUANT && tid < 2 * FD_TILE) {
+        const int j = tid & (FD_TILE - 1);
+        const bool ok = key0 + j < hi;
+        const float* src =
+            (tid < FD_TILE ? k_scale : v_scale) + (ok ? row_of(j) : 0);
+        fd_cp_async<4>(
+            dst + 2 * KV + (tid < FD_TILE ? 0 : FD_TILE * 4) + j * 4, src,
+            ok);
+      }
+    };
+    const bf16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
+    fd_attend<KIND, GP, D>(
+        fd_smem, qg, G, t0, t1 - t0, hi, 0, scale, issue,
+        [&](int i, int g, float acc, float mx, float sum) {
+          if (direct) {
+            og[i] = __float2bfloat16(acc / (sum == 0.f ? 1.f : sum));
+            return;
+          }
+          part.o[pi * G * D + i] = acc;
+          if (i % D == 0) {
+            part.m[pi * G + g] = mx;
+            part.s[pi * G + g] = sum;
+          }
+        });
+  } else {                                  // no key at all: zeros
+    for (int i = tid; i < G * D; i += FD_THREADS)
+      og[i] = __float2bfloat16(0.f);
   }
+  if (direct) return;
+
+  // the partial before the ticket; the last of the live splits merges
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + bh, 1u) == (unsigned)live - 1;
+  __syncthreads();
+  if (!last) return;                        // uniform: the CTA returns together
+  __threadfence();
+  const size_t p0 = (size_t)bh * n_splits;
+  for (int i = tid; i < G * D; i += FD_THREADS) {
+    const int g = i / D;
+    float mx = -INFINITY;
+    for (int s = 0; s < live; ++s)
+      mx = fmaxf(mx, __ldcg(part.m + (p0 + s) * G + g));
+    float acc = 0.f, sum = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float ms = __ldcg(part.m + (p0 + s) * G + g);
+      const float w = ms == -INFINITY ? 0.f : expf(ms - mx);
+      sum += __ldcg(part.s + (p0 + s) * G + g) * w;
+      acc += __ldcg(part.o + (p0 + s) * G * D + i) * w;
+    }
+    og[i] = __float2bfloat16(acc / (sum == 0.f ? 1.f : sum));
+  }
+  if (tid == 0) tickets[bh] = 0u;
+}
+
+// the page-list entries a split may need: a split spans at most
+// ceil(ceil(pps * ps / 64) / n_splits) tiles, which touch at most
+// (span - 1) / ps + 2 pages (and never more than pps)
+static int pd_pages_cap(int ps, int pps, int n_splits) {
+  const long long tiles = ((long long)pps * ps + FD_TILE - 1) / FD_TILE;
+  const long long span = (tiles + n_splits - 1) / n_splits * FD_TILE;
+  const long long cap = (span - 1) / ps + 2;
+  return (int)(cap < pps ? cap : pps);
+}
+
+// rows of the page table up to this many entries are read whole, beside the
+// length (one round trip less a CTA)
+constexpr int PD_WHOLE_ROW = 1024;
+
+template <int KIND, int GP, int D>
+static int launch_paged(const bf16* q, const void* kp, const void* vp,
+                        const float* ks, const float* vs, const int* lengths,
+                        const int* page_indices, bf16* out, float* part,
+                        unsigned* tickets, int B, int Hq, int Hkv,
+                        int n_pages, int ps, int pps, int layer, int n_splits,
+                        float scale, cudaStream_t stream) {
+  static int granted = 0;
+  const int whole_row = pps <= PD_WHOLE_ROW;
+  const int smem = fd_smem_bytes<KIND, GP, D>() +
+                   4 * (whole_row ? pps : pd_pages_cap(ps, pps, n_splits));
+  if (smem > PD_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = paged_decode_kernel<KIND, GP, D>;
+  cudaError_t e = allow_smem(kernel, smem, &granted);
+  if (e != cudaSuccess) return (int)e;
+  const size_t bhs = (size_t)B * Hkv * n_splits, G = Hq / Hkv;
+  const PdPart pp = part ? PdPart{part, part + bhs * G * D,
+                                   part + bhs * G * (D + 1)}
+                          : PdPart{nullptr, nullptr, nullptr};
+  kernel<<<dim3(n_splits, B * Hkv), FD_THREADS, smem, stream>>>(
+      q, static_cast<const unsigned char*>(kp),
+      static_cast<const unsigned char*>(vp), ks, vs, lengths, page_indices,
+      out, pp, tickets, Hq, Hkv, n_pages, ps, pps, layer, n_splits,
+      whole_row, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int KIND, int D>
-static int launch_paged(const bf16* q, const void* kp, const void* vp,
-                        const float* ks, const float* vs, const int* lengths,
-                        const int* page_indices, bf16* out, int B, int Hq,
-                        int Hkv, int n_pages, int ps, int pps, int layer,
-                        float scale, cudaStream_t stream) {
-  static int granted = 0;
-  constexpr int smem = PdSmem<D>::BYTES;
-  cudaError_t e = allow_smem(paged_decode_kernel<KIND, D>, smem, &granted);
-  if (e != cudaSuccess) return (int)e;
-  paged_decode_kernel<KIND, D><<<B * Hkv, PD_THREADS, smem, stream>>>(
-      q, kp, vp, ks, vs, lengths, page_indices, out, Hq, Hkv, n_pages, ps,
-      pps, layer, scale);
-  return (int)cudaGetLastError();
+static int launch_paged_g(const bf16* q, const void* kp, const void* vp,
+                          const float* ks, const float* vs,
+                          const int* lengths, const int* page_indices,
+                          bf16* out, float* part, unsigned* tickets, int B,
+                          int Hq, int Hkv, int n_pages, int ps, int pps,
+                          int layer, int n_splits, float scale,
+                          cudaStream_t st) {
+#define PD_GP(GPV)                                                            \
+  launch_paged<KIND, GPV, D>(q, kp, vp, ks, vs, lengths, page_indices, out,   \
+                             part, tickets, B, Hq, Hkv, n_pages, ps, pps,     \
+                             layer, n_splits, scale, st)
+  const int G = Hq / Hkv;
+  if (G == 1) return PD_GP(1);
+  if (G == 2) return PD_GP(2);
+  if (G <= 4) return PD_GP(4);
+  if (G <= 8) return PD_GP(8);
+  return PD_GP(16);
+#undef PD_GP
 }
 
 template <int KIND>
 static int launch_paged_d(const bf16* q, const void* kp, const void* vp,
                           const float* ks, const float* vs,
                           const int* lengths, const int* page_indices,
-                          bf16* out, int B, int Hq, int Hkv, int n_pages,
-                          int ps, int D, int pps, int layer, float scale,
+                          bf16* out, float* part, unsigned* tickets, int B,
+                          int Hq, int Hkv, int n_pages, int ps, int D,
+                          int pps, int layer, int n_splits, float scale,
                           cudaStream_t st) {
   if (D == 128)
-    return launch_paged<KIND, 128>(q, kp, vp, ks, vs, lengths, page_indices,
-                                   out, B, Hq, Hkv, n_pages, ps, pps, layer,
-                                   scale, st);
-  if (D == 64)
-    return launch_paged<KIND, 64>(q, kp, vp, ks, vs, lengths, page_indices,
-                                  out, B, Hq, Hkv, n_pages, ps, pps, layer,
-                                  scale, st);
-  return (int)cudaErrorInvalidValue;
+    return launch_paged_g<KIND, 128>(q, kp, vp, ks, vs, lengths, page_indices,
+                                     out, part, tickets, B, Hq, Hkv, n_pages,
+                                     ps, pps, layer, n_splits, scale, st);
+  return launch_paged_g<KIND, 64>(q, kp, vp, ks, vs, lengths, page_indices,
+                                  out, part, tickets, B, Hq, Hkv, n_pages, ps,
+                                  pps, layer, n_splits, scale, st);
 }
 
-// kv_kind: 0 bf16 pages, 1 int8, 2 fp8 e4m3 (1 and 2 need the scales)
+// kv_kind: 0 bf16 pages, 1 int8, 2 fp8 e4m3 (1 and 2 need the scales).
+// part: f32 scratch of B * Hkv * n_splits * (Hq / Hkv) * (D + 2) and
+// tickets: at least B * Hkv zeroed uint32, both needed only when
+// n_splits > 1.
 GCT_EXPORT int paged_decode(const bf16* q, const void* k_pages,
                             const void* v_pages, const float* k_scale,
                             const float* v_scale, const int* lengths,
-                            const int* page_indices, bf16* out, int B, int Hq,
-                            int Hkv, int n_pages, int page_size, int D,
-                            int pages_per_seq, int layer, int kv_kind,
-                            float scale, void* stream) {
-  if (Hq % Hkv || Hq / Hkv > PD_MAXG || page_size < 1 || n_pages < 1 ||
-      (kv_kind != KV_BF16 && (!k_scale || !v_scale)))
+                            const int* page_indices, bf16* out, float* part,
+                            unsigned* tickets, int B, int Hq, int Hkv,
+                            int n_pages, int page_size, int D,
+                            int pages_per_seq, int layer, int n_splits,
+                            int kv_kind, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > FD_MAXG ||
+      (D != 64 && D != 128) || page_size < 1 || n_pages < 1 ||
+      pages_per_seq < 1 || n_splits < 1 || B * Hkv > 65535 ||
+      (n_splits > 1 && (!part || !tickets)) ||
+      (kv_kind != FD_BF16 && (!k_scale || !v_scale)) ||
+      (((uintptr_t)k_pages | (uintptr_t)v_pages) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define PD_KIND(K)                                                            \
+  launch_paged_d<K>(q, k_pages, v_pages, k_scale, v_scale, lengths,           \
+                    page_indices, out, part, tickets, B, Hq, Hkv, n_pages,    \
+                    page_size, D, pages_per_seq, layer, n_splits, scale, st)
   switch (kv_kind) {
-    case KV_BF16:
-      return launch_paged_d<KV_BF16>(q, k_pages, v_pages, k_scale, v_scale,
-                                     lengths, page_indices, out, B, Hq, Hkv,
-                                     n_pages, page_size, D, pages_per_seq,
-                                     layer, scale, st);
-    case KV_INT8:
-      return launch_paged_d<KV_INT8>(q, k_pages, v_pages, k_scale, v_scale,
-                                     lengths, page_indices, out, B, Hq, Hkv,
-                                     n_pages, page_size, D, pages_per_seq,
-                                     layer, scale, st);
-    case KV_FP8:
-      return launch_paged_d<KV_FP8>(q, k_pages, v_pages, k_scale, v_scale,
-                                    lengths, page_indices, out, B, Hq, Hkv,
-                                    n_pages, page_size, D, pages_per_seq,
-                                    layer, scale, st);
+    case FD_BF16: return PD_KIND(FD_BF16);
+    case FD_INT8: return PD_KIND(FD_INT8);
+    case FD_FP8: return PD_KIND(FD_FP8);
   }
+#undef PD_KIND
   return (int)cudaErrorInvalidValue;
+}
+
+// registers, shared memory and occupancy of the engine's instance (MHA,
+// D 128) of kv_kind with `pages` page-list entries (kernel_info)
+GCT_EXPORT int paged_decode_info(int kv_kind, int pages, int* out) {
+#define PD_INFO(K)                                                           \
+  kernel_info(paged_decode_kernel<K, 1, 128>, FD_THREADS,                    \
+              fd_smem_bytes<K, 1, 128>() + 4 * pages, out)
+  if (kv_kind == FD_INT8) return PD_INFO(FD_INT8);
+  if (kv_kind == FD_FP8) return PD_INFO(FD_FP8);
+  return PD_INFO(FD_BF16);
+#undef PD_INFO
 }

@@ -83,32 +83,55 @@ struct Q80 {
   }
 };
 
-// The grid of a matvec that walks its rows over every warp of the grid:
-// N / (rows per CTA) CTAs, capped at the CTAs that are resident at this
-// shared-memory size (queried once per size and kept in *c).
+// The CTAs of a kernel resident on one SM at a dynamic shared-memory size,
+// and the SM count: queried once per size and kept in *c (a model that
+// alternates K, as tinyllama's 2048 / 5632 linears do, pays the host query
+// once per K and never again).
 struct GridCap {
-  int granted = 0, sms = 0, per_sm = 0, for_smem = -1;
+  static constexpr int SLOTS = 8;
+  int granted = 0, sms = 0, used = 0;
+  int smem[SLOTS] = {}, per_sm[SLOTS] = {};
 };
 
 template <typename Kernel>
-static cudaError_t grid_for(Kernel kernel, int threads, int smem, int N,
-                            GridCap* c, int* grid) {
+static cudaError_t resident_ctas(Kernel kernel, int threads, int smem,
+                                 GridCap* c, int* per_sm) {
   cudaError_t e = allow_smem(kernel, smem, &c->granted);
   if (e != cudaSuccess) return e;
-  if (c->for_smem != smem) {
-    int dev = 0;
+  const int n = c->used < GridCap::SLOTS ? c->used : GridCap::SLOTS;
+  for (int i = 0; i < n; ++i)
+    if (c->smem[i] == smem) {
+      *per_sm = c->per_sm[i];
+      return cudaSuccess;
+    }
+  int dev = 0, got = 0;
+  if (c->sms == 0) {
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
       return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &c->per_sm, kernel, threads, smem)) != cudaSuccess)
-      return e;
-    if (c->per_sm < 1) return cudaErrorInvalidConfiguration;
-    c->for_smem = smem;
   }
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &got, kernel, threads, smem)) != cudaSuccess)
+    return e;
+  if (got < 1) return cudaErrorInvalidConfiguration;
+  const int slot = c->used++ % GridCap::SLOTS;
+  c->smem[slot] = smem;
+  c->per_sm[slot] = got;
+  *per_sm = got;
+  return cudaSuccess;
+}
+
+// The grid of a matvec that walks its rows over every warp of the grid:
+// N / (rows per CTA) CTAs, capped at the CTAs that are resident.
+template <typename Kernel>
+static cudaError_t grid_for(Kernel kernel, int threads, int smem, int N,
+                            GridCap* c, int* grid) {
+  int per_sm = 0;
+  cudaError_t e = resident_ctas(kernel, threads, smem, c, &per_sm);
+  if (e != cudaSuccess) return e;
   const int rows = threads / 32;
   *grid = (N + rows - 1) / rows;
-  if (*grid > c->per_sm * c->sms) *grid = c->per_sm * c->sms;
+  if (*grid > per_sm * c->sms) *grid = per_sm * c->sms;
   return cudaSuccess;
 }

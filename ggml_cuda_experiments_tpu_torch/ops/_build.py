@@ -39,12 +39,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every entry returns int (a cudaError_t)
 SIGNATURES = {
-    # x, qs, es, em, y, N, K, stream
-    "q4k_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # x, qs, es, em, y, N, K, splits, stream
+    "q4k_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, qs, es, em, y, M, N, K, route, stream
     "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # the 32-block formats (fp16 d): x, qs, d, y, N, K, stream
-    "q40_matvec": (_P, _P, _P, _P, _I, _I, _P),
+    # the 32-block formats (fp16 d): x, qs, d, y, N, K, [splits,] stream
+    "q40_matvec": (_P, _P, _P, _P, _I, _I, _I, _P),
     "q80_matvec": (_P, _P, _P, _P, _I, _I, _P),
     "q40_q8_matvec": (_P, _P, _P, _P, _I, _I, _P),
     # x, qs, d, y, M, N, K, route, stream
@@ -67,10 +67,10 @@ SIGNATURES = {
     # y, C, S2, qo, ko, vo, T, nH, nKV, D, stream
     "rope_pack": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
-    # B, Hq, Hkv, n_pages, page_size, D, pages_per_seq, layer, kv_kind,
-    # scale, stream
-    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _F, _P),
+    # part scratch, tickets, B, Hq, Hkv, n_pages, page_size, D,
+    # pages_per_seq, layer, n_splits, kv_kind, scale, stream
+    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _F, _P),
     # x, qs, es, em, y, N, K, stream
     "q4k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     # x, w_gu qs/es/em, w_down qs/es/em, ygu scratch, y, Kg, Kd, Nd, stream
@@ -118,6 +118,9 @@ SIGNATURES = {
     "mosaic_probe": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     # registers, shared memory and occupancy (int[7]): K / mode, K
     "q4k_q8_matvec_info": (_I, _P),
+    # format (0 q4_k, 1 q4_0), K; kv_kind, page-list entries
+    "q4_matvec_info": (_I, _I, _P),
+    "paged_decode_info": (_I, _I, _P),
     "q80_matvec_info": (_I, _P),
     "q4_ladder_info": (_I, _I, _P),
     # D / dtype, D

@@ -85,11 +85,12 @@ def _layer_view(k, v, layer, k_scale=None, v_scale=None):
 
 
 def _partials_ref(q, k, v, lengths, scale, n_splits, k_scale=None,
-                  v_scale=None):
+                  v_scale=None, round_pv=None):
     """Plain per-split partials: o [B, Hkv, n, G, D], m/s [B, Hkv, n, G, 1]
     f32, splitting each sequence's valid keys into n spans of whole 64-key
     tiles like the kernel (``split_tiles``). With scales (a quantized
-    cache), the scale path of the module docstring."""
+    cache), the scale path of the module docstring; ``round_pv`` (default:
+    G > 1) rounds p * v_scale to bf16."""
     B, Hq, D = q.shape
     _, Hkv, S, _ = k.shape
     G = Hq // Hkv
@@ -114,7 +115,7 @@ def _partials_ref(q, k, v, lengths, scale, n_splits, k_scale=None,
         pv = p
         if v_scale is not None:
             pv = p * v_scale[:, :, None, :]
-            if G > 1:
+            if (G > 1) if round_pv is None else round_pv:
                 pv = pv.to(torch.bfloat16).float()
         vi = torch.where(inside[:, :, 0, :, None], v.float(), 0.0)
         os_.append(torch.einsum("bhgs,bhsd->bhgd", pv, vi))

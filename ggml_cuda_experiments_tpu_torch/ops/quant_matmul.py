@@ -25,7 +25,9 @@ Kernels:
 - ``q4k_matvec`` / ``q40_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact
   f32 activations; replace the reference's ``_chunk_kernel``,
   ``_vpu2_kernel`` and, at K/32 outside its repeat-aligned counts
-  (tinyllama's w_down), ``_vpu_e_kernel``.
+  (tinyllama's w_down), ``_vpu_e_kernel``. A persistent grid of 4-row
+  warps; where rows are few, each row's blocks split over
+  ``matvec_splits`` warps of a CTA and folded in split order.
 - ``q80_matvec`` (``csrc/q80_matvec.cu``) — q8_0, B = 1, the reference's
   ``_mxu_kernel`` rounding: sum_j bf16(x_j) * bf16(q_j * d) in f32; also
   takes its any-K ``_vpu_e_kernel`` route.
@@ -66,6 +68,7 @@ import numpy as np
 import torch
 
 from ggml_cuda_experiments_tpu_torch.ops import _build
+from ggml_cuda_experiments_tpu_torch.ops.flash_decode import _sm_count
 from ggml_cuda_experiments_tpu_torch.oracle.quant import QK, QK6, QK_K
 from ggml_cuda_experiments_tpu_torch.utils.platform import (
     kernels_for, resolve_device)
@@ -538,12 +541,49 @@ def _check_weight(ql: QuantLinear, x: torch.Tensor, fmt: str = "q4_k"
     return n, k
 
 
+# The exact-f32 matvec's plan (csrc/q4k_matmul.cu): a warp takes
+# MV_ROWS rows at once, a CTA MV_WARPS warps, and about MV_WARPS_PER_SM
+# warps are resident an SM (2 CTAs). Where the row groups are too few to
+# give every resident warp one, each row's blocks are split over
+# ``matvec_splits`` warps of one CTA.
+MV_ROWS = 4
+MV_WARPS = 8
+MV_WARPS_PER_SM = 16
+
+
+def matvec_splits(n: int, k: int, sms: int) -> int:
+    """Warps a row's 32-blocks are split over in ``q4k_matvec`` /
+    ``q40_matvec``: the fewest (1, 2, 4 or 8) that give about
+    ``MV_WARPS_PER_SM`` busy warps an SM, each split keeping at least 32
+    blocks (one block a lane). A plain function of N, K and the SM count."""
+    if n < 1 or k < 32 or k % 32 or sms < 1:
+        raise ValueError(f"matvec_splits: N {n}, K {k}, SMs {sms}")
+    groups = -(-n // MV_ROWS)
+    most = max(1, min(MV_WARPS, k // 32 // 32))
+    s = 1
+    while 2 * s <= most and groups * s < sms * MV_WARPS_PER_SM:
+        s *= 2
+    return s
+
+
+def matvec_blocks(k: int, splits: int) -> list[tuple[int, int]]:
+    """The 32-blocks [b0, b1) of each split of a row, in split order (the
+    kernel's rule: split s takes [s KB / S, (s + 1) KB / S), counted in
+    groups of 8 blocks where KB is a multiple of 8, so that each split's
+    scales start on 16 bytes)."""
+    kb = k // 32
+    u = 1 if kb % 8 else 8
+    return [(u * (s * (kb // u) // splits), u * ((s + 1) * (kb // u) // splits))
+            for s in range(splits)]
+
+
 def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
             dtype: torch.dtype, gemm: bool = False) -> torch.Tensor:
     """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight,
     launch the C entry ``name`` (x, qs, its scale arrays, y, [M,] N, K,
-    [route,] stream) and count the launch; a GEMM takes ``gemm_route``'s
-    route and needs x on 16 bytes."""
+    [route | splits,] stream) and count the launch; a GEMM takes
+    ``gemm_route``'s route and needs x on 16 bytes, the exact-f32 matvecs
+    ``matvec_splits``' split."""
     n, k = _check_weight(ql, x, fmt)
     if x.dtype != dtype or (x.shape[0] != 1 and not gemm):
         raise ValueError(f"{name}: x must be {dtype} "
@@ -555,15 +595,24 @@ def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
         raise ValueError(f"{name}: x must start on 16 bytes")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     scales = (ql.es, ql.em) if fmt == "q4_k" else (ql.d,)
+    if gemm:
+        extra = (GEMM_ROUTE_ID[route],)
+    elif name in _SPLIT_MATVECS:
+        extra = (matvec_splits(n, k, _sm_count(x.device.index or 0)),)
+    else:
+        extra = ()
     rc = getattr(_build.lib(), name)(
         x.data_ptr(), ql.qs.data_ptr(), *(t.data_ptr() for t in scales),
-        y.data_ptr(), *((m,) if gemm else ()), n, k,
-        *((GEMM_ROUTE_ID[route],) if gemm else ()), _build.stream_of(x))
+        y.data_ptr(), *((m,) if gemm else ()), n, k, *extra,
+        _build.stream_of(x))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     if gemm:
         GEMM_ROUTE_LAUNCHES[route] += 1
     return y
+
+
+_SPLIT_MATVECS = ("q4k_matvec", "q40_matvec")
 
 
 def q4k_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:

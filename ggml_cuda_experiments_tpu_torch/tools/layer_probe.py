@@ -20,9 +20,10 @@ weight copies in turn, so a chain streams past the 50 MB L2), the median of
 weights and the valid K / V rows over the card's HBM rate. With
 ``--model-layers N`` it also times ``model_step`` over N distinct layers
 for each variant. The card's name and power limit first, one JSON line of
-every time last. A checkout without the ``phase`` argument (``--root``) is
-timed on "all" and mega2 alone. ``--cpu`` checks the arguments, prints the
-plan and its bounds and times nothing. Without ``--cpu`` it needs a card.
+every time last. ``--root`` times through that checkout's package, its
+timer ``utils/bench.py::time_ms`` included; a checkout without the
+``phase`` argument is timed on "all" and mega2 alone. ``--cpu`` checks the
+arguments, prints the plan and its bounds and times nothing. Without ``--cpu`` it needs a card.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import argparse
 import inspect
 import json
 import os
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -89,16 +89,6 @@ def parse(argv):
     return args
 
 
-def time_ms(call, calls: int, replays: int = 5) -> float:
-    """Device ms of one ``call(i)``: ``calls`` calls captured in one CUDA
-    graph after 3 eager calls, the median of ``replays`` replays."""
-    from ggml_cuda_experiments_tpu_torch.utils.bench import (
-        capture, replay_seconds)
-    graph = capture(call, calls, warmup=3)
-    return statistics.median(1e3 * replay_seconds(graph) / calls
-                             for _ in range(replays))
-
-
 def make_layer(g, dev, hkv: int) -> dict:
     import torch
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
@@ -119,6 +109,7 @@ def run(args) -> list:
     from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
     from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
     from ggml_cuda_experiments_tpu_torch.utils.device_info import (
         card_line, card_spec)
     if not torch.cuda.is_available():

@@ -1,28 +1,43 @@
-"""The dequantizing GEMM (``q4k_gemm``, ``q40_gemm``, ``q80_gemm``) on the
-card at the llama2-7b linears, through the public wrappers, so that one
-command times any checkout of the port:
+"""The quantized decode and prefill kernels on the card: the dequantizing
+GEMM (``q4k_gemm``, ``q40_gemm``, ``q80_gemm``), the batch-1 exact-f32
+matvecs (``q4k_matvec``, ``q40_matvec``) and the paged decode attention
+(``paged_decode``), through the public wrappers, so that one command times
+any checkout of the port:
 
     python -m ggml_cuda_experiments_tpu_torch.tools.qgemm_bench [--tag new]
     python -m ggml_cuda_experiments_tpu_torch.tools.qgemm_bench \\
-        --root DIR --tag parent       # the package of the checkout at DIR
+        --root DIR --tag parent --kernels matvec,paged
 
-``chip_smoke.py`` times its GEMM cases with ``cases``, ``gemm_x`` and
-``gemm_times`` from here, so the smoke and this tool read one timing path.
-Cases: each format at w_gu [24576, 4096] with M = 2, 5, 8, 16, 128, 512,
-and q4k_gemm there at M = 32 and 33 (the routes' crossover); q4k_gemm at
-wqkv [12288, 4096], W_o [4096, 4096] and w_down [4096, 12288] with M = 8
-and 512. Each case reads enough weight copies that a chain of calls
-streams past the 50 MB L2 (``utils/bench.py`` ``rotating``), 20 calls
-captured in one CUDA graph, the median of 5 replays (CUDA events). One
-line a case: the time, the bound (the larger of the bytes, W + x + y, over
-the card's HBM rate and 2 M N K over its bf16 peak) and the ratio, the
-route ``gemm_route`` picks (where the checkout has one), and at M = 8 and
-512 the time of ``torch.matmul`` of bf16 x against the weight already
-dequantized to bf16 (a yardstick of the product alone, not the same
-function). The card's name and power limit first, one JSON line of every
-case last. With ``--root`` the tool runs itself again in a child process
-whose ``PYTHONPATH`` is DIR: this file's timing, that checkout's wrappers.
-Needs a card.
+``chip_smoke.py`` times its GEMM, matvec and paged cases with the helpers
+here (``cases`` / ``gemm_x`` / ``gemm_times``, ``matvec_weights`` /
+``matvec_case``, ``paged_inputs`` / ``paged_bytes`` / ``paged_case``), so
+the smoke and this tool read one timing path.
+
+Cases (``--kernels``, all three by default):
+- gemm: each format at w_gu [24576, 4096] with M = 2, 5, 8, 16, 128, 512,
+  and q4k_gemm there at M = 32 and 33 (the routes' crossover); q4k_gemm at
+  wqkv [12288, 4096], W_o [4096, 4096] and w_down [4096, 12288] with M = 8
+  and 512; at M = 8 and 512 also ``torch.matmul`` of bf16 x against the
+  weight already dequantized to bf16 (a yardstick of the product alone,
+  not the same function);
+- matvec: both matvecs at every linear of llama2-7b (wqkv, W_o, w_gu,
+  w_down padded and unpadded, the head) and of tinyllama-1.1b (K = 2048,
+  and w_down at K = 5632), with the split ``matvec_splits`` picks;
+- paged: ``paged_decode`` at chip_smoke.py phase 4b's headline (B = 8, MHA
+  32/32, D 128, page 64, 16 pages a sequence, ragged lengths up to 1024
+  over a 2-layer pool) on bf16, int8 and fp8 pages, and at the Engine's
+  own shape (the same pool geometry, int8, lengths up to 128).
+
+A case's time: 20 calls captured in one CUDA graph, the median of 5
+replays (``utils/bench.py::time_ms``), weights rotated past the 50 MB L2
+(``rotating``). The bound: the bytes each call must move (W + x + y; the
+valid keys' pages and scales, q, the page table and the output) over the
+card's HBM rate, against the operations over their type's peak. The card's
+name and power limit first, one line a case, one JSON line of every case
+last. With ``--root`` the tool runs itself again in a child process whose
+``PYTHONPATH`` is DIR: this file's cases, that checkout's package (its
+wrappers and its ``utils/bench.py``, which must have ``time_ms``). Needs a
+card.
 """
 
 from __future__ import annotations
@@ -30,7 +45,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -39,27 +53,27 @@ NAMES = {"q4_k": "q4k_gemm", "q4_0": "q40_gemm", "q8_0": "q80_gemm"}
 W_GU = (24576, 4096)
 LAYERS = (("wqkv", (12288, 4096)), ("W_o", (4096, 4096)),
           ("w_down", (4096, 12288)))
+MATVECS = {"q4_k": "q4k_matvec", "q4_0": "q40_matvec"}
+LINEARS = (("wqkv", (12288, 4096)), ("W_o", (4096, 4096)),
+           ("w_gu", (24576, 4096)), ("w_down", (4096, 12288)),
+           ("w_down 11008", (4096, 11008)), ("head", (32000, 4096)),
+           ("tiny wqkv", (2560, 2048)), ("tiny W_o", (2048, 2048)),
+           ("tiny w_gu", (11264, 2048)), ("tiny w_down", (2048, 5632)))
+# chip_smoke.py phase 4b: 7B query heads, page 64, 16 pages a sequence
+PAGED_GEOMETRY = dict(H=32, D=128, ps=64, pps=16, L=2)
+PAGED_LENGTHS = (1, 63, 64, 65, 300, 512, 777, 1024)
+ENGINE_LENGTHS = (17, 40, 64, 65, 90, 100, 127, 128)
+KERNELS = ("gemm", "matvec", "paged")
 
 
 def cases(fmt: str | None = None) -> list:
-    """(fmt, layer, (N, K), M) of every case (of one format if given), the
-    cases of one weight next to each other."""
+    """(fmt, layer, (N, K), M) of every GEMM case (of one format if given),
+    the cases of one weight next to each other."""
     out = [(f, "w_gu", W_GU, m) for f in NAMES
            for m in ((2, 5, 8, 16, 32, 33, 128, 512) if f == "q4_k"
                      else (2, 5, 8, 16, 128, 512))]
     out += [("q4_k", name, nk, m) for name, nk in LAYERS for m in (8, 512)]
     return [c for c in out if fmt in (None, c[0])]
-
-
-def time_ms(call, calls: int = 20, replays: int = 5) -> float:
-    """Device ms of one ``call(i)``: ``calls`` calls captured in one CUDA
-    graph after 3 eager calls, the graph replayed between CUDA events, the
-    median of ``replays`` replays."""
-    from ggml_cuda_experiments_tpu_torch.utils.bench import (
-        capture, replay_seconds)
-    graph = capture(call, calls, warmup=3)
-    return statistics.median(1e3 * replay_seconds(graph) / calls
-                             for _ in range(replays))
 
 
 def gemm_x(m: int, n: int, k: int, dev):
@@ -74,6 +88,7 @@ def gemm_times(qm, fn, x, ws) -> dict:
     at M = 8 and 512 also ``matmul_ms``: torch.matmul of x against the
     copies dequantized to bf16."""
     import torch
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
     out = {"ms": time_ms(lambda i: fn(x, ws[i % len(ws)]))}
     if x.shape[0] in (8, 512):
         wd = [qm.dequantize(w).to(torch.bfloat16) for w in ws]
@@ -82,8 +97,82 @@ def gemm_times(qm, fn, x, ws) -> dict:
     return out
 
 
-def run(tag: str) -> list:
+def matvec_weights(qm, fmt: str, n: int, k: int, g):
+    """Copies of one random [n, k] weight in ``fmt``, enough that a chain of
+    calls streams past the L2."""
     import torch
+    from ggml_cuda_experiments_tpu_torch.utils.bench import rotating
+
+    def make(i):
+        return qm.quantize(torch.randn((n, k), generator=g, device=g.device)
+                           * k ** -0.5, fmt)
+    per = 0.625 if fmt == "q4_k" else 0.5625
+    return rotating(make, int(n * k * per))
+
+
+def matvec_case(qm, fmt: str, ws, x) -> dict:
+    """``ms``: one matvec of x against the copies ``ws`` in turn; ``bytes``
+    and ``flops`` it must move and do."""
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
+    fn = getattr(qm, MATVECS[fmt])
+    n, k = ws[0].array_shape
+    return {"ms": time_ms(lambda i: fn(x, ws[i % len(ws)])),
+            "bytes": ws[0].nbytes + 4 * (k + n), "flops": 2 * n * k}
+
+
+def paged_inputs(dev, fmt: str, lengths, hkv: int | None = None,
+                 seed: int = 0):
+    """(q, k_pages, v_pages, lengths, page_indices, scale kwargs): a
+    sequence a length, PAGED_GEOMETRY's query heads over ``hkv`` KV heads
+    (default as many), random pages (int8 / fp8 quantized per token), a
+    random page table over B * pps + 1 pages (the last one spare)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    H, D, ps, pps, L = (PAGED_GEOMETRY[k] for k in ("H", "D", "ps", "pps",
+                                                    "L"))
+    B, hkv = len(lengths), hkv or H
+    n_pages = B * pps + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pidx = torch.randperm(n_pages, generator=g, device=dev)[:B * pps]
+    pidx = pidx.reshape(B, pps).to(torch.int32)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    kf = torch.randn((L, n_pages, hkv, ps, D), generator=g, device=dev)
+    vf = torch.randn((L, n_pages, hkv, ps, D), generator=g, device=dev)
+    if fmt == "bf16":
+        kp, vp, kw = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+    else:
+        kp, ks = llama._quantize_rowwise(kf, fmt)
+        vp, vs = llama._quantize_rowwise(vf, fmt)
+        kw = dict(k_scale_pages=ks, v_scale_pages=vs)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, lens, pidx, kw
+
+
+def paged_bytes(lengths, fmt: str, hkv: int | None = None
+                ) -> tuple[int, int]:
+    """(bytes, operations) a call must move and do: the valid keys' K and V
+    rows (and per-token scales) of ``hkv`` KV heads, q, the page table and
+    the output; two multiply-adds a K / V element per query head."""
+    H, D, pps = (PAGED_GEOMETRY[k] for k in ("H", "D", "pps"))
+    B, hkv, keys = len(lengths), hkv or H, sum(lengths)
+    es = 2 if fmt == "bf16" else 1
+    nbytes = keys * hkv * (2 * D * es + (0 if fmt == "bf16" else 8))
+    return nbytes + 2 * 2 * B * H * D + 4 * B * pps, 4 * H * keys * D
+
+
+def paged_case(pa, inputs) -> float:
+    """ms of one ``paged_decode`` over ``inputs`` (paged_inputs), layers in
+    turn."""
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
+    q, kp, vp, lens, pidx, kw = inputs
+    L = kp.shape[0]
+    return time_ms(lambda i: pa.paged_decode(q, kp, vp, lens, pidx,
+                                             layer=i % L, **kw))
+
+
+def run(tag: str, kernels=KERNELS) -> list:
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import paged_attention as pa
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu_torch.utils.bench import rotating
     from ggml_cuda_experiments_tpu_torch.utils.device_info import (
@@ -95,34 +184,63 @@ def run(tag: str) -> list:
     print(card_line(), flush=True)
     spec = card_spec()
     g = torch.Generator(device=dev).manual_seed(0)
-    route_of = getattr(qm, "gemm_route", None)
-    rows, ws, key = [], None, None
-    for fmt, layer, (n, k), m in cases():
-        if key != (fmt, layer):
-            def make(i, n=n, k=k, fmt=fmt):
-                return qm.quantize(torch.randn(
-                    (n, k), generator=g, device=dev) * k ** -0.5, fmt)
-            ws, key = None, (fmt, layer)
-            torch.cuda.empty_cache()
-            ws = rotating(make, make(0).nbytes)
-        t = gemm_times(qm, getattr(qm, NAMES[fmt]), gemm_x(m, n, k, dev), ws)
-        us = 1e3 * t["ms"]
-        nbytes = ws[0].nbytes + 2 * m * k + 4 * m * n
-        bound_ms, by = spec.bound_ms(nbytes, 2 * m * n * k, "bf16")
-        row = {"tag": tag, "fmt": fmt, "layer": layer, "n": n, "k": k,
-               "m": m, "us": us, "bound_us": 1e3 * bound_ms, "bound_by": by,
-               "ratio": 1e3 * bound_ms / us,
-               "route": route_of(m) if route_of else None,
-               "copies": len(ws)}
-        if "matmul_ms" in t:
-            row["matmul_us"] = 1e3 * t["matmul_ms"]
-        rows.append(row)
-        print(f"{tag} {NAMES[fmt]} {layer} N={n} K={k} M={m}: {us:.1f} us, "
-              f"bound {row['bound_us']:.1f} us ({by}), ratio "
-              f"{row['ratio']:.3f}, route {row['route']}"
-              + (f", torch.matmul on the dequantized bf16 W "
-                 f"{row['matmul_us']:.1f} us" if "matmul_us" in row else ""),
-              flush=True)
+    rows = []
+
+    def row(kernel, case, ms, nbytes, flops, kind, **extra):
+        bound_ms, by = spec.bound_ms(nbytes, flops, kind)
+        r = {"tag": tag, "kernel": kernel, "case": case, "us": 1e3 * ms,
+             "bound_us": 1e3 * bound_ms, "bound_by": by,
+             "ratio": bound_ms / ms, **extra}
+        rows.append(r)
+        print(f"{tag} {kernel} {case}: {r['us']:.2f} us, bound "
+              f"{r['bound_us']:.2f} us ({by}), ratio {r['ratio']:.3f}"
+              + "".join(f", {k} {v}" for k, v in extra.items()), flush=True)
+
+    if "gemm" in kernels:
+        route_of = getattr(qm, "gemm_route", None)
+        ws, key = None, None
+        for fmt, layer, (n, k), m in cases():
+            if key != (fmt, layer):
+                def make(i, n=n, k=k, fmt=fmt):
+                    return qm.quantize(torch.randn(
+                        (n, k), generator=g, device=dev) * k ** -0.5, fmt)
+                ws, key = None, (fmt, layer)
+                torch.cuda.empty_cache()
+                ws = rotating(make, make(0).nbytes)
+            t = gemm_times(qm, getattr(qm, NAMES[fmt]), gemm_x(m, n, k, dev),
+                           ws)
+            extra = {"route": route_of(m) if route_of else None,
+                     "copies": len(ws)}
+            if "matmul_ms" in t:
+                extra["matmul_us"] = 1e3 * t["matmul_ms"]
+            row(NAMES[fmt], f"{layer} N={n} K={k} M={m}", t["ms"],
+                ws[0].nbytes + 2 * m * k + 4 * m * n, 2 * m * n * k, "bf16",
+                **extra)
+        del ws
+    if "matvec" in kernels:
+        split_of = getattr(qm, "matvec_splits", None)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for fmt in MATVECS:
+            for layer, (n, k) in LINEARS:
+                torch.cuda.empty_cache()
+                ws = matvec_weights(qm, fmt, n, k, g)
+                x = torch.randn((1, k), generator=g, device=dev)
+                t = matvec_case(qm, fmt, ws, x)
+                row(MATVECS[fmt], f"{layer} N={n} K={k}", t["ms"],
+                    t["bytes"], t["flops"], "f32", copies=len(ws),
+                    splits=split_of(n, k, sms) if split_of else None)
+                del ws
+    if "paged" in kernels:
+        torch.cuda.empty_cache()
+        for case, lengths, fmts in (("headline", PAGED_LENGTHS,
+                                     ("bf16", "int8", "fp8")),
+                                    ("engine", ENGINE_LENGTHS, ("int8",))):
+            for fmt in fmts:
+                inputs = paged_inputs(dev, fmt, lengths)
+                nbytes, flops = paged_bytes(lengths, fmt)
+                row("paged_decode", f"{case} {fmt}", paged_case(pa, inputs),
+                    nbytes, flops, "bf16")
+                del inputs
     return rows
 
 
@@ -131,12 +249,18 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None,
                     help="time the package of the checkout at this path")
     ap.add_argument("--tag", default="new")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated: " + ", ".join(KERNELS))
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels: from {', '.join(KERNELS)}")
     if args.root:
         env = dict(os.environ, PYTHONPATH=str(Path(args.root).resolve()))
         return subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--tag", args.tag], env=env).returncode
-    print(json.dumps({"qgemm_bench": run(args.tag)}), flush=True)
+                               "--tag", args.tag, "--kernels", args.kernels],
+                              env=env).returncode
+    print(json.dumps({"qgemm_bench": run(args.tag, kernels)}), flush=True)
     return 0
 
 

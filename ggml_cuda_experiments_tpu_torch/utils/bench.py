@@ -15,8 +15,8 @@ and probe tools: the interleaved size-marginal pair with its rejection and
 median (``pair_protocol``), the inner-count marginal (``chain_marginal``),
 the rotation of weight copies past the 50 MB L2 (``rotating``), and the
 timer they read: a chain captured once into a CUDA graph and replayed
-between CUDA events (``capture``, ``replay_seconds``); host clocks are
-not used.
+between CUDA events (``capture``, ``replay_seconds``, and ``time_ms``, the
+median of a few replays); host clocks are not used.
 
 A measurement needs the card: ``bench`` and the timers raise without one.
 """
@@ -24,6 +24,7 @@ A measurement needs the card: ``bench`` and the timers raise without one.
 from __future__ import annotations
 
 import dataclasses
+import statistics
 
 import torch
 
@@ -158,6 +159,15 @@ def replay_seconds(graph, reps: int = 1) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best
+
+
+def time_ms(call, calls: int = 20, replays: int = 5) -> float:
+    """Device ms of one ``call(i)``: ``calls`` calls captured in one CUDA
+    graph after 3 eager calls, the graph replayed between CUDA events, the
+    median of ``replays`` replays (the smoke's and the timing tools')."""
+    graph = capture(call, calls, warmup=3)
+    return statistics.median(1e3 * replay_seconds(graph) / calls
+                             for _ in range(replays))
 
 
 def pair_pct(t_small: float, t_big: float, inner: int, dbytes: float,

@@ -520,6 +520,173 @@ def test_paged_decode(dev, fmt, hq, hkv, d, ps):
     assert pa.LAUNCHES["paged_decode"] == before + 1
 
 
+def _pages(seed, fmt, L, n_pages, hkv, ps, d, dev):
+    """k / v pools [L, n_pages, Hkv, ps, D] of a page type, and the scale
+    pools' keyword arguments (int8 / fp8)."""
+    kp = _randn(seed, L, n_pages, hkv, ps, d).to(dev)
+    vp = _randn(seed + 1, L, n_pages, hkv, ps, d).to(dev)
+    if fmt == "bf16":
+        return kp.to(torch.bfloat16), vp.to(torch.bfloat16), {}
+    kp, ks = llama._quantize_rowwise(kp, fmt)
+    vp, vs = llama._quantize_rowwise(vp, fmt)
+    return kp, vp, dict(k_scale_pages=ks, v_scale_pages=vs)
+
+
+def _check_paged(q, kp, vp, lens, pidx, *, layer, tol, **kw):
+    """One paged_decode launch against the plain version on the kernel's
+    own partition (``pick_splits``); returns that split count."""
+    B, hkv = q.shape[0], kp.shape[-3]
+    n = fd.pick_splits(B, hkv, pidx.shape[1] * kp.shape[-2],
+                       fd._sm_count(0))
+    before = pa.LAUNCHES["paged_decode"]
+    got = pa.paged_decode(q, kp, vp, lens, pidx, layer=layer, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode"] == before + 1
+    ref = pa.paged_decode_ref(q, kp, vp, lens, pidx, layer=layer,
+                              kv_splits=n, **kw)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= tol * ref.float().abs().max(), (n, float(err))
+    return n
+
+
+def _table(seed, B, pps, n_pages, dev):
+    """A random page table [B, pps] over n_pages, some entries past the
+    pool (the kernel clamps them to its last page)."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, n_pages + 3, size=(B, pps)).astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(32, 4, 128, 16), (32, 8, 128, 32),
+                                          (32, 32, 128, 64), (32, 8, 64, 64),
+                                          (8, 8, 64, 48)])
+@pytest.mark.parametrize("b", [1, 2, 5, 40])
+def test_paged_decode_splits(dev, fmt, hq, hkv, d, ps, b):
+    """Each sequence's ~1,050 keys split over the CTAs ``pick_splits`` gives
+    B x Hkv (1 to 17 splits over these batches: 17, 9, 6, 1 at Hkv 4; 4,
+    2, 1, 1 at Hkv 32) and merged inside the one launch, against the plain
+    version on the same partition; lengths mix 1 (every split but the
+    first empty) with the whole span pages_per_seq * page_size, over a
+    layered pool."""
+    L, pps = 3, 1024 // ps + 1
+    n_pages = min(b * pps, 40) + 2
+    kp, vp, kw = _pages(60, fmt, L, n_pages, hkv, ps, d, dev)
+    q = _randn(62, b, hq, d).to(dev, torch.bfloat16)
+    pidx = _table(63, b, pps, n_pages, dev)
+    lens = torch.tensor([(1, pps * ps, 65, pps * ps - 1, 300, 64)[i % 6]
+                         for i in range(b)], dtype=torch.int32, device=dev)
+    n = _check_paged(q, kp, vp, lens, pidx, layer=2,
+                     pages_per_compute_block=1,
+                     tol=2e-3 if fmt == "bf16" else 2e-2, **kw)
+    assert (n > 1) == (b * hkv < fd._sm_count(0))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("ps", [1, 2, 16])
+@pytest.mark.parametrize("b", [1, 66])
+def test_paged_decode_page_table_past_a_whole_row(dev, fmt, ps, b):
+    """More than 1,024 pages a sequence: the kernel reads each split's own
+    entries of the page table (not the whole row); one split at B x Hkv =
+    132, many at B = 1 (18, 35 and 55 at pages of 1, 2 and 16), lengths 1 and
+    pages_per_seq * page_size."""
+    L, hq, hkv, d, pps = 2, 4, 2, 64, 1100
+    n_pages = 60
+    kp, vp, kw = _pages(70, fmt, L, n_pages, hkv, ps, d, dev)
+    q = _randn(72, b, hq, d).to(dev, torch.bfloat16)
+    pidx = _table(73, b, pps, n_pages, dev)
+    lens = torch.tensor([(pps * ps, 1, 777, pps * ps - 1)[i % 4]
+                         for i in range(b)], dtype=torch.int32, device=dev)
+    n = _check_paged(q, kp, vp, lens, pidx, layer=1,
+                     tol=2e-3 if fmt == "bf16" else 2e-2, **kw)
+    assert (n > 1) == (b == 1)
+
+
+def _graph_case(dev, B, hkv, seed, pps=32):
+    """A paged_decode call over int8 pages (GQA 2), its lengths tensor (to
+    change in place) and its split count."""
+    L, hq, d, ps = 2, 2 * hkv, 128, 16
+    n_pages = B * pps + 1
+    kp, vp, kw = _pages(seed, "int8", L, n_pages, hkv, ps, d, dev)
+    q = _randn(seed + 2, B, hq, d).to(dev, torch.bfloat16)
+    pidx = torch.arange(B * pps, dtype=torch.int32,
+                        device=dev).reshape(B, pps)
+    lens = torch.full((B,), pps * ps, dtype=torch.int32, device=dev)
+
+    def call():
+        return pa.paged_decode(q, kp, vp, lens, pidx, layer=1, **kw)
+    return call, lens, fd.pick_splits(B, hkv, pps * ps, fd._sm_count(0))
+
+
+def test_paged_decode_graph_replays_with_new_lengths(dev):
+    """One split-merging paged_decode captured in a CUDA graph, replayed
+    with the lengths changed in place: each replay bit-equal to an eager
+    call at those lengths (the tickets are back to 0 after every launch)."""
+    call, lens, n = _graph_case(dev, 4, 8, 64)
+    assert n > 1
+    sets = ([1, 512, 300, 17], [512, 2, 64, 65], [3, 100, 511, 512])
+    eager = []
+    for s in sets:
+        lens.copy_(torch.tensor(s, dtype=torch.int32))
+        eager.append(call())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for i in (0, 1, 2, 1, 0):
+        lens.copy_(torch.tensor(sets[i], dtype=torch.int32))
+        out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[i]), i
+
+
+def test_paged_decode_graph_replays_after_a_larger_batch(dev):
+    """A graph captured at B = 4 still replays right after eager calls at
+    B x Hkv past 1,024 and at a split-merging B x Hkv of 64: the tickets
+    are one buffer made once at the kernel's limit, never replaced."""
+    call, lens, n = _graph_case(dev, 4, 8, 74)
+    assert n > 1
+    lens.copy_(torch.tensor([1, 512, 300, 17], dtype=torch.int32))
+    want = call()
+    tickets = pa._TICKETS[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    big, _, _ = _graph_case(dev, 130, 8, 76, pps=2)
+    mid, _, n_mid = _graph_case(dev, 8, 8, 78)
+    assert n_mid > 1
+    for _ in range(2):
+        big(), mid()
+        out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert pa._TICKETS[0] is tickets
+    assert tickets.numel() == pa.MAX_HEAD_ROWS and not tickets.any()
+
+
+@pytest.mark.parametrize("name,fmt", [("q4k_matvec", "q4_k"),
+                                      ("q40_matvec", "q4_0")])
+@pytest.mark.parametrize("n,k", [(37, 2048), (2048, 2048), (2560, 2048),
+                                 (2048, 5632), (300, 11008), (4096, 11008),
+                                 (37, 12288), (4096, 12288), (4096, 4096),
+                                 (32000, 4096)])
+def test_q4_matvec_is_bitwise_repeatable(dev, name, fmt, n, k):
+    """Both exact-f32 matvecs at the split and unsplit shapes
+    (``matvec_splits``): within 1e-4 * max of the plain version, and two
+    calls bit-equal (the splits fold in a fixed order, no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    ql = qm.quantize(torch.randn((n, k), generator=g, device=dev)
+                     * k ** -0.5, fmt)
+    x = torch.randn((1, k), generator=g, device=dev)
+    fn = getattr(qm, name)
+    before = qm.LAUNCHES[name]
+    a, b = fn(x, ql), fn(x, ql)
+    assert qm.LAUNCHES[name] == before + 2
+    assert torch.equal(a, b)
+    _check(fn, x, ql, tol=1e-4)
+
+
 @pytest.mark.parametrize("n,k", [(640, 4096), (300, 12288), (4096, 4096)])
 def test_q4k_q8_matvec(dev, n, k):
     ql = qm.quantize(_randn(20, n, k, scale=k ** -0.5).to(dev))
