@@ -23,16 +23,21 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      path's kernels (paged decode over bf16, int8 and fp8 pools at the
      ragged headline and the Engine's shape, and with GQA 32/8 where its
      split count is 2 and 8, masked flash attention: the prompt's length mask,
-     a chunk mask, the speculative verify window beside SDPA; rope_pack);
+     a chunk mask, the speculative verify window beside SDPA; rope_pack
+     with its tables given and made by the call, and bit-exact at one
+     token, a ragged 130 and GQA 32/8);
      4c. the fused batch-1 decode kernels (int8-activation matvec, fused
-     MLP, fused attention, one layer of the layer kernel) at the 7B
-     shapes; 4d. the Q4_K_M head's q6_k matvecs (exact f32 at tinyllama's
-     32000 x 2048, hybrid int8 at 7B's 32000 x 4096) and flash decode on
+     MLP, fused attention at MHA and GQA 32/8 and 32/4 on bf16 and f32
+     caches of 1024 keys and at 57 keys, one layer of the layer kernel) at
+     the 7B shapes; 4d. the Q4_K_M head's q6_k matvecs (exact f32 at
+     tinyllama's 32000 x 2048, hybrid int8 at 7B's 32000 x 4096) and flash
+     decode on
      int8 / fp8 caches at length 1024 (7B and tinyllama);
   5. the generate path: llama2-7b at full width and all 32 layers, random
      weights from a seed, quantized to q4_k on the card, the preset's
      default decode (fused MLP), three greedy requests through
-     ``generate`` with every kernel's launch count asserted, then TTFT /
+     ``generate`` with every kernel's launch count asserted (and the
+     RoPE tables made once a rope_pack prefill, asserted), then TTFT /
      decode rate per request, then request 1 teacher-forced through the
      plain versions on the card (logits within 2e-2 * max);
   5b. the same weights in bench.py's decode configuration (x_quant8,
@@ -40,7 +45,8 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      ``model_step`` (every layer in one launch), launch counts asserted,
      TTFT / decode rate; the two sibling paths (x_quant8 alone: fused
      attention + fused MLP; the per-layer ``layer_step``) with their
-     counts; every layer_step against its plain version at its forced
+     counts, and the first's generate_scan in ms a token; every
+     layer_step against its plain version at its forced
      input (5e-3 * max), model_step against the chained layer_step
      launches (equal), logits within 2e-2 * max;
   5c. the Q4_K_M mix: phase 5's layers with a q6_k head, through generate
@@ -395,7 +401,8 @@ def phase_build():
                   "wgmma_gemm_kernel", "flash_decode_partials_kernel",
                   "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane",
                   "gemm_stream_kernel", "gemm_tc_kernel", "q4_matvec_kernel",
-                  "paged_decode_kernel")
+                  "paged_decode_kernel", "layer_decode_kernel",
+                  "rope_pack_kernel")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -419,6 +426,11 @@ def phase_build():
     for kind in (0, 1, 2):
         log(f"  paged_decode_kernel {('bf16', 'int8', 'fp8')[kind]} D=128 "
             f"G=1: {_info(lib.paged_decode_info, kind, 16)}")
+    # the layer kernel (7B, intermediate 12288) and its attention block
+    # (fused_attention)
+    for block in (0, 1):
+        log(f"  layer_decode_kernel {('layers', 'attention block')[block]}: "
+            f"{_info(lib.layer_kernel_info, block)}")
 
 
 def phase_quantizer(dev, seed):
@@ -801,14 +813,29 @@ def phase_engine_kernels(dev, seed, res: Results):
          library=lambda i: F.scaled_dot_product_attention(
              q, k, v, attn_mask=vis))
 
-    # rope_pack at a 512-token 7B prompt: bit-exact against the plain one
-    y = randn(T, 3 * H * D, dtype=torch.bfloat16)
-    pos = torch.arange(T, dtype=torch.int32, device=dev)
-    both("rope_pack", "T=512 32/32 D=128",
-         lambda i: pf.rope_pack_prefill(y, pos, n_heads=H, n_kv_heads=H,
-                                        head_dim=D), 0.0,
-         spec.bound_ms(2 * 2 * T * 3 * H * D + 4 * T, 6 * T * 2 * H * D,
-                       "f32"), headline=True)
+    # rope_pack at a 512-token 7B prompt, bit-exact against the plain one:
+    # the kernel alone (its tables made once, as a prefill hands them to
+    # each layer; the headline) and with the tables made by the call; then
+    # bit-exact at one token, a ragged tail (130) and GQA 32/8
+    inputs = qb.rope_inputs(dev, T, H, H, g)
+    ys, pos, kw = inputs
+    tables = pf.rope_tables(pos, D, 10000.0)
+    for given in (True, False):
+        nbytes, ops = qb.rope_bytes(inputs, given)
+        both("rope_pack", f"T=512 32/32 D=128 ({len(ys)} copies), tables "
+             + ("given" if given else "made by the call"),
+             lambda i, t=tables if given else None: pf.rope_pack_prefill(
+                 ys[i % len(ys)], pos, **kw, tables=t), 0.0,
+             spec.bound_ms(nbytes, ops, "f32"), headline=given)
+    del inputs, ys
+    for t, hkv in ((1, H), (130, H), (130, 8), (T, 8)):
+        ys, pos, kw = qb.rope_inputs(dev, t, H, hkv, g, rotate=False)
+        y = ys[0]
+        got = pf.rope_pack_prefill(y, pos, **kw)
+        with plain_versions():
+            ref = pf.rope_pack_prefill(y, pos, **kw)
+        _check("rope_pack", f"T={t} {H}/{hkv} D=128", flat(got), flat(ref),
+               0.0)
 
 
 def _versus_plain(res: Results, name, case, fn, tol, bound, headline=False,
@@ -902,24 +929,32 @@ def phase_fused_kernels(dev, seed, res: Results):
          spec.bound_ms(nbytes, 2 * (24576 * 4096 + 4096 * 12288), "int8"),
          headline=True)
 
-    # fused_attention at cache length 1024: MHA 32/32 (7B) and GQA 32/8
-    for hkv in (32, 8):
-        L, S, length = 2, 1024, 1023                 # 1024 keys with the new
-        kc = randn(L, 1, hkv, S, 128, dtype=torch.bfloat16)
-        vc = randn(L, 1, hkv, S, 128, dtype=torch.bfloat16)
-        lens = torch.full((1,), length, dtype=torch.int32, device=dev)
-        ws = [(weight((32 + 2 * hkv) * 128, 4096), weight(4096, 4096))
-              for _ in range(3)]
-        kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
-        kv_bytes = 2 * hkv * (length + 1) * 128 * 2
-        nbytes = ws[0][0].nbytes + ws[0][1].nbytes + kv_bytes + 8 * 4096
-        ops = 2 * (ws[0][0].array_shape[0] + 4096) * 4096
+    # fused_attention (tools/qgemm_bench.py's inputs and bytes): at cache
+    # length 1024 (1023 before the token) MHA 32/32 (7B, the headline), GQA
+    # 32/8 and 32/4 on bf16 and on f32 caches, and a short cache of 57 keys
+    # (two tiles, two splits); the splits are split_plan's
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for hkv, length, dtype in ((32, 1023, torch.bfloat16),
+                               (8, 1023, torch.bfloat16),
+                               (4, 1023, torch.bfloat16),
+                               (32, 1023, torch.float32),
+                               (8, 1023, torch.float32),
+                               (4, 1023, torch.float32),
+                               (32, 56, torch.bfloat16),
+                               (8, 56, torch.bfloat16)):
+        inputs = qb.attn_inputs(qm, dev, hkv, length, g, dtype)
+        xa, ws, kc, vc, lens, kw = inputs
+        nbytes, ops = qb.attn_bytes(inputs)
+        n = len(fat.split_plan(length, qb.ATTN_S, hkv, sms, dtype))
         both("fused_attention",
-             f"Hq=32 Hkv={hkv} len 1024, wqkv + wo (3 copies)",
-             lambda i: fat.attention_fused(x, *ws[i % 3], kc, vc, lens,
-                                           i % L, **kw), 5e-3,
-             spec.bound_ms(nbytes, ops, "int8"), headline=hkv == 32)
-        del kc, vc, ws
+             f"Hq=32 Hkv={hkv} len {length + 1} "
+             f"{str(dtype)[6:]}, {n} splits (3 copies)",
+             lambda i: fat.attention_fused(xa, *ws[i % 3], kc, vc, lens,
+                                           i % 2, **kw), 5e-3,
+             spec.bound_ms(nbytes, ops, "int8"),
+             headline=(hkv, length, dtype) == (32, 1023, torch.bfloat16))
+        del inputs, xa, ws, kc, vc
 
     # one 7B layer of the layer kernel (layer_step) at cache length 1024:
     # MHA 32/32 (7B) and GQA 32/8
@@ -1793,6 +1828,30 @@ def _prefill_counts(L, requests, rope=True, gemm="q4k_gemm"):
     return want
 
 
+def _rope_tables_once(builds, L, requests, dev, cfg):
+    """The prefills of ``requests`` made the RoPE tables once each where
+    rope_pack runs (prompts of a multiple of 128 tokens), not once a layer:
+    asserted; the PyTorch launches one making takes (torch.profiler) and so
+    the launches a prefill saves, L - 1 of them, logged."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
+    want = sum(1 for p, _ in requests if p % 128 == 0)
+    if builds != want:
+        raise AssertionError(f"rope tables made {builds} times for {want} "
+                             "prefills through rope_pack")
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    pf.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    _, _, _, events = _profiled(
+        lambda: pf.rope_tables(pos, cfg.head_dim, cfg.rope_theta))
+    n = sum(e.count for e in events)
+    if n < 1:
+        raise AssertionError("rope_tables launched no kernel on the card")
+    log(f"  rope tables made {builds} times for the {want} prefills through "
+        f"rope_pack (once a prefill, asserted; {want * L} before); one making "
+        f"is {n} device kernels (torch.profiler), so a prefill launches "
+        f"{(L - 1) * n} fewer")
+
+
 def _assert_counts(path, counts, want):
     log(f"  launches in {path}: {counts}")
     if counts != want:
@@ -1898,7 +1957,11 @@ def phase_model(dev, seed, profile=None):
     prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
                              device=dev, dtype=torch.int64)
                for p, _ in REQUESTS]
+    from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
+    builds = pf.BUILDS["rope_tables"]
     outs, counts = _drive_generate(params, cfg, prompts, REQUESTS, "generate")
+    _rope_tables_once(pf.BUILDS["rope_tables"] - builds, L, REQUESTS, dev,
+                      cfg)
     decode_steps = sum(n for _, n in REQUESTS)
     want = _prefill_counts(L, REQUESTS)
     want.update(
@@ -2044,6 +2107,27 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
         if not first:
             raise AssertionError(f"{path}: the first token differs")
         paths[path.replace(" ", "_").replace("-", "_")] = counts
+
+    # x_quant8 alone (fused_attention + fused_mlp a layer) through
+    # generate_scan: ms a token, the marginal of 8 and 40 replays of one
+    # captured step after request 1's prefill (the spec_bench method);
+    # LAUNCHES counts the prefill, the eager step and its capture
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    xq8 = dataclasses.replace(base, x_quant8=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t_tok = sb.plain_per_token(params, xq8, prompts[0])
+    torch.cuda.synchronize()
+    counts = _counts()
+    log(f"  [{card}] generate_scan x_quant8 (fused_attention + fused_mlp): "
+        f"{t_tok * 1e3:.3f} ms/token ({1 / t_tok:.1f} tok/s; marginal of 8 "
+        "and 40 replays of one captured step)")
+    want = _prefill_counts(L, ((REQUESTS[0][0], 1),))
+    want.update(q4k_q8_matvec=1 + 2, fused_attention=2 * L,
+                fused_mlp=2 * L)
+    _assert_counts("generate_scan x_quant8 (the prefill, one eager step "
+                   "and its capture; 96 replays uncounted)", counts, want)
+    paths["generate_scan_x_quant8"] = counts
 
     # forced check on request 3's cache (512 tokens) and its first token
     cache = llama.KVCache.create(cfg, 1, 768, device=dev)

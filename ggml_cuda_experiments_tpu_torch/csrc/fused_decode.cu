@@ -4,29 +4,31 @@
 //   fused_mlp        replaces ops/quant_matmul.py::_fused_mlp_kernel
 //                    (mlp_fused): w_gu int8 matvec | silu(g)*u, int8
 //                    quantization of the mid, w_down int8 matvec.
-//   fused_attention  replaces ops/fused_attention.py::_fused_attn_kernel
-//                    (attention_fused): wqkv int8 matvec | RoPE, the new
-//                    k / v spliced in, split-KV decode partials | merge,
-//                    int8 quantization of o, W_o int8 matvec.
 //   layer_kernel     replaces ops/layer_kernel.py::_layer_kernel
 //                    (layer_step, model_step): per layer, attn RMSNorm and
 //                    the attention phases, residual, MLP RMSNorm and the
 //                    MLP phases, residual; nL layers in one launch, h in f32
 //                    from layer to layer. Weights come through a device
 //                    table of per-layer pointers, so nothing is copied.
+//   fused_attention  replaces ops/fused_attention.py::_fused_attn_kernel
+//                    (attention_fused): the layer kernel's attention block
+//                    alone (its BLOCK instance): wqkv int8 matvec | RoPE,
+//                    the new k / v spliced in, split-KV decode, the last
+//                    split's merge and int8 quantization of o | W_o int8
+//                    matvec, from the given x, with no norm and no
+//                    residual; its weights come as six pointers.
 //
 // Bound on the H100: bytes. At llama2-7b a layer streams 136.3 MB of q4_k
 // weights (wqkv 31.5, W_o 10.5, w_gu 62.9, w_down 31.5 MB) plus, at cache
 // length 513, 8.4 MB of bf16 K/V: 43.2 us per layer at 3.35 TB/s, 1.38 ms
-// for the 32 layers.
+// for the 32 layers. The attention block alone at length 1024: 42.0 MB of
+// weights and 16.8 MB of K/V, 17.5 us (GQA 32/8: 30.4 MB, 9.1 us).
 //
-// fused_mlp / fused_attention: every phase spreads its work over all warps
-// of the grid (a row per warp at a time, q8_common.cuh; one (KV head, key
-// split) per CTA in the attention), and the grid is exactly what is
+// fused_mlp: every phase spreads its work over all warps of the grid (a
+// row per warp at a time, q8_common.cuh), and the grid is exactly what is
 // resident, as a cooperative launch requires. Work that every CTA needs
-// whole (the quantized activations, silu(g)*u of the mid, the merge of the
-// attention splits) is recomputed by each CTA from L2 instead of paying one
-// more barrier (cg grid.sync()).
+// whole (the quantized activations, silu(g)*u of the mid) is recomputed by
+// each CTA from L2 instead of paying one more barrier (cg grid.sync()).
 //
 // layer_kernel (its own section below) takes the weight stream off the
 // barriers' path: a producer warp a CTA streams the CTA's fixed share of
@@ -51,8 +53,6 @@ constexpr int PART = HD + 2;       // floats per split partial: m, l, acc[HD]
 constexpr int MAX_SPLITS = 64;     // as ops/fused_attention.py::MAX_SPLITS
 constexpr int RED_BYTES = 256;     // block-reduction scratch
 
-enum { MODE_MLP = 0, MODE_ATTN = 1 };
-
 struct FusedArgs {
   const float* x;             // MLP / attention input; the layers' h_in
   const long long* ptrs;      // layers: [nL][12] weight pointers
@@ -61,13 +61,14 @@ struct FusedArgs {
   const void* kc;
   const void* vc;
   const int* lengths;
-  int layer0, nL, Hq, Hkv, S, dim, Kd, Nd, n_splits, cache_f32, phase;
-  unsigned* bar;              // layers: the grid barrier's two counters,
-                              // a merge ticket a layer and KV head
+  int layer0, nL, Hq, Hkv, S, dim, Kd, Nd, cache_f32, phase;
+  unsigned* bar;              // the grid barrier's two counters, a merge
+                              // ticket a layer and KV head
   float theta, scale, eps;
   float* yqkv;                // [(Hq + 2 Hkv) * HD]
   float* part;                // [Hq][n_splits][PART]
-  float* ygu;                 // MLP: [2 Kd]; layers: the operand images
+  float* ygu;                 // MLP: [2 Kd]; layers, attention block:
+                              // the operand images
   float* h2;                  // [dim]
   float* out;                 // MLP y [Nd]; attention o [dim]; layers h
   void* kn;                   // [nL][Hkv][HD] in the cache type
@@ -119,9 +120,12 @@ struct MidVec {
   }
 };
 
-struct SmemVec {
+// the attention block's input x, staged in shared memory, as lk_quant
+// takes it
+struct XVec {
   const float* x;
-  __device__ float operator()(int i) const { return x[i]; }
+  __device__ float2 load(int i) const { return make_float2(x[i], 0.f); }
+  __device__ float value(float2 v) const { return v.x; }
 };
 
 // ----------------------------------------------------------- attention
@@ -129,13 +133,6 @@ struct SmemVec {
 template <typename T> struct CacheIO;
 
 template <> struct CacheIO<bf16> {
-  __device__ static float4 load(const bf16* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    return make_float4(__low2float(a), __high2float(a), __low2float(b),
-                       __high2float(b));
-  }
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
@@ -145,248 +142,34 @@ template <> struct CacheIO<bf16> {
 };
 
 template <> struct CacheIO<float> {
-  __device__ static float4 load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
   __device__ static float round(float v) { return v; }
   __device__ static void store(float* p, float v) { *p = v; }
 };
 
-// One work item: KV head g, key split s. Its R query heads share every
-// K / V row; each warp takes every Q8_WARPS-th key of the split with an
-// online softmax per head, then the warps' (m, l, acc) fold in a fixed
-// order into the item's partial. Lane l holds dims 4l .. 4l+3; the
-// rotate-half partner of dim d (d ^ 64) sits in lane l ^ 16.
-template <int R, typename T>
-__device__ void attn_item(const FusedArgs& p, int li, int g, int s, int lb,
-                          T* kn_out, T* vn_out, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d0 = 4 * lane;
-  const float pos = (float)lb;
-  float cq[4], sq[4], ck[4], sk[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int d = d0 + j;
-    const float freq =
-        powf(p.theta, __fdiv_rn(-(float)(d & 63), 64.f));
-    const float ang = __fmul_rn(pos, freq);
-    const float c = cosf(ang), sn = sinf(ang);
-    ck[j] = c;
-    sk[j] = d < 64 ? -sn : sn;
-    cq[j] = __fmul_rn(ck[j], p.scale);
-    sq[j] = __fmul_rn(sk[j], p.scale);
-  }
-  float q[R][4];
-#pragma unroll
-  for (int h = 0; h < R; ++h) {
-    const float* src = p.yqkv + (size_t)(g * R + h) * HD + d0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = __ldcg(src + j);
-      const float partner = __shfl_xor_sync(0xffffffffu, v, 16);
-      q[h][j] = __fadd_rn(__fmul_rn(v, cq[j]), __fmul_rn(partner, sq[j]));
-    }
-  }
-  float kn[4], vn[4];
-  {
-    const float* ksrc = p.yqkv + (size_t)(p.Hq + g) * HD + d0;
-    const float* vsrc = p.yqkv + (size_t)(p.Hq + p.Hkv + g) * HD + d0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = __ldcg(ksrc + j);
-      const float partner = __shfl_xor_sync(0xffffffffu, v, 16);
-      kn[j] = CacheIO<T>::round(
-          __fadd_rn(__fmul_rn(v, ck[j]), __fmul_rn(partner, sk[j])));
-      vn[j] = CacheIO<T>::round(__ldcg(vsrc + j));
-    }
-  }
-  if (s == 0 && warp == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      CacheIO<T>::store(kn_out + (size_t)g * HD + d0 + j, kn[j]);
-      CacheIO<T>::store(vn_out + (size_t)g * HD + d0 + j, vn[j]);
-    }
-  }
+// ---------------------------------------------------------------- fused_mlp
 
-  // the new token included, at most the cache: a token past it attends
-  // over the cache alone, as the reference's clamped block count does
-  const int length = min(lb + 1, p.S);
-  const int chunk = (length + p.n_splits - 1) / p.n_splits;
-  const int k0 = s * chunk;
-  const int k1 = min(k0 + chunk, length);
-  const size_t row0 = ((size_t)li * p.Hkv + g) * p.S;
-  const T* kc = static_cast<const T*>(p.kc) + row0 * HD + d0;
-  const T* vc = static_cast<const T*>(p.vc) + row0 * HD + d0;
-
-  float m[R], l[R], acc[R][4];
-#pragma unroll
-  for (int h = 0; h < R; ++h) {
-    m[h] = -INFINITY;
-    l[h] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[h][j] = 0.f;
-  }
-  for (int key = k0 + warp; key < k1; key += Q8_WARPS) {
-    float kf[4], vf[4];
-    if (key == lb) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kf[j] = kn[j];
-        vf[j] = vn[j];
-      }
-    } else {
-      const float4 k4 = CacheIO<T>::load(kc + (size_t)key * HD);
-      const float4 v4 = CacheIO<T>::load(vc + (size_t)key * HD);
-      kf[0] = k4.x; kf[1] = k4.y; kf[2] = k4.z; kf[3] = k4.w;
-      vf[0] = v4.x; vf[1] = v4.y; vf[2] = v4.z; vf[3] = v4.w;
-    }
-#pragma unroll
-    for (int h = 0; h < R; ++h) {
-      float sc = q[h][0] * kf[0] + q[h][1] * kf[1] + q[h][2] * kf[2] +
-                 q[h][3] * kf[3];
-      sc = warp_sum(sc);
-      const float mn = fmaxf(m[h], sc);
-      const float alpha = expf(m[h] - mn);
-      const float pe = expf(sc - mn);
-      l[h] = l[h] * alpha + pe;
-      m[h] = mn;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[h][j] = acc[h][j] * alpha + pe * vf[j];
-    }
-  }
-  // fold the warps: smem [warp][R][PART]
-#pragma unroll
-  for (int h = 0; h < R; ++h) {
-    float* dst = smem + (size_t)(warp * R + h) * PART;
-    if (lane == 0) {
-      dst[0] = m[h];
-      dst[1] = l[h];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[2 + d0 + j] = acc[h][j];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < R * HD; t += blockDim.x) {
-    const int h = t / HD, d = t % HD;
-    float M = -INFINITY;
-    for (int w = 0; w < Q8_WARPS; ++w)
-      M = fmaxf(M, smem[(size_t)(w * R + h) * PART]);
-    float L = 0.f, A = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < Q8_WARPS; ++w) {
-        const float* src = smem + (size_t)(w * R + h) * PART;
-        const float e = src[0] == -INFINITY ? 0.f : expf(src[0] - M);
-        L += src[1] * e;
-        A += src[2 + d] * e;
-      }
-    }
-    float* dst = p.part + ((size_t)(g * R + h) * p.n_splits + s) * PART;
-    if (d == 0) {
-      dst[0] = M;
-      dst[1] = L;
-    }
-    dst[2 + d] = A;
-  }
-  __syncthreads();
-}
-
-template <int R>
-__device__ void attention_r(const FusedArgs& p, int li, int lb, int lyr,
-                            float* smem) {
-  const int items = p.Hkv * p.n_splits;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int g = it / p.n_splits, s = it % p.n_splits;
-    if (p.cache_f32)
-      attn_item<R, float>(p, li, g, s, lb,
-                          static_cast<float*>(p.kn) + (size_t)lyr * p.Hkv * HD,
-                          static_cast<float*>(p.vn) + (size_t)lyr * p.Hkv * HD,
-                          smem);
-    else
-      attn_item<R, bf16>(p, li, g, s, lb,
-                         static_cast<bf16*>(p.kn) + (size_t)lyr * p.Hkv * HD,
-                         static_cast<bf16*>(p.vn) + (size_t)lyr * p.Hkv * HD,
-                         smem);
-  }
-}
-
-// split-KV partials of cache layer li; the new k / v go to row lyr of
-// kn / vn
-__device__ void attention_phase(const FusedArgs& p, int li, int lyr,
-                                float* smem) {
-  const int lb = p.lengths[0];
-  switch (p.Hq / p.Hkv) {
-    case 1: attention_r<1>(p, li, lb, lyr, smem); break;
-    case 2: attention_r<2>(p, li, lb, lyr, smem); break;
-    case 4: attention_r<4>(p, li, lb, lyr, smem); break;
-    default: attention_r<8>(p, li, lb, lyr, smem); break;
-  }
-}
-
-// o [Hq * HD] = the merged, normalized splits, into shared memory
-__device__ void merge_phase(const FusedArgs& p, float* o) {
-  for (int i = threadIdx.x; i < p.Hq * HD; i += blockDim.x) {
-    const int hq = i / HD, d = i % HD;
-    const float* pp = p.part + (size_t)hq * p.n_splits * PART;
-    float M = -INFINITY;
-    for (int s = 0; s < p.n_splits; ++s) M = fmaxf(M, __ldcg(pp + s * PART));
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < p.n_splits; ++s) {
-      const float ms = __ldcg(pp + s * PART);
-      const float e = ms == -INFINITY ? 0.f : expf(ms - M);
-      L += __ldcg(pp + s * PART + 1) * e;
-      A += __ldcg(pp + s * PART + 2 + d) * e;
-    }
-    o[i] = __fdiv_rn(A, L);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- kernel
-
-template <int MODE>
+// One cooperative launch: every CTA quantizes x, the grid's warps take the
+// w_gu rows; a grid barrier; every CTA quantizes the whole mid from L2, the
+// warps take the w_down rows. (Shared memory keeps the layout it had beside
+// the attention block: a block reduction's scratch and a dim-wide f32
+// vector ahead of the operands, so the grid is the same size.)
 __global__ void __launch_bounds__(Q8_THREADS, 1)
-fused_decode_kernel(FusedArgs p) {
+fused_mlp_kernel(FusedArgs p) {
   extern __shared__ __align__(16) unsigned char fd_smem[];
   cg::grid_group grid = cg::this_grid();
-  float* red = reinterpret_cast<float*>(fd_smem);
-  float* o_s = reinterpret_cast<float*>(fd_smem + RED_BYTES);
   unsigned char* act_base = fd_smem + RED_BYTES + 4 * p.dim;
-  float* attn_s = reinterpret_cast<float*>(fd_smem);
-  const int nq = (p.Hq + 2 * p.Hkv) * HD;
-
-  if constexpr (MODE == MODE_MLP) {
-    const Weights w = weights_of(p.w);
-    const Q8Act ax = q8_act_at(act_base, p.dim / 32);
-    q8_quant(GlobalVec{p.x}, ax);
-    float* ygu = p.ygu;
-    q8_rows(w.qs[2], w.es[2], w.em[2], 2 * p.Kd, ax,
-            [&](int n, float v) { ygu[n] = v; });
-    grid.sync();
-    const Q8Act am = q8_act_at(act_base, p.Kd / 32);
-    q8_quant(MidVec{p.ygu, p.Kd}, am);
-    float* out = p.out;
-    q8_rows(w.qs[3], w.es[3], w.em[3], p.Nd, am,
-            [&](int n, float v) { out[n] = v; });
-    return;
-  }
-
-  if constexpr (MODE == MODE_ATTN) {
-    const Weights w = weights_of(p.w);
-    const Q8Act ax = q8_act_at(act_base, p.dim / 32);
-    q8_quant(GlobalVec{p.x}, ax);
-    float* yqkv = p.yqkv;
-    q8_rows(w.qs[0], w.es[0], w.em[0], nq, ax,
-            [&](int n, float v) { yqkv[n] = v; });
-    grid.sync();
-    attention_phase(p, p.layer0, 0, attn_s);
-    grid.sync();
-    merge_phase(p, o_s);
-    q8_quant(SmemVec{o_s}, ax);
-    float* out = p.out;
-    q8_rows(w.qs[1], w.es[1], w.em[1], p.dim, ax,
-            [&](int n, float v) { out[n] = v; });
-    return;
-  }
+  const Weights w = weights_of(p.w);
+  const Q8Act ax = q8_act_at(act_base, p.dim / 32);
+  q8_quant(GlobalVec{p.x}, ax);
+  float* ygu = p.ygu;
+  q8_rows(w.qs[2], w.es[2], w.em[2], 2 * p.Kd, ax,
+          [&](int n, float v) { ygu[n] = v; });
+  grid.sync();
+  const Q8Act am = q8_act_at(act_base, p.Kd / 32);
+  q8_quant(MidVec{p.ygu, p.Kd}, am);
+  float* out = p.out;
+  q8_rows(w.qs[3], w.es[3], w.em[3], p.Nd, am,
+          [&](int n, float v) { out[n] = v; });
 }
 
 // ------------------------------------------------------------ layer kernel
@@ -412,17 +195,20 @@ fused_decode_kernel(FusedArgs p) {
 //   between wqkv and W_o: the K / V tiles of the CTA's attention items, 8
 //     KB of K and 8 KB of V a slot (32 bf16 or 16 f32 keys), only the valid
 //     rows copied. Item (KV head g, split s) = CTA g n + s (and every G-th
-//     after it), n = min(G / Hkv, tiles) splits of the ceil(len / tk)
-//     tiles, balanced in whole tiles, from lengths[0];
+//     after it), n splits of the ceil(len / tk) tiles, balanced in whole
+//     tiles, from lengths[0]: one up to LK_ONE_SPLIT tiles, else
+//     min(G / Hkv, tiles);
 //   the MLP norm's weights; w_gu: the gate and up rows of the CTA's whole
 //     32-blocks of the mid [b0, b1) = [c Kd/32 / G, (c + 1) Kd/32 / G).
 // The consumers, per layer: RMSNorm (h staged in shared memory) and the
 // int8 quantization of the 4096-vector, every CTA the whole vector; wqkv |
 // the attention as #13's flash decode: each warp owns keys of every tile
-// for one query head (8 / R warps a head), an online softmax a warp, the
-// warps of a head folded in warp order; the last CTA to finish a split of
-// a KV head (a ticket) merges that head's splits and quantizes its o into
-// an image in device memory | every CTA copies o's image; W_o | RMSNorm,
+// for one query head (8 / R warps a head), its keys' warp sums taken side
+// by side, an online softmax a warp, the warps of a head folded in warp
+// order; a single split's CTA quantizes its heads' o itself, else the last
+// CTA to finish a split of a KV head (a ticket) merges that head's splits
+// and quantizes its o, each into an image in device memory | every CTA
+// copies o's image; W_o | RMSNorm,
 // quantization; w_gu, and each CTA quantizes the mid blocks it owns into
 // the mid's image | every CTA copies that image; w_down. ("|": a grid
 // barrier.) A grid barrier is a counter of arrivals (release) and a spin
@@ -439,14 +225,16 @@ constexpr int LK_SC = LK_SEG / 32 * 2;          // es (em) bytes a row a unit
 constexpr int LK_SLOT = LK_ROWS * (LK_QS + 2 * LK_SC);   // 20 KB
 constexpr int LK_KV = 8192;                     // K (and V) bytes a tile
 constexpr int LK_STAGES = 9;
+// a cache of at most this many tiles keeps one split: its CTA then merges
+// nothing and writes no partial, cheaper than a merge's round trips
+constexpr int LK_ONE_SPLIT = 8;
 constexpr int LK_INFLIGHT = 2;                  // chunks issued, not landed
 constexpr int LK_MAX_HKV = 64, LK_MAX_LAYERS = 256;   // the merge tickets
 constexpr int LK_DIM = 4096;                    // Hq * HD, the gate's dim
-// shared floats of the attention's fold [warp][PART], reused by the merge
-// for the o of a KV head's query heads and their (m, l) (8 x HD each at
-// most)
-constexpr int LK_FOLD =
-    LK_CWARPS * PART > 16 * HD ? LK_CWARPS * PART : 16 * HD;
+// shared floats of the attention's fold [warp][PART] and a single split's
+// o behind it; reused by the merge for the o of a KV head's query heads and
+// their (m, l) (8 x HD each at most)
+constexpr int LK_FOLD = LK_CWARPS * PART + 16 * HD;
 
 enum { PH_ALL = 0, PH_NO_BOUND, PH_NO_ATTN, PH_STREAM, PH_ONLY_PACK,
        PH_ONLY_DOWN, PH_NO_SYNC };
@@ -620,7 +408,9 @@ struct AttnPlan {
     // over the cache alone, as the reference's clamped block count does
     length = min(lb + 1, S);
     tiles = (length + tk - 1) / tk;
-    n_splits = max(1, min(min((int)gridDim.x / Hkv, tiles), MAX_SPLITS));
+    n_splits = tiles <= LK_ONE_SPLIT
+                   ? 1
+                   : max(1, min(min((int)gridDim.x / Hkv, tiles), MAX_SPLITS));
     items = Hkv * n_splits;
   }
   __device__ void split(int s, int* t0, int* t1) const {
@@ -873,13 +663,25 @@ template <> __device__ __forceinline__ void row4<float>(
   f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
 
+// the 4 R blocks of o [R HD] of KV head g's query heads into the image go
+// (an even count: both halves of a warp take one)
+template <int R>
+__device__ __forceinline__ void lk_quant_head(const float* o, int g,
+                                              const Q8Act& go) {
+  const int t = threadIdx.x & 15;
+  for (int j = threadIdx.x >> 4; j < 4 * R; j += LK_CTHREADS / 16)
+    q8_quant_vals(o[32 * j + t], o[32 * j + 16 + t], go, g * 4 * R + j, t);
+  cbar();
+}
+
 // The last CTA to finish a split of KV head g (a ticket a layer and head,
 // set back to 0 by that CTA) merges the splits of its R query heads in
 // split order (M = max m_s, e_s = exp(m_s - M), L = sum l_s e_s, o = sum
 // A_s e_s / L) and quantizes their 4 R blocks of o into the image go,
 // which every CTA copies after the next grid barrier.
+template <int R>
 __device__ __forceinline__ void lk_merge_head(const FusedArgs& p, int lyr,
-                                              int g, int R, int n, float* o,
+                                              int g, int n, float* o,
                                               float* red, const Q8Act& go) {
   int* flag = reinterpret_cast<int*>(red + 40);
   if (threadIdx.x == 0) {
@@ -935,11 +737,7 @@ __device__ __forceinline__ void lk_merge_head(const FusedArgs& p, int lyr,
     o[i] = __fdiv_rn(A, L);
   }
   cbar();
-  // 4 R blocks (an even count: both halves of a warp take one)
-  const int t = threadIdx.x & 15;
-  for (int j = threadIdx.x >> 4; j < 4 * R; j += LK_CTHREADS / 16)
-    q8_quant_vals(o[32 * j + t], o[32 * j + 16 + t], go, g * 4 * R + j, t);
-  cbar();
+  lk_quant_head<R>(o, g, go);
 }
 
 // `bytes` (a multiple of 16) from an image in device memory (other CTAs'
@@ -1029,24 +827,31 @@ __device__ __forceinline__ void lk_attention(Consumer& cs,
       const unsigned char* slot = cs.wait();
       if (compute) {
         const int key0 = t * TK;
+        // every key's partial dot first (rows past the length are stale
+        // and masked below), then the NKW warp sums side by side, each in
+        // warp_sum's butterfly order
         float sc[NKW], tmax = -INFINITY;
 #pragma unroll
         for (int i = 0; i < NKW; ++i) {
-          const int key = key0 + ks + WPH * i;
-          float v = -INFINITY;
-          if (key < ap.length) {
-            float kf[4];
-            if (key == lb) {
+          const int kk = ks + WPH * i;
+          float kf[4];
+          row4<T>(slot + kk * ROWB, lane, kf);
+          if (key0 + kk == lb) {
 #pragma unroll
-              for (int j = 0; j < 4; ++j) kf[j] = kn[j];
-            } else {
-              row4<T>(slot + (ks + WPH * i) * ROWB, lane, kf);
-            }
-            v = warp_sum(q[0] * kf[0] + q[1] * kf[1] + q[2] * kf[2] +
-                         q[3] * kf[3]);
+            for (int j = 0; j < 4; ++j) kf[j] = kn[j];
           }
-          sc[i] = v;
-          tmax = fmaxf(tmax, v);
+          sc[i] = q[0] * kf[0] + q[1] * kf[1] + q[2] * kf[2] + q[3] * kf[3];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+          for (int i = 0; i < NKW; ++i)
+            sc[i] += __shfl_xor_sync(0xffffffffu, sc[i], o);
+        }
+#pragma unroll
+        for (int i = 0; i < NKW; ++i) {
+          if (key0 + ks + WPH * i >= ap.length) sc[i] = -INFINITY;
+          tmax = fmaxf(tmax, sc[i]);
         }
         const float mn = fmaxf(m, tmax);
         if (mn != -INFINITY) {
@@ -1076,7 +881,10 @@ __device__ __forceinline__ void lk_attention(Consumer& cs,
       cs.release();
     }
     if (!compute) continue;
-    // fold the WPH warps of each head in warp order: fold [warp][PART]
+    // fold the WPH warps of each head in warp order: fold [warp][PART]; a
+    // single split's fold is o (= A / L, as its merge would give), into o1
+    const bool one = merge && ap.n_splits == 1;
+    float* o1 = fold + LK_CWARPS * PART;
     float* dst = fold + warp * PART;
     if (lane == 0) {
       dst[0] = m;
@@ -1099,6 +907,10 @@ __device__ __forceinline__ void lk_attention(Consumer& cs,
           A += sw[2 + d] * e;
         }
       }
+      if (one) {
+        o1[t] = __fdiv_rn(A, L);
+        continue;
+      }
       float* out = p.part + ((size_t)(g * R + h) * ap.n_splits + s) * PART;
       if (d == 0) {
         out[0] = M;
@@ -1107,7 +919,10 @@ __device__ __forceinline__ void lk_attention(Consumer& cs,
       out[2 + d] = A;
     }
     cbar();
-    if (merge) lk_merge_head(p, lyr, g, R, ap.n_splits, fold, red, go);
+    if (one)
+      lk_quant_head<R>(o1, g, go);
+    else if (merge)
+      lk_merge_head<R>(p, lyr, g, ap.n_splits, fold, red, go);
   }
 }
 
@@ -1142,6 +957,15 @@ __host__ __device__ constexpr int lk_smem_bytes(int kd) {
          4 * LK_DIM + 4 * 4 * HD + RED_BYTES + 2 * LK_STAGES * 8;
 }
 
+// BLOCK = false: nL whole layers (layer_step, model_step). BLOCK = true:
+// one attention block (fused_attention): x quantized as it is given (no
+// norm), wqkv | the attention, its last split's merge | W_o into out (no
+// residual); the producer streams x (the first chunk, ahead of the weight
+// stream that would queue an L2 read of it), wqkv, the K / V tiles and
+// W_o, from the six pointers of p.w, and o's image lies at the start of
+// p.ygu.
+
+template <bool BLOCK>
 __global__ void __launch_bounds__(LK_THREADS, 1)
 layer_decode_kernel(FusedArgs p) {
   extern __shared__ __align__(128) unsigned char lk_sm[];
@@ -1163,9 +987,12 @@ layer_decode_kernel(FusedArgs p) {
   }
   __syncthreads();
 
+  // the length, read once at the start while the memory system is idle (a
+  // load behind the weight stream waits microseconds); the producer uses it
+  // only when it reaches the K / V tiles, so its first copies issue at once
   const int lb = p.lengths[0];
-  const int tk = LK_KV / (p.cache_f32 ? HD * 4 : HD * 2);
-  const AttnPlan ap(lb, p.S, p.Hkv, tk);
+  const int rowb = p.cache_f32 ? HD * 4 : HD * 2;
+  const int tk = LK_KV / rowb;
   const int nq = (p.Hq + 2 * p.Hkv) * HD;
   // w_gu = [gate; up]: this CTA's whole 32-blocks mb of the mid, their gate
   // and up rows, so that it quantizes them itself
@@ -1175,6 +1002,16 @@ layer_decode_kernel(FusedArgs p) {
 
   if (warp == LK_CWARPS) {                       // the producer
     Producer pr{ring, 0u, lane};
+    if constexpr (BLOCK) {
+      const void* w[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) w[i] = p.w[i];
+      pr.vec(p.x);
+      pr.matrix(w, lk_slice(nq), LK_DIM);
+      pr.attention(p, p.layer0, AttnPlan(lb, p.S, p.Hkv, tk), tk, rowb);
+      pr.matrix(w + 3, lk_slice(LK_DIM), LK_DIM);
+      return;
+    }
     for (int l = 0; l < p.nL; ++l) {
       const void* w[12];
 #pragma unroll
@@ -1183,7 +1020,7 @@ layer_decode_kernel(FusedArgs p) {
       const float* anorm = p.norms + (size_t)(2 * l) * LK_DIM;
       pr.vec(anorm);
       pr.matrix(w, lk_slice(nq), LK_DIM);
-      pr.attention(p, p.layer0 + l, ap, tk, p.cache_f32 ? HD * 4 : HD * 2);
+      pr.attention(p, p.layer0 + l, AttnPlan(lb, p.S, p.Hkv, tk), tk, rowb);
       pr.matrix(w + 3, lk_slice(LK_DIM), LK_DIM);
       pr.vec(anorm + LK_DIM);
       pr.matrix(w + 6, gate, LK_DIM);
@@ -1193,6 +1030,7 @@ layer_decode_kernel(FusedArgs p) {
     return;
   }
 
+  const AttnPlan ap(lb, p.S, p.Hkv, tk);
   // the RoPE rows at position lb, the same in every layer (rotate-half:
   // out = x * c + roll(x, HD / 2) * s; q's with 1/sqrt(D) folded in)
   if (threadIdx.x < HD) {
@@ -1220,50 +1058,73 @@ layer_decode_kernel(FusedArgs p) {
   // last split of each KV head; every CTA copies an image whole
   unsigned char* img = reinterpret_cast<unsigned char*>(p.ygu);
   const Q8Act gmid = q8_act_at(img, p.Kd / 32);
-  unsigned char* oimg = img + q8_act_bytes(p.Kd / 32);
+  unsigned char* oimg = BLOCK ? img : img + q8_act_bytes(p.Kd / 32);
   const Q8Act go = q8_act_at(oimg, LK_DIM / 32);
   const int ng = gate.r1 - gate.r0;
   float* yqkv = p.yqkv;
   float* h2 = p.h2;
   float* hout = p.out;
-  for (int l = 0; l < p.nL; ++l) {
-    const float* h = l == 0 ? p.x : p.out;
-
-    // attn RMSNorm, wqkv
-    cs.entry(h, p.eps, gu, red, ax, f.entry);
-    cs.matrix(lk_slice(nq), LK_DIM, ax, f.pack,
+  if constexpr (BLOCK) {
+    {
+      const float* xs = reinterpret_cast<const float*>(cs.wait());
+      lk_quant(XVec{xs}, ax);
+      cs.release();
+    }
+    cs.matrix(lk_slice(nq), LK_DIM, ax, true,
               [&](int n, float v) { yqkv[n] = v; });
     sync();
     // RoPE, the new k / v, the split partials; the last split of a KV
-    // head merges it and quantizes its o
+    // head merges it and quantizes its o into the image go
     if (p.cache_f32)
-      lk_attention_r<float>(cs, p, l, lb, ap, f.attn, f.attn && f.merge,
+      lk_attention_r<float>(cs, p, 0, lb, ap, f.attn, f.attn && f.merge,
                             fold, rope, red, go);
     else
-      lk_attention_r<bf16>(cs, p, l, lb, ap, f.attn, f.attn && f.merge,
+      lk_attention_r<bf16>(cs, p, 0, lb, ap, f.attn, f.attn && f.merge,
                            fold, rope, red, go);
     sync();
-    // W_o, attention residual
-    if (f.merge) lk_copy(oimg, act_base, q8_act_bytes(LK_DIM / 32));
-    cs.matrix(lk_slice(LK_DIM), LK_DIM, ax, f.pack, [&](int n, float v) {
-      h2[n] = __fadd_rn(__ldcg(h + n), v);
-    });
-    sync();
-    // MLP RMSNorm, w_gu (this CTA's gate and up rows of its mid blocks)
-    cs.entry(h2, p.eps, gu, red, ax, f.entry);
-    cs.matrix(gate, LK_DIM, ax, f.pack,                 // gu = [gate | up]
-              [&](int n, float v) { gu[n - gate.r0] = v; });
-    cs.matrix(up, LK_DIM, ax, f.pack,
-              [&](int n, float v) { gu[ng + n - up.r0] = v; });
-    cbar();
-    if (f.mid) lk_mid_quant(gu, mb, gmid);
-    sync();
-    // w_down, MLP residual
-    if (f.mid) lk_copy(img, act_base, q8_act_bytes(p.Kd / 32));
-    cs.matrix(lk_slice(LK_DIM), p.Kd, am, f.down, [&](int n, float v) {
-      hout[n] = __fadd_rn(v, __ldcg(h2 + n));
-    });
-    if (l + 1 < p.nL) sync();
+    lk_copy(oimg, act_base, q8_act_bytes(LK_DIM / 32));
+    cs.matrix(lk_slice(LK_DIM), LK_DIM, ax, true,
+              [&](int n, float v) { hout[n] = v; });
+  } else {
+    for (int l = 0; l < p.nL; ++l) {
+      const float* h = l == 0 ? p.x : p.out;
+
+      // attn RMSNorm, wqkv
+      cs.entry(h, p.eps, gu, red, ax, f.entry);
+      cs.matrix(lk_slice(nq), LK_DIM, ax, f.pack,
+                [&](int n, float v) { yqkv[n] = v; });
+      sync();
+      // RoPE, the new k / v, the split partials; the last split of a KV
+      // head merges it and quantizes its o into the image go
+      if (p.cache_f32)
+        lk_attention_r<float>(cs, p, l, lb, ap, f.attn, f.attn && f.merge,
+                              fold, rope, red, go);
+      else
+        lk_attention_r<bf16>(cs, p, l, lb, ap, f.attn, f.attn && f.merge,
+                             fold, rope, red, go);
+      sync();
+      // W_o, attention residual
+      if (f.merge) lk_copy(oimg, act_base, q8_act_bytes(LK_DIM / 32));
+      cs.matrix(lk_slice(LK_DIM), LK_DIM, ax, f.pack, [&](int n, float v) {
+        h2[n] = __fadd_rn(__ldcg(h + n), v);
+      });
+      sync();
+      // MLP RMSNorm, w_gu (this CTA's gate and up rows of its mid blocks)
+      cs.entry(h2, p.eps, gu, red, ax, f.entry);
+      cs.matrix(gate, LK_DIM, ax, f.pack,                 // gu = [gate | up]
+                [&](int n, float v) { gu[n - gate.r0] = v; });
+      cs.matrix(up, LK_DIM, ax, f.pack,
+                [&](int n, float v) { gu[ng + n - up.r0] = v; });
+      cbar();
+      if (f.mid) lk_mid_quant(gu, mb, gmid);
+      sync();
+      // w_down, MLP residual
+      if (f.mid) lk_copy(img, act_base, q8_act_bytes(p.Kd / 32));
+      cs.matrix(lk_slice(LK_DIM), p.Kd, am, f.down, [&](int n, float v) {
+        hout[n] = __fadd_rn(v, __ldcg(h2 + n));
+      });
+      if (l + 1 < p.nL) sync();
+    }
   }
   // the last CTA out sets the barrier counter back to 0 for the next launch
   cbar();
@@ -1275,70 +1136,66 @@ layer_decode_kernel(FusedArgs p) {
 
 // ---------------------------------------------------------------- launch
 
-template <int MODE>
-static int launch(FusedArgs& a, int r, void* stream) {
-  static int granted = 0, sms = 0;
-  static int cached_smem = -1, per_sm = 0;
-  const int kb_max = (a.Kd > a.dim ? a.Kd : a.dim) / 32;
-  int smem = RED_BYTES + 4 * a.dim + q8_act_bytes(kb_max);
-  const int attn = Q8_WARPS * r * PART * (int)sizeof(float);
-  if (MODE != MODE_MLP && attn > smem) smem = attn;
-  auto kernel = fused_decode_kernel<MODE>;
-  cudaError_t e = allow_smem(kernel, smem, &granted);
+// A cooperative launch of `kernel` with `threads` threads and `smem` bytes,
+// the grid every SM's resident CTAs (cached per kernel and size in the
+// caller's statics); check(grid) may refuse the launch.
+template <typename Kernel, typename Check>
+static int launch_coop(Kernel kernel, FusedArgs& a, int threads, int smem,
+                       int* granted, int* cached_smem, int* per_sm, int* sms,
+                       const Check& check, void* stream) {
+  cudaError_t e = allow_smem(kernel, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  if (cached_smem != smem) {
+  if (*cached_smem != smem) {
     int dev = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+    if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
       return (int)e;
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, Q8_THREADS, smem)) != cudaSuccess)
+             per_sm, kernel, threads, smem)) != cudaSuccess)
       return (int)e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cached_smem = smem;
+    if (*per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    *cached_smem = smem;
   }
-  const int grid = per_sm * sms;
-  if (MODE != MODE_MLP) {
-    int n = grid / a.Hkv;
-    a.n_splits = n < 1 ? 1 : (n > MAX_SPLITS ? MAX_SPLITS : n);
-  }
+  const int grid = *per_sm * *sms;
+  if (!check(grid)) return (int)cudaErrorInvalidValue;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                  dim3(Q8_THREADS), args, (size_t)smem,
+                                  dim3(threads), args, (size_t)smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+static int launch_mlp(FusedArgs& a, void* stream) {
+  static int granted = 0, sms = 0, cached_smem = -1, per_sm = 0;
+  const int kb_max = (a.Kd > a.dim ? a.Kd : a.dim) / 32;
+  const int smem = RED_BYTES + 4 * a.dim + q8_act_bytes(kb_max);
+  return launch_coop(fused_mlp_kernel, a, Q8_THREADS, smem, &granted,
+                     &cached_smem, &per_sm, &sms, [](int) { return true; },
+                     stream);
+}
+
+template <bool BLOCK>
 static int launch_layers(FusedArgs& a, void* stream) {
-  static int granted = 0, sms = 0;
-  static int cached_smem = -1, per_sm = 0;
-  const int smem = lk_smem_bytes(a.Kd);
-  cudaError_t e = allow_smem(layer_decode_kernel, smem, &granted);
-  if (e != cudaSuccess) return (int)e;
-  if (cached_smem != smem) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, layer_decode_kernel, LK_THREADS, smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cached_smem = smem;
-  }
-  const int grid = per_sm * sms;
-  if ((a.Kd / 32 + grid - 1) / grid > LK_DIM / 64 || a.Hkv > LK_MAX_HKV ||
-      a.nL > LK_MAX_LAYERS)
-    return (int)cudaErrorInvalidValue;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)layer_decode_kernel,
-                                  dim3(grid), dim3(LK_THREADS), args,
-                                  (size_t)smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  static int granted = 0, sms = 0, cached_smem = -1, per_sm = 0;
+  return launch_coop(
+      layer_decode_kernel<BLOCK>, a, LK_THREADS, lk_smem_bytes(a.Kd),
+      &granted, &cached_smem, &per_sm, &sms,
+      [&](int grid) {
+        return (a.Kd / 32 + grid - 1) / grid <= LK_DIM / 64 &&
+               a.Hkv <= LK_MAX_HKV && a.nL <= LK_MAX_LAYERS;
+      },
+      stream);
+}
+
+// the shapes and addresses both layer-kernel entries need: whole 4096-wide
+// units of K and of rows, a GQA ratio of at most 8, and 16-byte aligned
+// TMA sources (the wrappers check the weights' and the caches' pointers)
+static bool lk_shape_ok(int Hq, int Hkv, int Kd, const void* kc,
+                        const void* vc) {
+  return Hq * HD == LK_DIM && Kd % LK_SEG == 0 && Hkv >= 1 && Hq % Hkv == 0 &&
+         Hq / Hkv <= 8 && (((uintptr_t)kc | (uintptr_t)vc) & 15) == 0;
 }
 
 GCT_EXPORT int fused_mlp(const float* x, const void* gu_qs, const void* gu_es,
@@ -1354,7 +1211,7 @@ GCT_EXPORT int fused_mlp(const float* x, const void* gu_qs, const void* gu_es,
   a.Nd = Nd;
   a.ygu = ygu;
   a.out = y;
-  return launch<MODE_MLP>(a, 1, stream);
+  return launch_mlp(a, stream);
 }
 
 GCT_EXPORT int fused_attention(
@@ -1362,28 +1219,37 @@ GCT_EXPORT int fused_attention(
     const void* o_qs, const void* o_es, const void* o_em, const void* kc,
     const void* vc, const int* lengths, int layer, int Hq, int Hkv,
     int S, int cache_f32, float theta, float scale, float* yqkv, float* part,
-    float* o, void* kn, void* vn, void* stream) {
+    float* oimg, float* o, void* kn, void* vn, unsigned* bar, void* stream) {
+  const void* w[6] = {q_qs, q_es, q_em, o_qs, o_es, o_em};
+  uintptr_t align = (uintptr_t)x;
+  for (const void* p : w) align |= (uintptr_t)p;
+  if (!lk_shape_ok(Hq, Hkv, LK_DIM, kc, vc) || (align & 15))
+    return (int)cudaErrorInvalidValue;
   FusedArgs a = {};
   a.x = x;
-  a.w[0] = q_qs; a.w[1] = q_es; a.w[2] = q_em;
-  a.w[3] = o_qs; a.w[4] = o_es; a.w[5] = o_em;
+  for (int i = 0; i < 6; ++i) a.w[i] = w[i];
   a.kc = kc;
   a.vc = vc;
   a.lengths = lengths;
   a.layer0 = layer;
+  a.nL = 1;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.S = S;
   a.dim = Hq * HD;
+  a.Kd = LK_DIM;
   a.cache_f32 = cache_f32;
   a.theta = theta;
   a.scale = scale;
   a.yqkv = yqkv;
   a.part = part;
+  a.ygu = oimg;
   a.out = o;
   a.kn = kn;
   a.vn = vn;
-  return launch<MODE_ATTN>(a, Hq / Hkv, stream);
+  a.phase = PH_ALL;
+  a.bar = bar;
+  return launch_layers<true>(a, stream);
 }
 
 GCT_EXPORT int layer_kernel(
@@ -1392,11 +1258,8 @@ GCT_EXPORT int layer_kernel(
     int Hkv, int S, int Kd, int cache_f32, float theta, float scale,
     float eps, float* yqkv, float* part, float* ygu, float* h2, float* hout,
     void* kn, void* vn, unsigned* bar, int phase, void* stream) {
-  // whole 4096-wide units of K and of rows; TMA needs 16-byte aligned
-  // sources (the wrapper checks the weights' and the caches' pointers)
-  if (phase < PH_ALL || phase > PH_NO_SYNC || Hq * HD != LK_DIM ||
-      Kd % LK_SEG || Hkv < 1 || Hq % Hkv || Hq / Hkv > 8 || nL < 1 ||
-      (((uintptr_t)kc | (uintptr_t)vc) & 15))
+  if (phase < PH_ALL || phase > PH_NO_SYNC || nL < 1 ||
+      !lk_shape_ok(Hq, Hkv, Kd, kc, vc))
     return (int)cudaErrorInvalidValue;
   FusedArgs a = {};
   a.x = h;
@@ -1425,7 +1288,17 @@ GCT_EXPORT int layer_kernel(
   a.vn = vn;
   a.phase = phase;
   a.bar = bar;
-  return launch_layers(a, stream);
+  return launch_layers<false>(a, stream);
+}
+
+// registers, shared memory and occupancy of the layer kernel's instances
+// (kernel_info in common.cuh): block 0 the whole layers, 1 the attention
+// block
+GCT_EXPORT int layer_kernel_info(int block, int* out) {
+  return block ? kernel_info(layer_decode_kernel<true>, LK_THREADS,
+                             lk_smem_bytes(LK_DIM), out)
+               : kernel_info(layer_decode_kernel<false>, LK_THREADS,
+                             lk_smem_bytes(3 * LK_DIM), out);
 }
 
 GCT_EXPORT int kernels_clear_error() { return (int)cudaGetLastError(); }

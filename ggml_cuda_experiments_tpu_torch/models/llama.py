@@ -55,7 +55,7 @@ from ggml_cuda_experiments_tpu_torch.ops import layer_kernel
 from ggml_cuda_experiments_tpu_torch.ops.fused_attention import (
     attention_fused, attention_fused_supported)
 from ggml_cuda_experiments_tpu_torch.ops.prefill_fuse import (
-    rope_pack_prefill)
+    rope_pack_prefill, rope_tables)
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
     FORMATS, QuantLinear, mlp_fused, mlp_fused_supported, qmatmul,
     qmatmul_ref, quantize)
@@ -280,9 +280,15 @@ def row_parallel(x: torch.Tensor, w, xq8: bool = False, mesh=None,
 def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
                      cache: KVCache, li: int, positions: torch.Tensor, *,
                      decode: bool, reduce_axis: str | None = None,
-                     mesh=None, b0: int = 0, valid: bool | None = None):
+                     mesh=None, b0: int = 0, valid: bool | None = None,
+                     tables=None):
     """The attention block; returns (its output, the cache, written in
     place).
+
+    ``tables``: the prefill's (C, S2) for the RoPE + repack kernel
+    (``prefill_fuse.rope_tables`` at ``positions[0]``), made once by
+    ``_forward`` for all its layers; where the kernel's gate opens without
+    them, it makes its own.
 
     ``reduce_axis`` (with ``mesh``): tensor parallelism. cfg then describes
     the rank's shard (heads divided), wq / wk / wv are column-parallel and
@@ -314,7 +320,8 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         # repacks q / k / v head-major
         qt, kt, vt = rope_pack_prefill(
             apply_linear(x, layer["wqkv"])[0], positions[0], n_heads=Hq,
-            n_kv_heads=Hkv, head_dim=D, rope_theta=cfg.rope_theta)
+            n_kv_heads=Hkv, head_dim=D, rope_theta=cfg.rope_theta,
+            tables=tables)
         q = qt.transpose(0, 1)[None]             # [1, T, Hq, D]
         kt, vt = kt[None], vt[None]              # [1, Hkv, T, D]
     else:
@@ -410,6 +417,13 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         h = rms_norm(hm[:, None].to(h.dtype), params["final_norm"],
                      cfg.rms_eps)
         return _head_logits(params, cfg, h, cache, tokens, all_logits)
+    # the RoPE + repack kernel's tables depend on the positions alone: made
+    # once here where its gate (in _attention_block) opens, for every layer
+    tables = None
+    if (not decode and reduce_axis is None and B == 1 and T % 128 == 0
+            and cfg.head_dim == 128 and not cache.quantized
+            and any("wqkv" in layer for layer in params["layers"])):
+        tables = rope_tables(positions[0], cfg.head_dim, cfg.rope_theta)
     for li, layer in enumerate(params["layers"]):
         if layer_hook is not None:
             h = layer_hook(li, h, 0)
@@ -424,7 +438,8 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             continue
         attn, cache = _attention_block(layer, cfg, h, cache, li, positions,
                                        decode=decode,
-                                       reduce_axis=reduce_axis, mesh=mesh)
+                                       reduce_axis=reduce_axis, mesh=mesh,
+                                       tables=tables)
         h = h + attn
         h = h + _mlp_block(layer, cfg, h, reduce_axis=reduce_axis,
                            mesh=mesh)

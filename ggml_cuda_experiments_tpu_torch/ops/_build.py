@@ -76,9 +76,10 @@ SIGNATURES = {
     # x, w_gu qs/es/em, w_down qs/es/em, ygu scratch, y, Kg, Kd, Nd, stream
     "fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, wqkv qs/es/em, wo qs/es/em, k, v, lengths, layer, Hq, Hkv, S,
-    # cache_f32, theta, scale, yqkv / part scratch, o, k_new, v_new, stream
+    # cache_f32, theta, scale, yqkv / part / o-image scratch, o, k_new,
+    # v_new, tickets, stream
     "fused_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
+                        _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
     # h, ptrs, norms, k, v, lengths, layer0, nL, Hq, Hkv, S, Kd, cache_f32,
     # theta, scale, eps, yqkv / part / ygu / h2 scratch, h_out, k_new,
     # v_new, stream
@@ -125,6 +126,8 @@ SIGNATURES = {
     "q4_ladder_info": (_I, _I, _P),
     # D / dtype, D
     "flash_attention_info": (_I, _P),
+    # the layer kernel (0) or its attention block (1)
+    "layer_kernel_info": (_I, _P),
     "vpu_attention_info": (_I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),

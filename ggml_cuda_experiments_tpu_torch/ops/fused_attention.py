@@ -16,8 +16,12 @@ The reference stores W_o in its "wof" column order, a TPU lane trick; the
 port keeps W_o in logical order and takes only the shape half of the gate
 (``wof_shape_supported``): head_dim 128, Hq * D == 4096, GQA ratio in
 {1, 2, 4, 8}, a bf16 or f32 cache. The kernel is in
-``csrc/fused_decode.cu``. The caller appends k_new / v_new to its cache:
-the function itself writes nothing, like the reference's.
+``csrc/fused_decode.cu``: the layer kernel's attention block alone (one CTA
+an SM, a producer warp streaming the CTA's wqkv rows, its K / V tiles and
+its W_o rows through a TMA ring; the keys split by ``split_plan`` from
+``lengths[0]`` on the card; the last split of a KV head merges it and
+quantizes its o once). The caller appends k_new / v_new to its cache: the
+function itself writes nothing, like the reference's.
 """
 
 from __future__ import annotations
@@ -34,6 +38,49 @@ LAUNCHES = {"fused_attention": 0}
 # per-(head, split) partials the workspace holds room for
 MAX_SPLITS = 64
 _CACHE_DTYPES = (torch.bfloat16, torch.float32)
+KV_TILE_BYTES = 8192            # K (and V) bytes of one tile of the kernel
+ONE_SPLIT_TILES = 8             # a cache of at most this many keeps 1 split
+MAX_KV_HEADS = 64               # merge tickets of the kernel
+# o's int8 operands (csrc/q8_common.cuh: 48 bytes a 32-block of 4096), as
+# f32 words of the workspace
+_O_IMAGE_WORDS = 48 * 4096 // 32 // 4
+_TICKETS: dict = {}
+
+
+def split_plan(length: int, S: int, n_kv_heads: int, ctas: int,
+               cache_dtype) -> list:
+    """The kernel's split of the keys (``csrc/fused_decode.cu``
+    ``AttnPlan``) at ``lengths[0] == length``: the keys are the cache's
+    first min(length + 1, S) (the new token included), in tiles of
+    ``KV_TILE_BYTES`` (32 bf16 / 16 f32 keys); one split up to
+    ``ONE_SPLIT_TILES`` tiles, else n = min(ctas // n_kv_heads, tiles,
+    MAX_SPLITS), at least 1, splits of whole tiles, balanced. Returns each
+    split's key range [k0, k1)."""
+    tk = KV_TILE_BYTES // (128 * (4 if cache_dtype == torch.float32 else 2))
+    keys = min(length + 1, S)
+    tiles = -(-keys // tk)
+    n = 1 if tiles <= ONE_SPLIT_TILES else max(
+        1, min(ctas // n_kv_heads, tiles, MAX_SPLITS))
+    return [(min(tiles * s // n * tk, keys), min(tiles * (s + 1) // n * tk,
+                                                  keys))
+            for s in range(n)]
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The kernel's counters, int32 [2 + MAX_KV_HEADS] a device: its grid
+    barrier's arrivals and exits and a merge ticket a KV head; zero between
+    launches (the last CTA to use one sets it back). Made at the first
+    call, which must not be inside a CUDA graph capture. Two streams must
+    not run ``attention_fused`` at once."""
+    t = _TICKETS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("attention_fused: call it once outside a CUDA "
+                               "graph capture first (its ticket buffer is "
+                               "made then)")
+        t = _TICKETS[device.index] = torch.zeros(
+            2 + MAX_KV_HEADS, dtype=torch.int32, device=device)
+    return t
 
 
 def wof_shape_supported(dim_o: int, ko: int, n_heads: int, n_kv_heads: int,
@@ -156,19 +203,25 @@ def attention_fused(x, wqkv, wo, k_cache, v_cache, lengths, layer, *,
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if scale is None:
         scale = float(1.0 / D ** 0.5)
-    ws = torch.empty((nq + n_heads * MAX_SPLITS * (D + 2),),
-                     dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for w in (wqkv, wo) for t in (w.qs, w.es, w.em)]
+    if any(p % 16 for p in ptrs + [x.data_ptr(), k_cache.data_ptr(),
+                                   v_cache.data_ptr()]):
+        raise ValueError("attention_fused: the kernel copies x, the weights "
+                         "and the caches by TMA, which needs them on 16 "
+                         "bytes")
+    npart = n_heads * MAX_SPLITS * (D + 2)
+    ws = torch.empty((nq + npart + _O_IMAGE_WORDS,), dtype=torch.float32,
+                     device=x.device)
     o = torch.empty((1, dim), dtype=torch.float32, device=x.device)
     kn = torch.empty((n_kv_heads, D), dtype=k_cache.dtype, device=x.device)
     vn = torch.empty_like(kn)
     rc = _build.lib().fused_attention(
-        x.data_ptr(), wqkv.qs.data_ptr(), wqkv.es.data_ptr(),
-        wqkv.em.data_ptr(), wo.qs.data_ptr(), wo.es.data_ptr(),
-        wo.em.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        x.data_ptr(), *ptrs, k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), layer, n_heads, n_kv_heads, S,
         int(k_cache.dtype == torch.float32), float(rope_theta), scale,
-        ws.data_ptr(), ws[nq:].data_ptr(), o.data_ptr(), kn.data_ptr(),
-        vn.data_ptr(), _build.stream_of(x))
+        ws.data_ptr(), ws[nq:].data_ptr(), ws[nq + npart:].data_ptr(),
+        o.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        _tickets(x.device).data_ptr(), _build.stream_of(x))
     _build.check(rc, "fused_attention")
     LAUNCHES["fused_attention"] += 1
     return o, kn, vn

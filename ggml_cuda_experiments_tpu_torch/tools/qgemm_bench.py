@@ -1,19 +1,24 @@
 """The quantized decode and prefill kernels on the card: the dequantizing
 GEMM (``q4k_gemm``, ``q40_gemm``, ``q80_gemm``), the batch-1 exact-f32
-matvecs (``q4k_matvec``, ``q40_matvec``) and the paged decode attention
-(``paged_decode``), through the public wrappers, so that one command times
-any checkout of the port:
+matvecs (``q4k_matvec``, ``q40_matvec``), the paged decode attention
+(``paged_decode``), the fused decode attention block (``attention_fused``)
+and the prefill RoPE repack (``rope_pack_prefill``), through the public
+wrappers, so that one command times any checkout of the port:
 
     python -m ggml_cuda_experiments_tpu_torch.tools.qgemm_bench [--tag new]
     python -m ggml_cuda_experiments_tpu_torch.tools.qgemm_bench \\
         --root DIR --tag parent --kernels matvec,paged
+    python -m ggml_cuda_experiments_tpu_torch.tools.qgemm_bench \\
+        --kernels fused_attn,rope_pack
 
-``chip_smoke.py`` times its GEMM, matvec and paged cases with the helpers
-here (``cases`` / ``gemm_x`` / ``gemm_times``, ``matvec_weights`` /
-``matvec_case``, ``paged_inputs`` / ``paged_bytes`` / ``paged_case``), so
-the smoke and this tool read one timing path.
+``chip_smoke.py`` times its GEMM, matvec, paged, fused-attention and
+rope_pack cases with the helpers here (``cases`` / ``gemm_x`` /
+``gemm_times``, ``matvec_weights`` / ``matvec_case``, ``paged_inputs`` /
+``paged_bytes`` / ``paged_case``, ``attn_inputs`` / ``attn_bytes`` /
+``attn_case``, ``rope_inputs`` / ``rope_bytes`` / ``rope_case``), so the
+smoke and this tool read one timing path.
 
-Cases (``--kernels``, all three by default):
+Cases (``--kernels``, all five by default):
 - gemm: each format at w_gu [24576, 4096] with M = 2, 5, 8, 16, 128, 512,
   and q4k_gemm there at M = 32 and 33 (the routes' crossover); q4k_gemm at
   wqkv [12288, 4096], W_o [4096, 4096] and w_down [4096, 12288] with M = 8
@@ -26,7 +31,15 @@ Cases (``--kernels``, all three by default):
 - paged: ``paged_decode`` at chip_smoke.py phase 4b's headline (B = 8, MHA
   32/32, D 128, page 64, 16 pages a sequence, ragged lengths up to 1024
   over a 2-layer pool) on bf16, int8 and fp8 pages, and at the Engine's
-  own shape (the same pool geometry, int8, lengths up to 128).
+  own shape (the same pool geometry, int8, lengths up to 128);
+- fused_attn: ``attention_fused`` at llama2-7b's block (wqkv, W_o in q4_k,
+  three copies) over a bf16 cache of S = 1024 (two layers in turn), MHA
+  32/32 and GQA 32/8, at length 1024 (the new token at the last slot) and
+  a short cache of 57 keys;
+- rope_pack: ``rope_pack_prefill`` at T = 512, 32/32, D 128 (y copies
+  rotated past the L2), with the tables given (as a prefill hands them to
+  each layer: the kernel alone) and made by the call (a checkout whose
+  wrapper takes no tables: made).
 
 A case's time: 20 calls captured in one CUDA graph, the median of 5
 replays (``utils/bench.py::time_ms``), weights rotated past the 50 MB L2
@@ -63,7 +76,10 @@ LINEARS = (("wqkv", (12288, 4096)), ("W_o", (4096, 4096)),
 PAGED_GEOMETRY = dict(H=32, D=128, ps=64, pps=16, L=2)
 PAGED_LENGTHS = (1, 63, 64, 65, 300, 512, 777, 1024)
 ENGINE_LENGTHS = (17, 40, 64, 65, 90, 100, 127, 128)
-KERNELS = ("gemm", "matvec", "paged")
+KERNELS = ("gemm", "matvec", "paged", "fused_attn", "rope_pack")
+# (KV heads, lengths[0]) of the fused_attn cases: 1024 keys and 57
+ATTN_CASES = ((32, 1023), (8, 1023), (32, 56), (8, 56))
+ATTN_S = 1024
 
 
 def cases(fmt: str | None = None) -> list:
@@ -170,6 +186,99 @@ def paged_case(pa, inputs) -> float:
                                              layer=i % L, **kw))
 
 
+def attn_inputs(qm, dev, hkv: int, length: int, g, cache_dtype=None,
+                copies: int = 3, S: int = ATTN_S):
+    """(x, [(wqkv, wo)] copies, k_cache, v_cache, lengths, kwargs): one
+    llama2-7b attention block (32 query heads of 128 over ``hkv``; q4_k
+    weights of the ``copies``, rotated past the L2) over a 2-layer cache
+    [2, 1, hkv, S, 128] of ``cache_dtype`` (bf16), lengths [length]."""
+    import torch
+    cache_dtype = cache_dtype or torch.bfloat16
+
+    def weight(n, k):
+        return qm.quantize(torch.randn((n, k), generator=g, device=dev)
+                           * k ** -0.5)
+    ws = [(weight((32 + 2 * hkv) * 128, 4096), weight(4096, 4096))
+          for _ in range(copies)]
+    kc = torch.randn((2, 1, hkv, S, 128), generator=g,
+                     device=dev).to(cache_dtype)
+    vc = torch.randn((2, 1, hkv, S, 128), generator=g,
+                     device=dev).to(cache_dtype)
+    x = torch.randn((1, 4096), generator=g, device=dev)
+    lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+    return x, ws, kc, vc, lens, dict(n_heads=32, n_kv_heads=hkv,
+                                     head_dim=128)
+
+
+def attn_bytes(inputs) -> tuple[int, int]:
+    """(bytes, operations) of one call: both weights, the valid keys' K and
+    V rows of one layer (the new token's included, at most S), x in and o
+    out (f32), k_new / v_new out; two int8 operations a weight."""
+    x, ws, kc, vc, lens, kw = inputs
+    hkv, S, D = kc.shape[2], kc.shape[3], kc.shape[4]
+    keys = min(int(lens[0]) + 1, S)
+    es = kc.element_size()
+    nbytes = (ws[0][0].nbytes + ws[0][1].nbytes + 2 * hkv * keys * D * es
+              + 8 * 4096 + 2 * hkv * D * es)
+    return nbytes, 2 * (ws[0][0].array_shape[0] + 4096) * 4096
+
+
+def attn_case(fat, inputs, calls: int = 20) -> float:
+    """ms of one ``attention_fused`` over ``inputs`` (attn_inputs), weight
+    copies and cache layers in turn."""
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
+    x, ws, kc, vc, lens, kw = inputs
+    return time_ms(lambda i: fat.attention_fused(
+        x, *ws[i % len(ws)], kc, vc, lens, i % kc.shape[0], **kw),
+        calls=calls)
+
+
+def rope_inputs(dev, T: int = 512, H: int = 32, hkv: int = 32, g=None,
+                rotate: bool = True):
+    """([y [T, (H + 2 hkv) 128] bf16 copies, enough that a chain cycling
+    through them and writing q, k, v streams past the L2; one unless
+    ``rotate``], positions [T] int32, kwargs)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.utils.bench import rotating
+    width = (H + 2 * hkv) * 128
+    ys = rotating(lambda i: torch.randn((T, width), generator=g, device=dev
+                                        ).to(torch.bfloat16),
+                  4 * T * width if rotate else 1 << 62)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    return ys, pos, dict(n_heads=H, n_kv_heads=hkv, head_dim=128)
+
+
+def rope_bytes(inputs, given: bool) -> tuple[int, int]:
+    """(bytes, operations) of one call: y read and q, k, v written (bf16),
+    the positions, and the two f32 tables where they are given; six f32
+    operations a roped element."""
+    ys, pos, kw = inputs
+    T, width = ys[0].shape
+    D, nr = kw["head_dim"], kw["n_heads"] + kw["n_kv_heads"]
+    nbytes = 2 * 2 * T * width + 4 * T + (8 * T * D if given else 0)
+    return nbytes, 6 * T * nr * D
+
+
+def rope_case(pf, inputs, given: bool, calls: int = 20) -> float:
+    """ms of one ``rope_pack_prefill`` over ``inputs`` (rope_inputs), the
+    tables made once beforehand and given (``given``) or made by the
+    call."""
+    from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
+    ys, pos, kw = inputs
+    if given:
+        tables = pf.rope_tables(pos, kw["head_dim"], 10000.0)
+        return time_ms(lambda i: pf.rope_pack_prefill(
+            ys[i % len(ys)], pos, **kw, tables=tables), calls=calls)
+    return time_ms(lambda i: pf.rope_pack_prefill(ys[i % len(ys)], pos,
+                                                  **kw), calls=calls)
+
+
+def takes_tables(pf) -> bool:
+    """Whether this checkout's rope_pack_prefill takes ``tables``."""
+    import inspect
+    return "tables" in inspect.signature(pf.rope_pack_prefill).parameters
+
+
 def run(tag: str, kernels=KERNELS) -> list:
     import torch
     from ggml_cuda_experiments_tpu_torch.ops import paged_attention as pa
@@ -217,9 +326,9 @@ def run(tag: str, kernels=KERNELS) -> list:
                 ws[0].nbytes + 2 * m * k + 4 * m * n, 2 * m * n * k, "bf16",
                 **extra)
         del ws
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if "matvec" in kernels:
         split_of = getattr(qm, "matvec_splits", None)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         for fmt in MATVECS:
             for layer, (n, k) in LINEARS:
                 torch.cuda.empty_cache()
@@ -241,6 +350,26 @@ def run(tag: str, kernels=KERNELS) -> list:
                 row("paged_decode", f"{case} {fmt}", paged_case(pa, inputs),
                     nbytes, flops, "bf16")
                 del inputs
+    if "fused_attn" in kernels:
+        from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
+        plan = getattr(fat, "split_plan", None)
+        for hkv, length in ATTN_CASES:
+            torch.cuda.empty_cache()
+            inputs = attn_inputs(qm, dev, hkv, length, g)
+            nbytes, ops = attn_bytes(inputs)
+            row("fused_attention", f"32/{hkv} len {min(length + 1, ATTN_S)}",
+                attn_case(fat, inputs), nbytes, ops, "int8",
+                splits=len(plan(length, ATTN_S, hkv, sms, torch.bfloat16))
+                if plan else None)
+            del inputs
+    if "rope_pack" in kernels:
+        from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
+        inputs = rope_inputs(dev, g=g)
+        for given in ((True, False) if takes_tables(pf) else (False,)):
+            nbytes, ops = rope_bytes(inputs, given)
+            row("rope_pack", "T=512 32/32 D=128, tables "
+                + ("given" if given else "made by the call"),
+                rope_case(pf, inputs, given), nbytes, ops, "f32")
     return rows
 
 

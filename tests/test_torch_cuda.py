@@ -481,18 +481,26 @@ def test_flash_attention_lse_of_a_dead_row_in_a_live_tile(dev):
         ~dead].abs().max()
 
 
-@pytest.mark.parametrize("t,nh,nkv", [(128, 4, 2), (256, 32, 32)])
+@pytest.mark.parametrize("t,nh,nkv", [(128, 4, 2), (256, 32, 32),
+                                      (1, 32, 32), (130, 32, 32),
+                                      (130, 32, 8), (512, 32, 8)])
 def test_rope_pack_is_exact(dev, t, nh, nkv):
+    """Bit-equal to the plain version with its tables made by the call and
+    given (``rope_tables``, as a prefill hands them to every layer): one
+    token, a ragged tail of 2 past the kernel's 32-token CTAs, and GQA,
+    whose last CTA of heads is short."""
     y = _randn(15, t, (nh + 2 * nkv) * 128).to(dev, torch.bfloat16)
-    pos = torch.arange(t, dtype=torch.int32, device=dev)
+    pos = torch.arange(40, 40 + t, dtype=torch.int32, device=dev)
     kw = dict(n_heads=nh, n_kv_heads=nkv, head_dim=128)
+    tables = pf.rope_tables(pos, 128, 10000.0)
     before = pf.LAUNCHES["rope_pack"]
-    got = pf.rope_pack_prefill(y, pos, **kw)
+    built = pf.rope_pack_prefill(y, pos, **kw)
+    given = pf.rope_pack_prefill(y, pos, **kw, tables=tables)
     with plain_versions():
         ref = pf.rope_pack_prefill(y, pos, **kw)
-    assert pf.LAUNCHES["rope_pack"] == before + 1
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+    assert pf.LAUNCHES["rope_pack"] == before + 2
+    for b, g, r in zip(built, given, ref):
+        assert torch.equal(b, r) and torch.equal(g, r)
 
 
 @pytest.mark.parametrize("fmt", [False, "int8", "fp8"])
@@ -740,6 +748,73 @@ def test_fused_attention(dev, hkv, length, cache_dtype):
         _close(g, r, 2e-2, floor=1.0)
 
 
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hkv", [32, 8, 4])
+@pytest.mark.parametrize("length", [0, 63, 64, 1022, 1023])
+def test_fused_attention_split_edges(dev, hkv, length, cache_dtype):
+    """At S = 1024: the new token alone (0), the edges of the kernel's
+    tiles and splits (63, 64: one and two bf16 tiles), and the cache's last
+    slots (1022; 1023: the new token at the clamp lengths[0] + 1 == S)."""
+    wqkv, wo = _attn_weights(26, 32, hkv, dev)
+    kc = _randn(27, 2, 1, hkv, 1024, 128).to(dev, cache_dtype)
+    vc = _randn(28, 2, 1, hkv, 1024, 128).to(dev, cache_dtype)
+    x = _randn(29, 1, 4096).to(dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+    got = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 0, **kw)
+    with plain_versions():
+        ref = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 0, **kw)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0], 5e-3)
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, 2e-2, floor=1.0)
+
+
+def test_fused_attention_graph_replays_with_new_lengths(dev):
+    """attention_fused captured in a CUDA graph after one eager call (which
+    makes its ticket buffer), replayed with lengths changed in place (one
+    split, two, and many): each replay bit-equal to an eager call at that
+    length, the tickets back to 0 after each. Made first inside a capture,
+    the buffer raises."""
+    wqkv, wo = _attn_weights(35, 32, 8, dev)
+    kc = _randn(36, 1, 1, 8, 1024, 128).to(dev, torch.bfloat16)
+    vc = _randn(37, 1, 1, 8, 1024, 128).to(dev, torch.bfloat16)
+    x = _randn(38, 1, 4096).to(dev)
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(n_heads=32, n_kv_heads=8, head_dim=128)
+
+    def call():
+        return fat.attention_fused(x, wqkv, wo, kc, vc, lens, 0, **kw)
+
+    saved = fat._TICKETS.pop(dev.index, None)
+    try:
+        with pytest.raises(RuntimeError, match="outside a CUDA graph"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                call()
+    finally:
+        if saved is not None:
+            fat._TICKETS[dev.index] = saved
+    sets = (5, 700, 31, 1023, 64)
+    eager = []
+    for n in sets:
+        lens.fill_(n)
+        eager.append(call())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    tickets = fat._TICKETS[dev.index]
+    for i in (1, 0, 3, 2, 4, 1):
+        lens.fill_(sets[i])
+        for t in out:
+            t.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, eager[i]):
+            assert torch.equal(g, w), sets[i]
+        assert not tickets.any()
+
+
 def _layers(seed, n, hkv, dev, kd=4096):
     layers = []
     for i in range(n):
@@ -891,6 +966,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                   # bf16 scales
         fd.flash_decode(q64, kq, kq, k_scale=sc.bfloat16(),
                         v_scale=sc.bfloat16())
+    pos = torch.arange(4, device=dev)
+    with pytest.raises(ValueError):                   # D % 16
+        pf.rope_pack_prefill(torch.zeros((4, 3 * 72), dtype=torch.bfloat16,
+                                         device=dev), pos, n_heads=1,
+                             n_kv_heads=1, head_dim=72)
+    with pytest.raises(ValueError):                   # tables of 2 tokens
+        pf.rope_pack_prefill(torch.zeros((4, 3 * 128), dtype=torch.bfloat16,
+                                         device=dev), pos, n_heads=1,
+                             n_kv_heads=1, head_dim=128,
+                             tables=pf.rope_tables(pos[:2], 128, 1e4))
 
 
 def test_debug_model_on_the_card_matches_the_cpu(dev):

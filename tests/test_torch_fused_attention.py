@@ -85,3 +85,27 @@ def test_plain_attention_is_softmax_over_the_spliced_cache():
         vals = torch.cat([v[g, :3], vn[g:g + 1]])
         want = torch.softmax(keys @ q[h], 0) @ vals
         assert torch.allclose(o[h], want, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hkv", [32, 8, 4])
+def test_split_plan_puts_every_key_in_one_split(hkv, dtype):
+    """The kernel's split of the keys (``split_plan``) over every length
+    before the token, 0 .. S (the last: a token past the cache), on the
+    H100's 132 CTAs: the splits run back to back over exactly the
+    min(length + 1, S) keys, none empty, each whole tiles but the last, at
+    most ctas // Hkv of them, and one split where the keys fill at most
+    ONE_SPLIT_TILES tiles."""
+    S, tk = 1024, 32 if dtype == torch.bfloat16 else 16
+    for length in range(S + 1):
+        plan = tfa.split_plan(length, S, hkv, 132, dtype)
+        keys = min(length + 1, S)
+        assert plan[0][0] == 0 and plan[-1][1] == keys, (length, plan)
+        for (a, b), (c, _) in zip(plan, plan[1:]):
+            assert b == c and b % tk == 0, (length, plan)
+        assert all(b > a for a, b in plan), (length, plan)
+        assert len(plan) <= max(1, 132 // hkv)
+        if keys <= tk * tfa.ONE_SPLIT_TILES:
+            assert len(plan) == 1
+        else:
+            assert len(plan) == min(132 // hkv, -(-keys // tk))

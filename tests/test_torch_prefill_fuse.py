@@ -19,7 +19,7 @@ from ggml_cuda_experiments_tpu.ops.prefill_fuse import (
     rope_pack_prefill as jrp)
 from ggml_cuda_experiments_tpu_torch.models import convert
 from ggml_cuda_experiments_tpu_torch.models.config import (
-    ModelConfig as TModelConfig)
+    PRESETS, ModelConfig as TModelConfig)
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as tpf
 
@@ -50,6 +50,35 @@ def test_rope_pack_matches_jax(T, nh, nkv):
         assert g.dtype == torch.bfloat16 and g.shape == (h, T, 128), name
         err = np.abs(g.float().numpy() - np.asarray(w, np.float32)).max()
         assert err < 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("T,nh,nkv", [(128, 4, 2), (256, 8, 8), (384, 8, 2)])
+def test_rope_pack_with_tables_matches_jax(T, nh, nkv):
+    """The tables made once (``rope_tables``, as a prefill hands them to
+    every layer) give the same bits as the call that makes its own, and
+    both match the JAX kernel as the call without them does."""
+    y = _y(T, nh, nkv, seed=7)
+    pos = np.arange(T, dtype=np.int32)
+    want = jrp(jnp.asarray(y, jnp.bfloat16), jnp.asarray(pos), n_heads=nh,
+               n_kv_heads=nkv, head_dim=128)
+    yt, pt = torch.from_numpy(y).to(torch.bfloat16), torch.from_numpy(pos)
+    kw = dict(n_heads=nh, n_kv_heads=nkv, head_dim=128)
+    built = tpf.rope_pack_prefill(yt, pt, **kw)
+    given = tpf.rope_pack_prefill(yt, pt, **kw,
+                                  tables=tpf.rope_tables(pt, 128, 10000.0))
+    for b, g, w in zip(built, given, want):
+        assert torch.equal(b, g)
+        err = np.abs(g.float().numpy() - np.asarray(w, np.float32)).max()
+        assert err < 2e-2, err
+
+
+def test_rope_pack_refuses_tables_of_another_shape():
+    y = torch.from_numpy(_y(128, 4, 2)).to(torch.bfloat16)
+    pos = torch.arange(128, dtype=torch.int32)
+    C, S2 = tpf.rope_tables(pos[:64], 128, 10000.0)
+    with pytest.raises(ValueError, match="tables"):
+        tpf.rope_pack_prefill(y, pos, n_heads=4, n_kv_heads=2, head_dim=128,
+                              tables=(C, S2))
 
 
 def test_rope_pack_equals_unfused_rope_exactly():
@@ -103,3 +132,32 @@ def test_prefill_takes_rope_pack_at_t128_only(params, monkeypatch):
         np.concatenate([prompt, prompt])),
         tl.KVCache.create(TCFG, 2, 256, device="cpu"))
     assert not calls                     # B = 2 stays unfused
+
+
+def test_prefill_builds_the_rope_tables_once(monkeypatch):
+    """A 128-token prefill of the debug model (head_dim 128, so that the
+    gate opens; 3 layers) makes the RoPE tables once and hands them to each
+    layer's rope_pack, one a layer; a decode step and an 8-token prompt
+    make none."""
+    cfg = dataclasses.replace(PRESETS["debug"], n_layers=3, n_heads=2,
+                              n_kv_heads=2, head_dim=128)
+    params = tl.quantize_params(tl.init_weights(cfg, seed=0, device="cpu"),
+                                "q4_k")
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(kw.get("tables"))
+        return tpf.rope_pack_prefill(*a, **kw)
+
+    monkeypatch.setattr(tl, "rope_pack_prefill", spy)
+    cache = tl.KVCache.create(cfg, 1, 256, device="cpu")
+    before = tpf.BUILDS["rope_tables"]
+    logits, cache = tl.prefill(params, cfg, torch.arange(1, 129)[None], cache)
+    assert tpf.BUILDS["rope_tables"] == before + 1
+    assert len(calls) == cfg.n_layers
+    assert all(t is calls[0] and t is not None for t in calls)
+    tl.decode_step(params, cfg, logits.argmax(-1).to(torch.int32), cache)
+    tl.prefill(params, cfg, torch.arange(1, 9)[None],
+               tl.KVCache.create(cfg, 1, 256, device="cpu"))
+    assert tpf.BUILDS["rope_tables"] == before + 1
+    assert len(calls) == cfg.n_layers
