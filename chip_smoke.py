@@ -59,14 +59,16 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      steady-state tok/s, pool bytes, peak memory and the device's busy
      share of one engine step; one batched decode step forced layer by
      layer against the plain versions (within 2e-2 * max);
-  4e. the Q8_0 / Q4_0 kernels (q80_matvec, q40_matvec, q40_q8_matvec,
-     q80_gemm, q40_gemm) at the 7B and tinyllama shapes, and the device
-     quantizer of both formats against the oracle;
+  4e. the Q8_0 / Q4_0 kernels (q80_matvec and q40_matvec at every 7B and
+     tinyllama linear and the start cases, q40_q8_matvec, q80_gemm,
+     q40_gemm) and the device quantizer of both formats against the
+     oracle;
   5e. (after 6, on the same seed's dense weights, made again) llama2-7b in
      Q8_0: the three requests through generate in the preset's
      configuration (unfused: q80_matvec per decode linear and the head,
      q80_gemm per prefill linear), counts asserted, TTFT / decode rate,
-     request 1 forced layer by layer;
+     request 1 forced layer by layer; then generate_scan's ms a token
+     (one captured step replayed), counts asserted;
   5f. the same in Q4_0, in the preset's configuration (q40_matvec,
      q40_gemm; forced layer by layer) and bench.py's (q40_q8_matvec on
      every decode linear and the head);
@@ -402,7 +404,7 @@ def phase_build():
                   "lse_merge_kernel", "grid_sum_kernel", "mp_dyn_sublane",
                   "gemm_stream_kernel", "gemm_tc_kernel", "q4_matvec_kernel",
                   "paged_decode_kernel", "layer_decode_kernel",
-                  "rope_pack_kernel")
+                  "rope_pack_kernel", "q80_matvec_kernel")
     for line in _build.BUILD_INFO["log"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -423,6 +425,12 @@ def phase_build():
                    (1, 4096)):
         log(f"  q4_matvec_kernel {('q4_k', 'q4_0')[fmt]} K={K}: "
             f"{_info(lib.q4_matvec_info, fmt, K)}")
+    # q80_matvec (16-byte scale instance) at the ring q80_stages picks
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    for K in (2048, 4096, 5632, 11008, 12288):
+        stages = qm.q80_stages(K)[0]
+        log(f"  q80_matvec_kernel K={K} ({stages} stages): "
+            f"{_info(lib.q80_matvec_info, K, stages)}")
     for kind in (0, 1, 2):
         log(f"  paged_decode_kernel {('bf16', 'int8', 'fp8')[kind]} D=128 "
             f"G=1: {_info(lib.paged_decode_info, kind, 16)}")
@@ -523,11 +531,11 @@ def _gemm_cases(res, spec, fmt, make):
 
 
 def _matvec_cases(res, spec, fmt, g, randn):
-    """The exact-f32 matvec of ``fmt`` (q4_k or q4_0) at
-    ``tools/qgemm_bench.py``'s linears, timed as that tool times
-    them: against its plain version at 1e-4 * max, the split
-    ``matvec_splits`` picks logged, the bound by bytes. The headline: the
-    7B w_gu."""
+    """The batch-1 matvec of ``fmt`` (q4_k, q4_0: the exact-f32 one; q8_0:
+    ``q80_matvec``) at ``tools/qgemm_bench.py``'s linears and start cases,
+    timed as that tool times them: against its plain version at 1e-4 *
+    max, the split its plan picks logged, the bound by bytes. The
+    headline: the 7B w_gu."""
     import torch
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
@@ -535,7 +543,8 @@ def _matvec_cases(res, spec, fmt, g, randn):
     name = qb.MATVECS[fmt]
     fn = getattr(qm, name)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for layer, (n, k) in qb.LINEARS:
+    kind = "bf16" if fmt == "q8_0" else "f32"
+    for layer, (n, k) in qb.LINEARS + qb.STARTS:
         torch.cuda.empty_cache()
         ws = qb.matvec_weights(qm, fmt, n, k, g)
         x = randn(1, k)
@@ -548,11 +557,11 @@ def _matvec_cases(res, spec, fmt, g, randn):
             pms = time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
                           replays=3)
         res.add(name, f"{layer} N={n} K={k} (splits "
-                f"{qm.matvec_splits(n, k, sms)}, {len(ws)} weight copies)",
-                err, sc, 1e-4, t["ms"], pms,
-                spec.bound_ms(t["bytes"], t["flops"], "f32"),
+                f"{qb.matvec_split(qm, fmt, n, k, sms)}, {len(ws)} weight "
+                "copies)", err, sc, 1e-4, t["ms"], pms,
+                spec.bound_ms(t["bytes"], t["flops"], kind),
                 headline=layer == "w_gu")
-        log(f"    {_rate(t['bytes'], t['flops'], t['ms'], 'f32')}")
+        log(f"    {_rate(t['bytes'], t['flops'], t['ms'], kind)}")
         del ws
 
 
@@ -1091,20 +1100,20 @@ def phase_format_kernels(dev, seed, res: Results):
     log("  device quantizer: q8_0 and q4_0 [256, 5632] bit-equal to the "
         "oracle (qs, d)")
 
-    # the matvecs: (name, format, (N, K), tolerance, operation type,
-    # headline). q80_matvec reproduces its plain version's rounding
-    # (bf16(x) * bf16(q d) summed in f32), so it is held to 1e-4 as the
-    # exact-f32 ones are; the int8 one's operands equal its plain version's.
-    # (q40_matvec: below, at phase 4's linears.)
+    # q80_matvec at every llama2-7b and tinyllama linear and the start
+    # cases (qgemm_bench's), the 7B w_gu its headline: it reproduces its
+    # plain version's rounding (bf16(x) * bf16(q d) summed in f32), so it
+    # is held to 1e-4 as the exact-f32 ones are
+    _matvec_cases(res, spec, "q8_0", g, randn)
+
+    # the int8 matvec: (name, format, (N, K), tolerance, operation type,
+    # headline); its operands equal its plain version's. (q40_matvec:
+    # below, at phase 4's linears.)
     for name, fmt, (n, k), kind, head in (
-            ("q80_matvec", "q8_0", (24576, 4096), "bf16", True),
-            ("q80_matvec", "q8_0", (32000, 4096), "bf16", False),
-            ("q80_matvec", "q8_0", (2048, 5632), "bf16", False),
             ("q40_q8_matvec", "q4_0", (32000, 4096), "int8", True),
             ("q40_q8_matvec", "q4_0", (24576, 4096), "int8", False)):
-        per = 1.0625 if fmt == "q8_0" else 0.5625
         ws = _rotating(lambda i, n=n, k=k, fmt=fmt: qm.quantize(
-            randn(n, k, scale=k ** -0.5), fmt), int(n * k * per))
+            randn(n, k, scale=k ** -0.5), fmt), int(n * k * 0.5625))
         x = randn(1, k)
         nbytes = ws[0].nbytes + 4 * (k + n)
         fn = getattr(qm, name)
@@ -2324,6 +2333,26 @@ def phase_formats(dev, seed, prompts, card):
         p8, base, prompts, "generate q8_0", "q8_0", "q80_matvec", dev, L)
     forced = torch.from_numpy(outs[0][0, :2]).to(dev, torch.int32)
     _check_forced(p8, base, prompts[0], forced, dev)
+    # generate_scan on the Q8_0 weights: ms a token, the marginal of 8 and
+    # 40 replays of one captured step after request 1's prefill (the
+    # spec_bench method, as 5b); LAUNCHES counts the prefill, the eager
+    # step and its capture
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    torch.cuda.synchronize()
+    _reset_counts()
+    t_tok = sb.plain_per_token(p8, base, prompts[0])
+    torch.cuda.synchronize()
+    counts = _counts()
+    log(f"  [{card}] generate_scan q8_0: {t_tok * 1e3:.3f} ms/token "
+        f"({1 / t_tok:.1f} tok/s; marginal of 8 and 40 replays of one "
+        "captured step)")
+    want = _prefill_counts(L, ((REQUESTS[0][0], 1),), gemm="q80_gemm")
+    want.update(q80_matvec=1 + 2 * (4 * L + 1), flash_decode=2 * L,
+                lse_merge=2 * L)
+    _assert_counts("generate_scan q8_0 (the prefill, one eager step and its "
+                   "capture; 96 replays uncounted)", counts, want)
+    paths["generate_scan_q8_0"] = counts
+    timing["generate_scan_q8_0"] = {"ms_per_token": t_tok * 1e3}
     del p8, outs
     torch.cuda.empty_cache()
 

@@ -45,7 +45,8 @@ SIGNATURES = {
     "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the 32-block formats (fp16 d): x, qs, d, y, N, K, [splits,] stream
     "q40_matvec": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "q80_matvec": (_P, _P, _P, _P, _I, _I, _P),
+    # x, qs, d, y, N, K, splits, stages, grid, stream
+    "q80_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "q40_q8_matvec": (_P, _P, _P, _P, _I, _I, _P),
     # x, qs, d, y, M, N, K, route, stream
     "q40_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -122,7 +123,7 @@ SIGNATURES = {
     # format (0 q4_k, 1 q4_0), K; kv_kind, page-list entries
     "q4_matvec_info": (_I, _I, _P),
     "paged_decode_info": (_I, _I, _P),
-    "q80_matvec_info": (_I, _P),
+    "q80_matvec_info": (_I, _I, _P),      # K, stages
     "q4_ladder_info": (_I, _I, _P),
     # D / dtype, D
     "flash_attention_info": (_I, _P),

@@ -310,9 +310,11 @@ def _info(fn, *args) -> dict:
 
 def kernel_info(name: str, k: int) -> dict:
     """Registers, shared memory and occupancy of a benched production
-    kernel (``q4k_q8_matvec`` or ``q80_matvec``) at K."""
-    fn = {"q4k_q8_matvec": "q4k_q8_matvec_info",
-          "q80_matvec": "q80_matvec_info"}[name]
+    kernel (``q4k_q8_matvec`` or ``q80_matvec``, the latter with
+    ``q80_stages``' ring) at K."""
+    if name == "q80_matvec":
+        return _info(_build.lib().q80_matvec_info, k, qm.q80_stages(k)[0])
+    fn = {"q4k_q8_matvec": "q4k_q8_matvec_info"}[name]
     return _info(getattr(_build.lib(), fn), k)
 
 

@@ -30,7 +30,9 @@ Kernels:
   ``matvec_splits`` warps of a CTA and folded in split order.
 - ``q80_matvec`` (``csrc/q80_matvec.cu``) — q8_0, B = 1, the reference's
   ``_mxu_kernel`` rounding: sum_j bf16(x_j) * bf16(q_j * d) in f32; also
-  takes its any-K ``_vpu_e_kernel`` route.
+  takes its any-K ``_vpu_e_kernel`` route. The same persistent grid, in
+  2-row warps, the products on ``mma.sync``; its splits, ring depth and
+  grid from ``q80_plan``.
 - ``q4k_gemm`` / ``q40_gemm`` / ``q80_gemm`` (``csrc/q4k_gemm.cu``) —
   B >= 2, bf16 operands with f32 accumulation (the reference's numerics);
   replace ``_mxu_kernel``, ``_pipe_sub_kernel`` and ``_pipe_kernel``. One
@@ -577,13 +579,88 @@ def matvec_blocks(k: int, splits: int) -> list[tuple[int, int]]:
             for s in range(splits)]
 
 
+# q80_matvec's plan (csrc/q80_matvec.cu): MV_WARPS warps a CTA of
+# Q80_ROWS-row groups, each warp streaming steps of Q80_STEP blocks
+# (Q80_STAGE_BYTES with their scales) through a ring of 2 or 3 stages; a
+# CTA's shared memory is x (``q80_x_bytes``) and the rings. The H100's
+# limits: 228 KB of shared memory an SM, 227 KB a CTA, 1 KB of it reserved
+# a CTA.
+Q80_ROWS = 2
+Q80_STEP = 64
+Q80_STAGE_BYTES = 4496
+Q80_STATIC_BYTES = 4 * 2 * MV_WARPS * Q80_ROWS
+SMEM_PER_SM = 233472
+SMEM_PER_CTA = 232448
+SMEM_RESERVED_PER_CTA = 1024
+
+
+def q80_x_bytes(k: int) -> int:
+    """Shared bytes of x in ``q80_matvec``: K f32 as copied in, then bf16
+    with a step of zero blocks after K and 16 bytes of pad after every 8
+    blocks, rounded up to 16 bytes."""
+    kb = k // 32
+    b = kb + Q80_STEP
+    return -(-max(128 * kb, 64 * b + 16 * (b // 8)) // 16) * 16
+
+
+def q80_stages(k: int) -> tuple[int, int]:
+    """(ring stages, CTAs an SM) of ``q80_matvec`` at K: 2 stages and 2
+    CTAs where both fit an SM, else 3 stages and one CTA, else 2 and one
+    (about 70 KB of weight in flight an SM in the first two). A plain
+    function of K."""
+    if k < 32 or k % 32:
+        raise ValueError(f"q80_stages: K {k}")
+
+    def cta(stages):
+        return (q80_x_bytes(k) + MV_WARPS * stages * Q80_STAGE_BYTES
+                + Q80_STATIC_BYTES)
+    if 2 * (cta(2) + SMEM_RESERVED_PER_CTA) <= SMEM_PER_SM:
+        return 2, 2
+    for stages in (3, 2):
+        if cta(stages) <= SMEM_PER_CTA:
+            return stages, 1
+    raise ValueError(f"q80_matvec: K {k} leaves no room for x and a ring "
+                     f"in {SMEM_PER_CTA} bytes of shared memory")
+
+
+def q80_plan(n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """(splits, stages, grid) of ``q80_matvec`` at N x K on ``sms`` SMs: the
+    ring from ``q80_stages``, the grid the resident CTAs or fewer, and the
+    split (1, 2, 4 or 8 warps a row group, ``matvec_blocks``' spans): the
+    fewest whose row tiles reach half the SMs, then more while the tiles
+    overflow the resident CTAs by a fifth or more of a round and a split
+    keeps two steps. Fitted to the H100 at the 7B and tinyllama linears
+    (PERF.md): a split costs a fold a tile, a step its math whether its
+    blocks are there or not, and each CTA copies x. A plain function of N,
+    K and the SM count."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"q80_plan: N {n}, K {k}, SMs {sms}")
+    stages, per_sm = q80_stages(k)
+    kb = k // 32
+    unit = 1 if kb % 8 else 8
+    ctas = per_sm * sms
+    groups = -(-n // Q80_ROWS)
+    choices = [s for s in (1, 2, 4, 8) if s <= kb // unit]
+
+    def tiles(s):
+        return -(-groups // (MV_WARPS // s))
+
+    def span(s):
+        return max(b1 - b0 for b0, b1 in matvec_blocks(k, s))
+    s = next((c for c in choices if 2 * tiles(c) >= sms), choices[-1])
+    while (tiles(s) > ctas and -(-tiles(s) // ctas) * ctas > 1.2 * tiles(s)
+           and 2 * s in choices and span(2 * s) >= 2 * Q80_STEP):
+        s *= 2
+    return s, stages, min(tiles(s), ctas)
+
+
 def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
             dtype: torch.dtype, gemm: bool = False) -> torch.Tensor:
     """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight,
     launch the C entry ``name`` (x, qs, its scale arrays, y, [M,] N, K,
     [route | splits,] stream) and count the launch; a GEMM takes
     ``gemm_route``'s route and needs x on 16 bytes, the exact-f32 matvecs
-    ``matvec_splits``' split."""
+    ``matvec_splits``' split, ``q80_matvec`` ``q80_plan``'s."""
     n, k = _check_weight(ql, x, fmt)
     if x.dtype != dtype or (x.shape[0] != 1 and not gemm):
         raise ValueError(f"{name}: x must be {dtype} "
@@ -599,6 +676,8 @@ def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
         extra = (GEMM_ROUTE_ID[route],)
     elif name in _SPLIT_MATVECS:
         extra = (matvec_splits(n, k, _sm_count(x.device.index or 0)),)
+    elif name == "q80_matvec":
+        extra = q80_plan(n, k, _sm_count(x.device.index or 0))
     else:
         extra = ()
     rc = getattr(_build.lib(), name)(

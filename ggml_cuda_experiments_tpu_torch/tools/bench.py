@@ -160,8 +160,11 @@ def roofline(name: str, fn, ql_big, x0: torch.Tensor, inner: int = INNER,
 
 def kernel_report(k: int = K) -> dict:
     """bench.py's ``vmem_report`` counterpart: registers, shared memory and
-    grid of each benched kernel at the benched rows, from the runtime."""
+    grid of each benched kernel at the benched rows, from the runtime;
+    ``q80_matvec``'s grid and split from its wrapper's plan
+    (``q80_plan``), the others' one row a warp."""
     from ggml_cuda_experiments_tpu_torch.ops import probes
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     out = {}
     for name, info in (("q80_matvec", probes.kernel_info("q80_matvec", k)),
                        ("q4k_q8_matvec",
@@ -169,12 +172,16 @@ def kernel_report(k: int = K) -> dict:
                        ("ladder floor", probes.ladder_info("floor", k))):
         cap = info["ctas_per_sm"] * info["sms"]
         for n in (N_SMALL, N_BIG):
-            grid = min(-(-n // (info["threads"] // 32)), cap)
+            if name == "q80_matvec":
+                splits, stages, grid = qm.q80_plan(n, k, info["sms"])
+                plan = f", {splits} split(s), {stages} stages"
+            else:
+                grid, plan = min(-(-n // (info["threads"] // 32)), cap), ""
             log(f"{name} N={n} K={k}: {info['threads']} threads, "
                 f"{info['regs']} registers, {info['local_bytes']} B local, "
                 f"shared {info['static_smem']} B static + "
                 f"{info['dynamic_smem']} B dynamic, {info['ctas_per_sm']} "
-                f"CTAs/SM resident, grid {grid}")
+                f"CTAs/SM resident, grid {grid}{plan}")
         out[name] = info
     return out
 

@@ -4,7 +4,7 @@ package's ``tools/layer_probe.py``.
 
     python -m ggml_cuda_experiments_tpu_torch.tools.layer_probe \\
         [--lengths 57,513] [--variants all,no_sync,...] [--model-layers 32]
-        [--scan]
+        [--scan [--scan-fmt q8_0]]
     python -m ggml_cuda_experiments_tpu_torch.tools.layer_probe \\
         --root DIR --tag parent       # the package of the checkout at DIR
     python -m ggml_cuda_experiments_tpu_torch.tools.layer_probe --cpu
@@ -23,8 +23,11 @@ weights and the valid K / V rows over the card's HBM rate. With
 for each variant. With ``--scan`` it also times ``generate_scan`` of the
 whole llama2-7b (32 layers, random q4_k weights from a seed, a 16-token
 prompt) in the x_quant8 configuration, fused_attention + fused_mlp a
-layer: ms a token, the marginal of 8 and 40 replays of one captured step
-(``tools/spec_bench.py::plain_per_token``). The card's name and power
+layer (``--scan-fmt q8_0``: random q8_0 weights in the preset's
+configuration, ``q80_matvec`` a linear and the head): ms a token, the
+marginal of 8 and 40 replays of one captured step
+(``tools/spec_bench.py::plain_per_token``); ``--variants ""`` times the
+scan alone. The card's name and power
 limit first, one JSON line of every time last. ``--root`` times through that checkout's package, its
 timer ``utils/bench.py::time_ms`` included; a checkout without the
 ``phase`` argument is timed on "all" and mega2 alone. ``--cpu`` checks the
@@ -77,6 +80,9 @@ def parse(argv):
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--scan", action="store_true",
                     help="also time generate_scan of llama2-7b at x_quant8")
+    ap.add_argument("--scan-fmt", default="q4_k", choices=("q4_k", "q8_0"),
+                    help="--scan's weights: q4_k at x_quant8, or q8_0 in "
+                         "the preset's configuration")
     ap.add_argument("--root", default=None,
                     help="time the package of the checkout at this path")
     ap.add_argument("--tag", default="new")
@@ -200,30 +206,34 @@ def run(args) -> list:
                           flush=True)
     if args.scan:
         del layers, kc, vc
-        rows.append(scan(args.tag, dev))
+        rows.append(scan(args.tag, dev, args.scan_fmt))
     return rows
 
 
-def scan(tag: str, dev) -> dict:
-    """ms a token of generate_scan at x_quant8 over the whole llama2-7b."""
+def scan(tag: str, dev, fmt: str = "q4_k") -> dict:
+    """ms a token of generate_scan over the whole llama2-7b: q4_k at
+    x_quant8, or q8_0 in the preset's configuration."""
     import dataclasses
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
-    cfg = dataclasses.replace(PRESETS["llama2-7b"], x_quant8=True)
+    cfg = PRESETS["llama2-7b"]
+    if fmt == "q4_k":
+        cfg = dataclasses.replace(cfg, x_quant8=True)
+    variant = "x_quant8" if fmt == "q4_k" else fmt
     torch.cuda.empty_cache()
     dense = llama.init_weights(cfg, seed=0, device=dev)
-    params = llama.quantize_params(dense, "q4_k")
+    params = llama.quantize_params(dense, fmt)
     del dense
     torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (1, 16), generator=g,
                            device=dev, dtype=torch.int64)
     ms = 1e3 * sb.plain_per_token(params, cfg, prompt)
-    print(f"{tag} generate_scan x_quant8 {cfg.name} {cfg.n_layers} layers: "
+    print(f"{tag} generate_scan {variant} {cfg.name} {cfg.n_layers} layers: "
           f"{ms:.4f} ms a token ({1e3 / ms:.1f} tok/s)", flush=True)
-    return {"tag": tag, "kind": "generate_scan", "variant": "x_quant8",
+    return {"tag": tag, "kind": "generate_scan", "variant": variant,
             "layers": cfg.n_layers, "ms_token": ms}
 
 

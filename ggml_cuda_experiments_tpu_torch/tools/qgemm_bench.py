@@ -25,9 +25,13 @@ Cases (``--kernels``, all five by default):
   and 512; at M = 8 and 512 also ``torch.matmul`` of bf16 x against the
   weight already dequantized to bf16 (a yardstick of the product alone,
   not the same function);
-- matvec: both matvecs at every linear of llama2-7b (wqkv, W_o, w_gu,
-  w_down padded and unpadded, the head) and of tinyllama-1.1b (K = 2048,
-  and w_down at K = 5632), with the split ``matvec_splits`` picks;
+- matvec: the three batch-1 matvecs (``q4k_matvec``, ``q40_matvec``,
+  ``q80_matvec``) at every linear of llama2-7b (wqkv, W_o, w_gu, w_down
+  padded and unpadded, the head) and of tinyllama-1.1b (K = 2048, and
+  w_down at K = 5632), with the split their plan picks
+  (``matvec_splits``; ``q80_plan`` for q8_0); and at the start cases,
+  four rows (N = 4) at K = 4096 and 5632: the launch, x's arrival and one
+  short stream (the chain's 20 weight copies stay in the L2);
 - paged: ``paged_decode`` at chip_smoke.py phase 4b's headline (B = 8, MHA
   32/32, D 128, page 64, 16 pages a sequence, ragged lengths up to 1024
   over a 2-layer pool) on bf16, int8 and fp8 pages, and at the Engine's
@@ -66,12 +70,22 @@ NAMES = {"q4_k": "q4k_gemm", "q4_0": "q40_gemm", "q8_0": "q80_gemm"}
 W_GU = (24576, 4096)
 LAYERS = (("wqkv", (12288, 4096)), ("W_o", (4096, 4096)),
           ("w_down", (4096, 12288)))
-MATVECS = {"q4_k": "q4k_matvec", "q4_0": "q40_matvec"}
+MATVECS = {"q4_k": "q4k_matvec", "q4_0": "q40_matvec", "q8_0": "q80_matvec"}
+# bytes a weight of each format, its blocks' scales included
+BYTES_PER_WEIGHT = {"q4_k": 0.625, "q4_0": 0.5625, "q8_0": 1.0625}
+# each format's split plan in ops/quant_matmul.py: f(N, K, SMs) -> splits
+# (q8_0's returns the whole plan, its splits first)
+PLANS = {"q4_k": "matvec_splits", "q4_0": "matvec_splits",
+         "q8_0": "q80_plan"}
 LINEARS = (("wqkv", (12288, 4096)), ("W_o", (4096, 4096)),
            ("w_gu", (24576, 4096)), ("w_down", (4096, 12288)),
            ("w_down 11008", (4096, 11008)), ("head", (32000, 4096)),
            ("tiny wqkv", (2560, 2048)), ("tiny W_o", (2048, 2048)),
            ("tiny w_gu", (11264, 2048)), ("tiny w_down", (2048, 5632)))
+# four rows (a warp's group in the q4 matvecs, two in q80_matvec's): what
+# a call costs before its stream (the fixed start)
+STARTS = (("start", (4, 4096)), ("start 5632", (4, 5632)))
+CHAIN = 20          # calls of a timed chain, so copies of a weight used
 # chip_smoke.py phase 4b: 7B query heads, page 64, 16 pages a sequence
 PAGED_GEOMETRY = dict(H=32, D=128, ps=64, pps=16, L=2)
 PAGED_LENGTHS = (1, 63, 64, 65, 300, 512, 777, 1024)
@@ -117,13 +131,15 @@ def matvec_weights(qm, fmt: str, n: int, k: int, g):
     """Copies of one random [n, k] weight in ``fmt``, enough that a chain of
     calls streams past the L2."""
     import torch
-    from ggml_cuda_experiments_tpu_torch.utils.bench import rotating
+    from ggml_cuda_experiments_tpu_torch.utils.bench import (
+        L2_ROTATION_BYTES, rotating)
 
     def make(i):
         return qm.quantize(torch.randn((n, k), generator=g, device=g.device)
                            * k ** -0.5, fmt)
-    per = 0.625 if fmt == "q4_k" else 0.5625
-    return rotating(make, int(n * k * per))
+    nbytes = int(n * k * BYTES_PER_WEIGHT[fmt])
+    # a chain reads CHAIN copies at most: more would not be read
+    return rotating(make, nbytes, min(L2_ROTATION_BYTES, CHAIN * nbytes))
 
 
 def matvec_case(qm, fmt: str, ws, x) -> dict:
@@ -132,8 +148,18 @@ def matvec_case(qm, fmt: str, ws, x) -> dict:
     from ggml_cuda_experiments_tpu_torch.utils.bench import time_ms
     fn = getattr(qm, MATVECS[fmt])
     n, k = ws[0].array_shape
-    return {"ms": time_ms(lambda i: fn(x, ws[i % len(ws)])),
+    return {"ms": time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=CHAIN),
             "bytes": ws[0].nbytes + 4 * (k + n), "flops": 2 * n * k}
+
+
+def matvec_split(qm, fmt: str, n: int, k: int, sms: int):
+    """The split the format's plan picks at (N, K), or None where this
+    checkout has no such plan."""
+    plan = getattr(qm, PLANS[fmt], None)
+    if plan is None:
+        return None
+    s = plan(n, k, sms)
+    return s[0] if isinstance(s, tuple) else s
 
 
 def paged_inputs(dev, fmt: str, lengths, hkv: int | None = None,
@@ -328,16 +354,15 @@ def run(tag: str, kernels=KERNELS) -> list:
         del ws
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if "matvec" in kernels:
-        split_of = getattr(qm, "matvec_splits", None)
         for fmt in MATVECS:
-            for layer, (n, k) in LINEARS:
+            for layer, (n, k) in LINEARS + STARTS:
                 torch.cuda.empty_cache()
                 ws = matvec_weights(qm, fmt, n, k, g)
                 x = torch.randn((1, k), generator=g, device=dev)
                 t = matvec_case(qm, fmt, ws, x)
                 row(MATVECS[fmt], f"{layer} N={n} K={k}", t["ms"],
                     t["bytes"], t["flops"], "f32", copies=len(ws),
-                    splits=split_of(n, k, sms) if split_of else None)
+                    splits=matvec_split(qm, fmt, n, k, sms))
                 del ws
     if "paged" in kernels:
         torch.cuda.empty_cache()

@@ -161,6 +161,85 @@ def test_q32_matvec(dev, name, fmt, n, k):
     assert qm.LAUNCHES[name] == before + 1
 
 
+def _q80_weight(n, k, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + n + k)
+    ql = qm.quantize(torch.randn((n, k), generator=g, device=dev)
+                     * k ** -0.5, "q8_0")
+    return ql, torch.randn((1, k), generator=g, device=dev)
+
+
+# tinyllama's narrow linears and the 7B W_o (one warp a row group), N 1 /
+# 37 / 300 (q80_plan splits them in 2-8: a part-empty row group, a part
+# step), the start cases (N = 4) and the K edges: 96 and 8224 (K/32 off a
+# multiple of 8: the 4-byte scale path, one-block split bounds), 11008 and
+# 12288 (three stages, one CTA an SM)
+Q80_SHAPES = [(2048, 5632), (4096, 4096), (2560, 2048), (1, 4096),
+              (37, 5632), (300, 2048), (4, 4096), (4, 5632), (1, 96),
+              (130, 96), (37, 8224), (300, 11008), (4096, 11008),
+              (37, 12288), (4096, 12288)]
+
+
+@pytest.mark.parametrize("n,k", Q80_SHAPES)
+def test_q80_matvec_is_bitwise_repeatable(dev, n, k):
+    """Within 1e-4 * max of the plain version, two calls bit-equal (the
+    splits fold in a fixed order; the tensor cores' sums are fixed)."""
+    ql, x = _q80_weight(n, k, dev)
+    before = qm.LAUNCHES["q80_matvec"]
+    a, b = qm.q80_matvec(x, ql), qm.q80_matvec(x, ql)
+    assert qm.LAUNCHES["q80_matvec"] == before + 2
+    assert torch.equal(a, b)
+    _check(qm.q80_matvec, x, ql, tol=1e-4)
+
+
+def test_q80_matvec_off_16_byte_bases(dev):
+    """x and d off 16 bytes: x copied in by plain loads, d through 4-byte
+    words (the first half's place from the address)."""
+    n, k = 300, 4096
+    ql, x = _q80_weight(n, k, dev, seed=1)
+    xb = torch.zeros(k + 1, device=dev)
+    xb[1:] = x[0]
+    db = torch.zeros(n * k // 32 + 1, dtype=torch.float16, device=dev)
+    db[1:] = ql.d.reshape(-1)
+    odd = dataclasses.replace(ql, d=db[1:].view(n, k // 32))
+    assert odd.d.data_ptr() % 16 and xb[1:].data_ptr() % 16
+    want = qm.q80_matvec(x, ql)
+    got = qm.q80_matvec(xb[1:].view(1, k), odd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_q80_matvec_graph_replays_after_another_shape(dev):
+    """A graph captured after a call at another K and N (another ring depth
+    and split) replays to the eager result."""
+    ql1, x1 = _q80_weight(4096, 12288, dev, seed=2)
+    ql2, x2 = _q80_weight(2048, 5632, dev, seed=3)
+    qm.q80_matvec(x1, ql1)
+    want = qm.q80_matvec(x2, ql2)
+    out = torch.empty_like(want)
+    qm.q80_matvec(x2, ql2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(qm.q80_matvec(x2, ql2))
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("k", [96, 2048, 4096, 5632, 8192, 8224, 11008,
+                               12288, 28672])
+def test_q80_stages_match_the_runtime(dev, k):
+    """q80_stages' CTAs an SM (its shared-memory arithmetic) is what the
+    runtime makes resident, and no spill."""
+    from ggml_cuda_experiments_tpu_torch.ops import probes
+    stages, per_sm = qm.q80_stages(k)
+    info = probes.kernel_info("q80_matvec", k)
+    assert info["ctas_per_sm"] == per_sm, info
+    assert info["local_bytes"] == 0, info
+
+
 @pytest.mark.parametrize("n,k", [(640, 4096), (300, 12288), (4096, 4096)])
 def test_q40_q8_matvec(dev, n, k):
     ql = qm.quantize(_q32_weight(53, n, k, dev), "q4_0")

@@ -46,10 +46,22 @@ def test_probe_cpu_mode_prints_the_plan(capsys):
 @pytest.mark.parametrize("argv", [["--variants", "all,fast"],
                                   ["--lengths", "1024"],
                                   ["--kv-heads", "5"],
-                                  ["--calls", "0"]])
+                                  ["--calls", "0"],
+                                  ["--scan", "--scan-fmt", "q4_0"]])
 def test_probe_refuses_bad_arguments(argv):
     with pytest.raises(SystemExit):
         layer_probe.main(["--cpu", *argv])
+
+
+def test_probe_takes_a_q8_0_scan_alone():
+    """``--variants "" --scan --scan-fmt q8_0``: generate_scan on q8_0
+    weights and no layer variant (the plan prints none)."""
+    args = layer_probe.parse(["--variants", "", "--scan", "--scan-fmt",
+                              "q8_0"])
+    assert args.variants == [] and args.scan and args.scan_fmt == "q8_0"
+    assert layer_probe.parse([]).scan_fmt == "q4_k"
+    assert layer_probe.main(["--cpu", "--variants", "", "--scan",
+                             "--scan-fmt", "q8_0"]) == 0
 
 
 def test_probe_byte_bound_counts_the_valid_keys():
