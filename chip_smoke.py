@@ -59,6 +59,16 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      steady-state tok/s, pool bytes, peak memory and the device's busy
      share of one engine step; one batched decode step forced layer by
      layer against the plain versions (within 2e-2 * max);
+  6c. (after 6, on the same weights) serving: the 12 requests through
+     Engine(scheduler="native") and the python scheduler at W = 1,
+     token-identical, each run's counts asserted; tools/engine_bench.py
+     (steady tok/s from one pair of 24 and 8 requests of 64 tokens
+     generating 32, TTFT, pool bytes, peak memory, busy share, the host
+     time of a step by part) for python at W = 1 and 16 and native at
+     W = 1; tools/profile_decode.py at batch 1 (cache 1024)
+     and batch 8 (cache 512, bench.py's batch-8 step) in the x_quant8
+     configuration, each component beside its bound and the step's
+     kernels under torch.profiler, and the prefill marginal at 512;
   4e. the Q8_0 / Q4_0 kernels (q80_matvec and q40_matvec at every 7B and
      tinyllama linear and the start cases, q40_q8_matvec, q80_gemm,
      q40_gemm) and the device quantizer of both formats against the
@@ -2806,8 +2816,11 @@ def _drive_engine(params, cfg, prompts, gen, path, **kw):
     for p, toks in zip(prompts, outs):
         if len(toks) != gen or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"{path}: prompt {len(p)} gave {toks}")
-    if len(eng.allocator.free) != kw["n_pages"] - 1:
-        raise AssertionError(f"{path}: {kw['n_pages'] - 1 - len(eng.allocator.free)}"
+    nsched = getattr(eng, "_nsched", None)
+    free = len(eng.allocator.free) if nsched is None else \
+        nsched.num_free_pages
+    if free != kw["n_pages"] - 1:
+        raise AssertionError(f"{path}: {kw['n_pages'] - 1 - free}"
                              " pages not returned to the allocator")
     steps = calls["_paged_decode_step"]
     fills = calls["_paged_prefill"] + calls["_paged_prefill_chunk"]
@@ -2996,6 +3009,87 @@ def phase_engine(dev, seed, params, cfg, card):
         "steady_tok_s": rate, "steady_tok_s_pairs": rates, "ttft_ms": ttft,
         "step_wall_ms": wall_us / 1e3, "step_busy_ms": busy / 1e3,
         "step_busy_share": busy / wall_us, "card": card}
+
+
+def _bench_summary(r):
+    """engine_bench's numbers without its kernel table and pair details."""
+    hp = r["host_parts"]
+    return {"steady_tok_s": r["steady"]["tok_s"],
+            "pair_rates": r["steady"]["pair_rates"],
+            "ttft_ms": r["ttft_ms"], "pool_bytes": r["pool_bytes"],
+            "peak_bytes": r["peak_bytes"],
+            "busy_share": r["busy"]["busy_share"],
+            "host_ms_per_decode_step": hp["per_decode_step_ms"],
+            "host_wall_ms": hp["wall_ms"],
+            "host_decode_steps": hp["decode_steps"]}
+
+
+def phase_serving(dev, seed, params, cfg, card):
+    """6c. The native scheduler against the python one, the Engine's host
+    time by part, and the decode step's and the prefill's time by
+    component, on phase 5's weights (tools/engine_bench.py,
+    tools/profile_decode.py)."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.tools import engine_bench as eb
+    from ggml_cuda_experiments_tpu_torch.tools import profile_decode as pdc
+    w1 = dict(ENGINE_KW, decode_window=1)
+    log(f"== 6c. serving: {cfg.name}, Engine(scheduler=\"native\") against "
+        f"the python scheduler at W = 1, engine_bench, profile_decode")
+    g = torch.Generator().manual_seed(seed + 6)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in ENGINE_PROMPTS]
+    py, c_py, t_py = _drive_engine(params, cfg, prompts, ENGINE_GEN,
+                                   "engine W=1", **w1)
+    nat, c_nat, t_nat = _drive_engine(params, cfg, prompts, ENGINE_GEN,
+                                      "engine native", scheduler="native",
+                                      **w1)
+    bad = [i for i, (a, b) in enumerate(zip(py, nat)) if a != b]
+    if bad:
+        raise AssertionError(f"native scheduler: requests {bad} differ from "
+                             f"the python scheduler's tokens")
+    log(f"  the native scheduler's tokens equal the python scheduler's for "
+        f"all {len(prompts)} requests (W = 1; {t_nat:.2f} s against "
+        f"{t_py:.2f} s)")
+    # engine_bench on the smoke's pool: one pair each and no warm-up run
+    # (the engine ran above), 32 tokens a request (the tool's default: 3
+    # pairs of 64)
+    bench = {}
+    for name, kw in (("python W=1", dict(w1, scheduler="python")),
+                     ("python W=16", dict(ENGINE_KW, scheduler="python")),
+                     ("native W=1", dict(w1, scheduler="native"))):
+        r = eb.measure(params, cfg, dict(kw, prefill_chunk=None), batch=8,
+                       prompt=64, gen=ENGINE_GEN, pairs=1, seed=seed,
+                       tag=card, warmup=False)
+        if not (r["steady"]["tok_s"] > 0
+                and r["host_parts"]["tokens"] == 8 * ENGINE_GEN
+                and 0 < r["busy"]["busy_share"] <= 1.0):
+            raise AssertionError(f"engine_bench {name}: {_bench_summary(r)}")
+        bench[name] = _bench_summary(r)
+    # profile_decode in the JAX tool's configuration (x_quant8)
+    xcfg = dataclasses.replace(cfg, x_quant8=True)
+    prof = {}
+    for B, cache in ((1, 1024), (8, 512)):
+        r = pdc.decode_components(params, xcfg, dev, B, cache)
+        if not all(row["us"] > 0 for row in r["rows"][:-1]) \
+                or r["profile"]["busy_us"] <= 0:
+            raise AssertionError(f"profile_decode batch {B}: {r['rows']}")
+        prof[f"batch{B}"] = {"rows": r["rows"], "step": r["step"],
+                             "step_bound_ms": r["step_bound_ms"],
+                             "busy_us": r["profile"]["busy_us"],
+                             "host_gap_us": r["profile"]["host_gap_us"]}
+    r = pdc.prefill_marginal(params, xcfg, dev, 512)
+    if not (r["prefill_ms"] > 0 and r["busy_ms"] > 0
+            and r["modes"]["full"]["per_layer_ms"] > 0):
+        raise AssertionError(f"prefill marginal: {r['rows']}")
+    prof["prefill512"] = {k: r[k] for k in (
+        "rows", "prefill_ms", "busy_ms", "host_gap_ms", "non_layer_ms",
+        "fixed_ms")}
+    log(f"  [{card}] serving: " + "; ".join(
+        f"{k} {v['steady_tok_s']:.1f} tok/s, busy "
+        f"{100 * v['busy_share']:.1f}%" for k, v in bench.items()))
+    return ({"engine W=1": c_py, "engine native": c_nat},
+            {"engine_bench": bench, "profile_decode": prof})
 
 
 SPEC_GAMMA, SPEC_MAX_LEN = 4, 1024
@@ -3824,6 +3918,8 @@ def main() -> int:
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     paths, engine_metrics = phase_engine(dev, args.seed, params,
                                          PRESETS["llama2-7b"], card)
+    serving_paths, serving_metrics = phase_serving(
+        dev, args.seed, params, PRESETS["llama2-7b"], card)
     spec_paths, spec_metrics = phase_speculative(dev, args.seed, params, card)
     b7_paths, b7_metrics = phase_bench_decode(dev, params, "llama2-7b", card)
     par_paths, par_metrics = phase_parallel(dev, args.seed, params, prompts,
@@ -3837,6 +3933,7 @@ def main() -> int:
     lab_paths = phase_lab(dev, args.seed)
     bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
+             **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
              **vpu_paths, **b7_paths, **bench_paths, **par_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -3869,6 +3966,7 @@ def main() -> int:
                       "requests_by_path": {**q4km_timing, **fmt_timing,
                                            **tiny_timing},
                       "engine": engine_metrics,
+                      "serving": serving_metrics,
                       "speculative": spec_metrics,
                       "parallel": par_metrics,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,

@@ -27,8 +27,13 @@ What differs from the reference, on purpose:
   (``parallel/tp.py``): the same requests on every rank, the pool's KV
   heads on "model", the logits gathered over "model" before sampling, so
   every rank makes the same choices.
-- ``scheduler="native"`` is not ported yet and raises; nor is the
-  reference's CPU readiness barrier, an XLA-CPU artifact.
+- ``scheduler="native"`` takes admission, page allocation and completion
+  from the C++ scheduler (``utils/native_sched.py``, the port's own copy
+  of the reference's ``gct_sched.cpp``, built at first use), which makes
+  the python scheduler's decisions; with the reference's limits: one
+  decode step a scheduler pass, whole prefills. It runs in both the
+  deferred mode (no ``eos_id``) and the eager one. The reference's CPU
+  readiness barrier, an XLA-CPU artifact, is not ported.
 """
 
 from __future__ import annotations
@@ -450,9 +455,11 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class Engine:
-    """Continuous-batching inference engine (python scheduler). ``params``
-    lie on the device the engine runs on. ``mesh``: a (data, model) mesh
-    of ``parallel/mesh.py``; the engine then runs on every rank with the
+    """Continuous-batching inference engine. ``params`` lie on the device
+    the engine runs on. ``scheduler``: "python" (host-side Python over
+    NumPy state) or "native" (the C++ scheduler; no ``decode_window`` > 1,
+    no ``prefill_chunk``). ``mesh``: a (data, model) mesh of
+    ``parallel/mesh.py``; the engine then runs on every rank with the
     rank's TP shard of the params (``tp.shard_params``)."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
@@ -462,9 +469,14 @@ class Engine:
                  sampling: SamplingParams | None = None, seed: int = 0,
                  scheduler: str = "python", mesh=None,
                  decode_window: int = 1, prefill_chunk: int | None = None):
-        if scheduler != "python":
-            raise NotImplementedError(f"scheduler={scheduler!r}: only the "
-                                      "python scheduler is ported")
+        if scheduler not in ("python", "native"):
+            raise ValueError(f"scheduler: 'python' or 'native', got "
+                             f"{scheduler!r}")
+        if scheduler == "native" and prefill_chunk is not None:
+            raise ValueError("prefill_chunk needs the python scheduler")
+        if scheduler == "native" and decode_window > 1:
+            raise ValueError("decode_window > 1 is not supported with the "
+                             "native scheduler")
         if mesh is not None and prefill_chunk is not None:
             raise ValueError("prefill_chunk is not supported with a mesh")
         if mesh is not None and decode_window > 1:
@@ -491,6 +503,12 @@ class Engine:
         # the last page is the reserved trash page (padding / idle slots)
         self.trash_page = n_pages - 1
         self.allocator = PageAllocator(n_pages - 1)
+        self._nsched = None
+        if scheduler == "native":
+            from ggml_cuda_experiments_tpu_torch.utils import native_sched
+            self._nsched = native_sched.NativeScheduler(
+                max_batch, n_pages - 1, self.pages_per_seq, page_size,
+                self.max_seq_len)
         self.eos_id = eos_id
         # largest pages-per-compute-block (<= 4) dividing pages_per_seq
         self.ppcb = next(c for c in (4, 2, 1) if self.pages_per_seq % c == 0)
@@ -551,6 +569,8 @@ class Engine:
         rid = self._next_rid
         self._next_rid += 1
         self.waiting.append(Request(rid, list(prompt), max_new_tokens))
+        if self._nsched is not None:
+            self._nsched.add_request(rid, len(prompt), max_new_tokens)
         return rid
 
     def step(self) -> dict[int, list[int]]:
@@ -580,17 +600,24 @@ class Engine:
                 self.pool, act_dev)
             next_tokens = self._sample(logits).cpu().numpy()
             self._dev_state = None
+            hit = np.zeros((self.max_batch,), np.uint8)
+            done = []
             for req in list(self.running):
                 s = req.slot
                 self.lengths[s] += 1
                 tok = int(next_tokens[s])
                 req.generated.append(tok)
                 self.tokens[s] = tok
+                hit[s] = tok == self.eos_id
                 if (tok == self.eos_id
                         or len(req.generated) >= req.max_new_tokens
                         or req.length >= self.max_seq_len):
-                    finished[req.rid] = list(req.generated)
-                    self._release(req)
+                    done.append(req)
+            if self._nsched is not None:
+                done = self._native_done(hit)
+            for req in done:
+                finished[req.rid] = list(req.generated)
+                self._release(req)
             return finished
 
         # window: the largest step count no running request can finish
@@ -614,6 +641,9 @@ class Engine:
             if (req.n_generated >= req.max_new_tokens
                     or len(req.prompt) + req.n_generated >= self.max_seq_len):
                 done.append(req)
+        if self._nsched is not None:
+            # no EOS is scanned for: completion by counts alone
+            done = self._native_done(np.zeros((self.max_batch,), np.uint8))
         if done:
             # ONE host fetch for every request finishing in this pass
             devs = [self._collect_device(r) for r in done]
@@ -637,7 +667,32 @@ class Engine:
 
     # -- internals ---------------------------------------------------------
 
+    def _native_done(self, hit: np.ndarray) -> list[Request]:
+        """The requests the native scheduler finishes at this step (it
+        advances its own lengths and releases their pages)."""
+        done = []
+        for rid, slot in self._nsched.step_complete(hit):
+            req = self.slot_req[slot]
+            if req is None or req.rid != rid:
+                raise RuntimeError(f"native scheduler finished request {rid}"
+                                   f" in slot {slot}, which holds "
+                                   f"{None if req is None else req.rid}")
+            done.append(req)
+        return done
+
     def _admit(self) -> None:
+        if self._nsched is not None:
+            for rid, slot, row in self._nsched.admit():
+                req = next(r for r in self.waiting if r.rid == rid)
+                self.waiting.remove(req)
+                self._dev_state = None  # page table / active change
+                req.slot = slot
+                req.pages = [int(p) for p in row if p != self.trash_page]
+                self.slot_req[slot] = req
+                self.page_table[slot] = row
+                self.running.append(req)
+                self._prefill_slot(req, row)
+            return
         while (self.waiting and
                len(self.running) + len(self.prefilling) < self.max_batch):
             req = self.waiting[0]
@@ -722,7 +777,8 @@ class Engine:
         self._dev_state = None          # the slot leaves the active set
         self.running.remove(req)
         self.slot_req[req.slot] = None
-        self.allocator.release(req.pages)
+        if self._nsched is None:        # the native one released its own
+            self.allocator.release(req.pages)
         self.lengths[req.slot] = 1
         self.tokens[req.slot] = 0
         self.page_table[req.slot] = self.trash_page

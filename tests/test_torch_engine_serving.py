@@ -108,8 +108,11 @@ def test_eos_stops_a_request(params):
 
 
 def test_unported_options_raise(params):
-    with pytest.raises(NotImplementedError):
-        te.Engine(params[1], TCFG, scheduler="native", **KW)
+    # the native scheduler is ported (tests/test_torch_native_sched.py);
+    # a decode window with it is not, as in the reference
+    with pytest.raises(ValueError, match="decode_window"):
+        te.Engine(params[1], TCFG, scheduler="native", decode_window=4,
+                  **KW)
     # mesh= is ported (tests/test_torch_engine_tp.py); chunked prefill with
     # a mesh is not, as in the reference
     with pytest.raises(ValueError, match="mesh"):

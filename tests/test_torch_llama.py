@@ -255,7 +255,10 @@ def test_unported_options_raise(case):
     params = tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
                                 "q4_k")
     prompt = torch.arange(1, 5)[None]
-    with pytest.raises(NotImplementedError):
+    # the native scheduler is ported; what it does not take (chunked
+    # prefill, as in the reference) raises ValueError
+    err = ValueError if case == "native_scheduler" else NotImplementedError
+    with pytest.raises(err):
         if case in ("moe", "xla_attn_max_cache"):
             cfg = dataclasses.replace(
                 TDEBUG, **({"n_experts": 4} if case == "moe"
@@ -271,7 +274,7 @@ def test_unported_options_raise(case):
             tl.permute_hidden_params(moe, TDEBUG)
         else:
             te.Engine(params, TDEBUG, max_batch=2, page_size=32, n_pages=8,
-                      max_seq_len=64, scheduler="native")
+                      max_seq_len=64, scheduler="native", prefill_chunk=32)
 
 
 def _run(args, **env):
