@@ -172,6 +172,21 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      8192), the JAX package's primitive tests' cases through the port's
      ops, and perplexity on tinyllama-1.1b (22 layers, q4_k, 256 tokens:
      PPL within 2% of the NumPy oracle's), with each path's counts.
+  11. (after 9, on its own weights) the checkpoint path: llama2-7b's
+     seeded weights exported as a Q4_K_M-style GGUF file (utils/gguf.py's
+     export_llama: quantize_blocks on the card, q4_k layers, q6_k attn_v /
+     ffn_down where llama.cpp's use_more_bits picks, q6_k output, q4_k
+     token_embd, attn_q / attn_k in llama.cpp's row order, an SPM
+     vocabulary of 32,000), loaded by load_gguf (the load's wall seconds
+     and GB/s, host peak RSS: getrusage here, sampled in a fresh process,
+     the card's memory after) and load_tokenizer; every loaded weight
+     bit-equal to the same weights quantized on the card; a text prompt
+     through generate (16 tokens equal to the direct params', launch
+     counts asserted, each layer forced against the plain versions); the
+     GCTC round trip (save_params / load_params, bit-equal, both times);
+     perplexity --gguf on a tinyllama-shaped file (22 layers) within its
+     PPL_TOL / LOGIT_TOL. The files live in a temporary directory the
+     phase deletes.
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
 object with every kernel's route, source, launches per path, error,
@@ -2760,6 +2775,336 @@ def phase_bench(dev, seed, card):
     return paths, metrics
 
 
+GGUF_PROMPT = "the quick brown fox jumps over the lazy dog while the cat sleeps"
+GGUF_GEN = 16
+_GGUF_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
+               "wo": "attn_output", "w_gate": "ffn_gate", "w_up": "ffn_up",
+               "w_down": "ffn_down"}
+
+
+def _spm_vocab(n: int, seed: int):
+    """A seeded SPM vocabulary of ``n`` entries: <unk>, <s>, </s>, the 256
+    byte tokens, then '▁', the letters, and one- to three-letter pieces
+    with and without '▁', scored by length with a seeded jitter."""
+    import itertools
+    import numpy as np
+    from ggml_cuda_experiments_tpu_torch.utils.tokenizer import SpmTokenizer
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = ["▁"]
+    for width in (1, 2, 3):
+        words = ["".join(t) for t in itertools.product(letters, repeat=width)]
+        pieces += words + ["▁" + w for w in words]
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    pieces = pieces[:n - len(tokens)]
+    rng = np.random.default_rng(seed)
+    jitter = rng.uniform(0.0, 0.5, len(pieces))
+    return SpmTokenizer(
+        tokens=tokens + pieces,
+        scores=[0.0] * len(tokens) + [float(len(p) - 10 + j)
+                                      for p, j in zip(pieces, jitter)],
+        token_type=[2, 3, 3] + [6] * 256 + [1] * len(pieces))
+
+
+def _q4km_direct(dense, cfg):
+    """The Q4_K_M mix of ``dense`` quantized directly on the card, with no
+    file between: what ``load_gguf`` must give back from the exported
+    file (its embedding the bf16 dequantization of its Q4_K blocks)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.utils import gguf
+    fmt = lambda name: gguf.q4_k_m_format(name, cfg.n_layers)
+    return {
+        "embed": qm.dequantize(qm.quantize(dense["embed"], "q4_k"),
+                               torch.bfloat16),
+        "layers": [{k: w if k not in _GGUF_NAMES else qm.quantize(
+            w, fmt(f"blk.{i}.{_GGUF_NAMES[k]}.weight"))
+            for k, w in layer.items()}
+            for i, layer in enumerate(dense["layers"])],
+        "final_norm": dense["final_norm"],
+        "lm_head": qm.quantize(dense["lm_head"], fmt("output.weight"))}
+
+
+def _q4km_linears(cfg):
+    """(q4_k linears, q6_k linears at K = dim) of the Q4_K_M mix over the
+    layers: the first run q4k_gemm / q4k_matvec, the second (attn_v)
+    q6k_q8_matvec at one row; the q6_k w_down (K = intermediate) runs the
+    plain bf16 product, no kernel, as in the JAX package."""
+    from ggml_cuda_experiments_tpu_torch.utils import gguf
+    fmts = [gguf.q4_k_m_format(f"blk.{i}.{n}.weight", cfg.n_layers)
+            for i in range(cfg.n_layers) for n in _GGUF_NAMES.values()]
+    wv = [gguf.q4_k_m_format(f"blk.{i}.attn_v.weight", cfg.n_layers)
+          for i in range(cfg.n_layers)]
+    return fmts.count("q4_k"), wv.count("q6_k")
+
+
+def _assert_same_tree(what, got, want) -> int:
+    """Every leaf of ``got`` equal to ``want``'s, bit for bit (QuantLinear:
+    format, shape and every field); returns the bytes compared."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import QuantLinear
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return sum(_assert_same_tree(f"{what}.{k}", got[k], want[k])
+                   for k in want)
+    if isinstance(want, list):
+        return sum(_assert_same_tree(f"{what}.{i}", g, w)
+                   for i, (g, w) in enumerate(zip(got, want, strict=True)))
+    if isinstance(want, QuantLinear):
+        if (got.fmt, got.shape) != (want.fmt, want.shape):
+            raise AssertionError(f"{what}: {got.fmt} {got.shape} != "
+                                 f"{want.fmt} {want.shape}")
+        return sum(_assert_same_tree(f"{what}.{f}", getattr(got, f),
+                                     getattr(want, f))
+                   for f in ("qs", "es", "em", "qh", "d")
+                   if getattr(want, f) is not None)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{what}: not bit-equal")
+    return want.numel() * want.element_size()
+
+
+# load_gguf alone in a fresh process, for the load's own peak RSS: its
+# resident pages (/proc/self/statm, read only) sampled every 2 ms by a
+# thread, since a child's getrusage ru_maxrss starts at its parent's peak
+# (the forked copy's high-water mark survives the exec)
+_LOAD_CHILD = """
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from ggml_cuda_experiments_tpu_torch.utils.gguf import load_gguf
+
+PAGE = os.sysconf("SC_PAGE_SIZE")
+
+def rss_kb():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE // 1024
+
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+before = rss_kb()
+peak = [before]
+done = threading.Event()
+
+def sample():
+    while not done.wait(0.002):
+        peak[0] = max(peak[0], rss_kb())
+
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+params, cfg = load_gguf(sys.argv[2])
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+done.set()
+sampler.join()
+print(json.dumps({"load_s": load_s, "rss_before_kb": before,
+                  "rss_peak_kb": max(peak[0], rss_kb()),
+                  "card_bytes": torch.cuda.memory_allocated()}))
+"""
+
+
+def phase_checkpoint(dev, seed, card):
+    """11: the checkpoint path (utils/gguf.py, tokenizer.py, loader.py):
+    llama2-7b's seeded weights written as a Q4_K_M-style GGUF file with an
+    SPM vocabulary of 32,000, loaded by ``load_gguf`` and
+    ``load_tokenizer``, every loaded weight held bit-equal to the same
+    weights quantized directly on the card, a text prompt through
+    ``generate`` (tokens equal to the direct params', each layer forced
+    against the plain versions, launch counts asserted), the GCTC round
+    trip, and ``perplexity --gguf`` on a tinyllama-shaped file."""
+    import dataclasses
+    import resource
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.tools import perplexity
+    from ggml_cuda_experiments_tpu_torch.utils import gguf, loader, tokenizer
+    t_phase = time.perf_counter()
+    cfg = PRESETS["llama2-7b"]
+    L = cfg.n_layers
+    log(f"== 11. the checkpoint path: {cfg.name} as a Q4_K_M-style GGUF file "
+        "(q4_k layers, q6_k attn_v / ffn_down where llama.cpp's "
+        "use_more_bits picks, q6_k output, q4_k token_embd, an SPM "
+        "vocabulary of 32,000) through load_gguf -> generate; the GCTC "
+        "round trip; perplexity --gguf on tinyllama-1.1b")
+    tmp = tempfile.mkdtemp(prefix="gct_ckpt_")
+    paths, metrics = {}, {"card": card}
+    try:
+        vocab = _spm_vocab(cfg.vocab_size, seed)
+        dense = llama.init_weights(cfg, seed=seed + 11, device=dev)
+        path = os.path.join(tmp, "llama2-7b-q4_k_m.gguf")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gguf.export_llama(path, dense, cfg, vocab)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        direct = _q4km_direct(dense, cfg)
+        del dense
+        torch.cuda.empty_cache()
+        log(f"  [{card}] export_llama (quantize_blocks on the card, encode, "
+            f"write): {size} bytes in {write_s:.2f} s "
+            f"({size / write_s / 1e9:.3f} GB/s)")
+
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, lcfg = gguf.load_gguf(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = torch.cuda.memory_allocated() - mem0
+        # the load's parts: the host's reads alone, then reads and copies
+        # to the card (the decode on the card is the rest)
+        gf = gguf.read_gguf(path)
+        t0 = time.perf_counter()
+        for name in gf.tensors:
+            gf.tensor_bytes(name, "cpu")
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in gf.tensors:
+            gf.tensor_bytes(name, dev)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = tokenizer.load_tokenizer(path)
+        tok_s = time.perf_counter() - t0
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        child = subprocess.run(
+            [sys.executable, "-c", _LOAD_CHILD, ROOT, path],
+            capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise AssertionError(f"load_gguf in a fresh process failed:\n"
+                                 f"{child.stderr[-3000:]}")
+        fresh = json.loads(child.stdout.strip().splitlines()[-1])
+        metrics.update(
+            file_bytes=size, write_s=write_s, load_s=load_s,
+            load_gb_s=size / load_s / 1e9, read_s=read_s,
+            read_and_copy_s=copy_s, tokenizer_s=tok_s,
+            loaded_card_bytes=loaded, card_bytes_after_load=
+            torch.cuda.memory_allocated(), rss_peak_kb=rss,
+            rss_peak_before_kb=rss0, fresh_process=fresh,
+            fresh_load_gb_s=size / fresh["load_s"] / 1e9)
+        log(f"  [{card}] load_gguf: {size} bytes in {load_s:.3f} s wall "
+            f"({size / load_s / 1e9:.3f} GB/s; the file just written, so "
+            f"read warm from the page cache), load_tokenizer {tok_s:.3f} s; "
+            f"the card holds {loaded} bytes of loaded params "
+            f"({torch.cuda.memory_allocated()} allocated after the load); "
+            f"host peak RSS (getrusage) {rss} kB (before the load {rss0} "
+            "kB, this process's earlier phases included); its parts: the "
+            f"host's reads alone {read_s:.3f} s, reads + copies to the card "
+            f"{copy_s:.3f} s, so the decode on the card ~"
+            f"{load_s - copy_s:.3f} s")
+        added = fresh["rss_peak_kb"] - fresh["rss_before_kb"]
+        log(f"  [{card}] load_gguf in a fresh process: {fresh['load_s']:.3f} "
+            f"s ({size / fresh['load_s'] / 1e9:.3f} GB/s), peak RSS (sampled) "
+            f"{fresh['rss_peak_kb']} kB, {fresh['rss_before_kb']} kB before "
+            f"the load (CUDA up): the load added {added} kB for a "
+            f"{size / 1e9:.2f} GB file; card {fresh['card_bytes']} bytes")
+        if added * 1024 >= size:
+            raise AssertionError("load_gguf held the whole file in host "
+                                 "memory")
+
+        if dataclasses.asdict(lcfg) != dataclasses.asdict(
+                dataclasses.replace(cfg, rms_eps=lcfg.rms_eps)):
+            raise AssertionError(f"config_from_metadata: {lcfg} != {cfg}")
+        compared = _assert_same_tree("params", params, direct)
+        log(f"  every loaded weight bit-equal to the same weights quantized "
+            f"on the card ({compared} bytes: q4_k / q6_k fields, attn_q / "
+            f"attn_k back in the original row order, the embed the bf16 "
+            f"dequantization of its Q4_K blocks, the norms)")
+
+        if (tok.tokens, tok.token_type) != (vocab.tokens, vocab.token_type):
+            raise AssertionError("load_tokenizer: vocabulary differs")
+        ids = tok.encode(GGUF_PROMPT)
+        if tok.decode(ids) != GGUF_PROMPT:
+            raise AssertionError(f"decode(encode(prompt)) = "
+                                 f"{tok.decode(ids)!r}")
+        prompt = torch.tensor([ids], dtype=torch.int64, device=dev)
+        log(f"  prompt {GGUF_PROMPT!r}: {len(ids)} tokens (bos first), "
+            "decoded back equal")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        toks = llama.generate(params, lcfg, prompt, steps=GGUF_GEN)
+        gen_s = time.perf_counter() - t0
+        counts = paths["gguf_generate"] = _counts()
+        n_q4, n_q6 = _q4km_linears(lcfg)
+        want = {k: 0 for k in counts}
+        want.update(q4k_gemm=n_q4, flash_attention=L,
+                    q4k_matvec=GGUF_GEN * n_q4,
+                    q6k_q8_matvec=1 + GGUF_GEN * (n_q6 + 1),
+                    flash_decode=GGUF_GEN * L, lse_merge=GGUF_GEN * L)
+        _assert_counts("gguf generate", counts, want)
+        log(f"  launch counts equal the path's: the prefill's {n_q4} q4_k "
+            f"linears on q4k_gemm, the head on q6k_q8_matvec; per decode "
+            f"step {n_q4} q4k_matvec, {n_q6} q6_k attn_v + the head on "
+            f"q6k_q8_matvec, {L} flash_decode + lse_merge; the q6_k w_down "
+            "(K = 11008) the plain bf16 product; no fused kernel (the "
+            "projections are separate)")
+        want_toks = llama.generate(direct, lcfg, prompt, steps=GGUF_GEN)
+        if not np.array_equal(toks, want_toks):
+            raise AssertionError(f"generate: loaded {toks} != direct "
+                                 f"{want_toks}")
+        log(f"  generate {GGUF_GEN} tokens in {gen_s:.3f} s wall: "
+            f"{toks[0].tolist()} (equal to the direct params'; text "
+            f"{tok.decode(toks[0].tolist())[:60]!r})")
+        metrics["generate_s"] = gen_s
+        forced = torch.from_numpy(toks[0, :2]).to(dev, torch.int32)
+        _check_forced(params, lcfg, prompt, forced, dev)
+        del direct
+        torch.cuda.empty_cache()
+
+        gpath = os.path.join(tmp, "llama2-7b.gctc")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loader.save_params(gpath, params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = loader.load_params(gpath)
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        gsize = os.path.getsize(gpath)
+        compared = _assert_same_tree("gctc", back, params)
+        metrics.update(gctc_bytes=gsize, gctc_save_s=save_s,
+                       gctc_load_s=reload_s)
+        log(f"  [{card}] GCTC: save_params {gsize} bytes in {save_s:.3f} s, "
+            f"load_params in {reload_s:.3f} s (warm), bit-equal "
+            f"({compared} bytes)")
+        del back, params
+        os.remove(gpath)
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+        tcfg = PRESETS["tinyllama-1.1b"]
+        tpath = os.path.join(tmp, "tinyllama-q4_k_m.gguf")
+        tdense = llama.init_weights(tcfg, seed=seed + 12, device=dev)
+        gguf.export_llama(tpath, tdense, tcfg)
+        del tdense
+        torch.cuda.empty_cache()
+        argv = ["--gguf", tpath, "--tokens", "256", "--seed", str(seed)]
+        log(f"  perplexity {' '.join(argv)} ({tcfg.n_layers} layers)")
+        sys.stdout.flush()
+        _reset_counts()
+        if perplexity.main(argv) != 0:
+            raise AssertionError("perplexity --gguf: PPL not within 2% of "
+                                 "the oracle's or a logit more than 0.35 "
+                                 "from it")
+        counts = paths["gguf_perplexity"] = _counts()
+        want = {k: 0 for k in counts}
+        want.update(q4k_gemm=_q4km_linears(tcfg)[0],
+                    flash_attention=tcfg.n_layers)
+        _assert_counts("gguf perplexity", counts, want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{card}] phase 11 in {metrics['phase_s']:.1f} s")
+    return paths, metrics
+
+
 ENGINE_PROMPTS = (16, 37, 64, 100, 128, 200, 256, 300, 384, 450, 500, 512)
 ENGINE_GEN = 32
 ENGINE_KW = dict(max_batch=8, page_size=64, n_pages=96, max_seq_len=1024,
@@ -3932,10 +4277,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lab_paths = phase_lab(dev, args.seed)
     bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    ckpt_paths, ckpt_metrics = phase_checkpoint(dev, args.seed, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
-             **vpu_paths, **b7_paths, **bench_paths, **par_paths}
+             **vpu_paths, **b7_paths, **bench_paths, **par_paths,
+             **ckpt_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -3969,6 +4317,7 @@ def main() -> int:
                       "serving": serving_metrics,
                       "speculative": spec_metrics,
                       "parallel": par_metrics,
+                      "checkpoint": ckpt_metrics,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
                                 "decode": {"llama2-7b": b7_metrics,
                                            "tinyllama-1.1b": btiny_metrics}}

@@ -71,6 +71,7 @@ import torch
 
 from ggml_cuda_experiments_tpu_torch.ops import _build
 from ggml_cuda_experiments_tpu_torch.ops.flash_decode import _sm_count
+from ggml_cuda_experiments_tpu_torch.oracle import quant as oq
 from ggml_cuda_experiments_tpu_torch.oracle.quant import QK, QK6, QK_K
 from ggml_cuda_experiments_tpu_torch.utils.platform import (
     kernels_for, resolve_device)
@@ -146,9 +147,10 @@ def _f16_round(x: torch.Tensor) -> torch.Tensor:
     return x.half().float()
 
 
-def _quantize_q4_k_rows(w: torch.Tensor):
-    """Oracle Q4_K quantization of w [n, K] -> (qs uint8 [n, K/2],
-    es bf16 [n, K/32], em bf16 [n, K/32]) in the Q4_K-E encoding."""
+def _q4_k_rows(w: torch.Tensor):
+    """The oracle's Q4_K blocks of w [n, K]: (qs uint8 [n, K/2] planar
+    nibbles, sc uint8 [n, K/32], mn uint8 [n, K/32], d f32 [n, K/256],
+    dmin f32 [n, K/256])."""
     x = w.float()
     n, k = x.shape
     xb = x.reshape(n, k // QK_K, 8, QK)
@@ -167,9 +169,8 @@ def _quantize_q4_k_rows(w: torch.Tensor):
                     0, 15).to(torch.uint8)
     q = q.reshape(n, k // QK, QK)
     qs = (q[..., :16] | (q[..., 16:] << 4)).reshape(n, k // 2)
-    es = eff_scale.reshape(n, k // QK).to(torch.bfloat16)
-    em = eff_min.reshape(n, k // QK).to(torch.bfloat16)
-    return qs, es, em
+    return (qs, sc.to(torch.uint8).reshape(n, k // QK),
+            mn.to(torch.uint8).reshape(n, k // QK), d, dmin)
 
 
 def _pack_q6(q: torch.Tensor):
@@ -198,9 +199,9 @@ def _q6_values(qs: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     return torch.cat([p & 0x0F, p >> 4], dim=-1) | (_q6_high(qh) << 4)
 
 
-def _quantize_q6_k_rows(w: torch.Tensor):
-    """Oracle Q6_K quantization of w [n, K] -> (qs uint8 [n, K/2],
-    qh uint8 [n, K/4], es bf16 [n, K/16]) in the Q6_K-E encoding."""
+def _q6_k_rows(w: torch.Tensor):
+    """The oracle's Q6_K blocks of w [n, K]: (qs uint8 [n, K] values
+    q + 32, sc int8 [n, K/16], d f32 [n, K/256])."""
     x = w.float()
     n, k = x.shape
     xb = x.reshape(n, k // QK_K, QK_K // QK6, QK6)
@@ -215,24 +216,23 @@ def _quantize_q6_k_rows(w: torch.Tensor):
                      -127, 127).to(torch.int8)
     eff = d[..., None] * sc.float()                          # exact
     q = torch.clamp(torch.round(xb * _recip0(eff)[..., None]), -32, 31) + 32
-    qs, qh = _pack_q6(q.to(torch.uint8).reshape(n, k))
-    return qs, qh, eff.reshape(n, k // QK6).to(torch.bfloat16)
+    return q.to(torch.uint8).reshape(n, k), sc.reshape(n, k // QK6), d
 
 
-def _quantize_q8_0_rows(w: torch.Tensor):
-    """Oracle Q8_0 quantization of w [n, K] -> (qs int8 [n, K],
-    d fp16 [n, K/32])."""
+def _q8_0_rows(w: torch.Tensor):
+    """The oracle's Q8_0 blocks of w [n, K]: (qs int8 [n, K], d f32
+    [n, K/32])."""
     x = w.float()
     n, k = x.shape
     xb = x.reshape(n, k // QK, QK)
     d = _f16_round(_div(xb.abs().amax(-1), 127.0))            # [n, K/32]
     q = torch.clamp(torch.round(xb * _recip0(d)[..., None]), -127, 127)
-    return q.to(torch.int8).reshape(n, k), d.half()
+    return q.to(torch.int8).reshape(n, k), d
 
 
-def _quantize_q4_0_rows(w: torch.Tensor):
-    """Oracle Q4_0 quantization of w [n, K] -> (qs uint8 [n, K/2],
-    d fp16 [n, K/32])."""
+def _q4_0_rows(w: torch.Tensor):
+    """The oracle's Q4_0 blocks of w [n, K]: (qs uint8 [n, K/2], d f32
+    [n, K/32])."""
     x = w.float()
     n, k = x.shape
     xb = x.reshape(n, k // QK, QK)
@@ -245,15 +245,13 @@ def _quantize_q4_0_rows(w: torch.Tensor):
     q = torch.clamp(torch.round(xb * _recip0(d)[..., None]) + 8, 0,
                     15).to(torch.uint8)
     qs = (q[..., :QK // 2] | (q[..., QK // 2:] << 4)).reshape(n, k // 2)
-    return qs, d.half()
+    return qs, d
 
 
 _QUANT_ROWS = 2048          # rows per chunk of the device quantizer
-_ROWS = {"q8_0": _quantize_q8_0_rows, "q4_0": _quantize_q4_0_rows,
-         "q4_k": _quantize_q4_k_rows, "q6_k": _quantize_q6_k_rows}
-# the fields each row quantizer returns, in order
-_QUANT_FIELDS = {"q8_0": ("qs", "d"), "q4_0": ("qs", "d"),
-                 "q4_k": ("qs", "es", "em"), "q6_k": ("qs", "qh", "es")}
+# each format's row quantizer and the oracle dataclass of its fields
+_BLOCKS = {"q8_0": (_q8_0_rows, oq.Q8_0), "q4_0": (_q4_0_rows, oq.Q4_0),
+           "q4_k": (_q4_k_rows, oq.Q4_K), "q6_k": (_q6_k_rows, oq.Q6_K)}
 
 
 def _block(fmt: str) -> int:
@@ -262,21 +260,29 @@ def _block(fmt: str) -> int:
     return QK_K if fmt in ("q4_k", "q6_k") else QK
 
 
-def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
-    """Quantize a float [N, K] weight on its own device. Bit-equal to the
-    oracle's ``quantize_q8_0`` / ``quantize_q4_0`` / ``quantize_q4_k`` /
-    ``quantize_q6_k`` (the last two followed by the reference's Q4_K-E /
-    Q6_K-E scale folding). Works in row chunks to bound the f32
-    temporaries."""
+def quantize_blocks(w: torch.Tensor, fmt: str = "q4_k"):
+    """The oracle's blocks of a float [N, K] weight, computed on its own
+    device: ``oracle/quant.py``'s Q8_0, Q4_0, Q4_K or Q6_K with tensor
+    fields on w's device, bit-equal to its ``quantize_q8_0`` /
+    ``quantize_q4_0`` / ``quantize_q4_k`` / ``quantize_q6_k``. These are
+    the GGML fields a GGUF writer encodes. Works in row chunks to bound the
+    f32 temporaries."""
     _fmt_check(fmt)
     n, k = w.shape
     if k % _block(fmt):
         raise ValueError(f"{fmt} needs K % {_block(fmt)} == 0 (got K={k})")
-    parts = [_ROWS[fmt](w[r:r + _QUANT_ROWS])
-             for r in range(0, n, _QUANT_ROWS)]
-    fields = dict(zip(_QUANT_FIELDS[fmt],
-                      (torch.cat(f) for f in zip(*parts))))
-    return QuantLinear(fmt=fmt, shape=(n, k), **fields)
+    rows, blocks = _BLOCKS[fmt]
+    parts = [rows(w[r:r + _QUANT_ROWS]) for r in range(0, n, _QUANT_ROWS)]
+    return blocks(*(torch.cat(f) for f in zip(*parts)), shape=(n, k))
+
+
+def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
+    """Quantize a float [N, K] weight on its own device: ``quantize_blocks``
+    folded by ``from_oracle``, so bit-equal to the oracle's
+    ``quantize_q8_0`` / ``quantize_q4_0`` / ``quantize_q4_k`` /
+    ``quantize_q6_k`` (the last two followed by the reference's Q4_K-E /
+    Q6_K-E scale folding)."""
+    return from_oracle(quantize_blocks(w, fmt), device=w.device)
 
 
 _Q4K_FIELDS = ("qs", "sc", "mn", "d", "dmin", "shape")
@@ -284,43 +290,64 @@ _Q6K_FIELDS = ("qs", "sc", "d", "shape")
 _Q32_FIELDS = ("qs", "d", "shape")
 
 
+def _field(a) -> torch.Tensor:
+    """An oracle block field as a contiguous tensor: a NumPy array shares
+    its CPU memory, a tensor stays where it lies."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def block_format(t) -> str:
+    """The format of planar oracle blocks ``t``, read from their fields
+    (Q4_K: qs, sc, mn, d, dmin, shape; Q6_K: qs, sc, d, shape; Q8_0 and
+    Q4_0: qs, d, shape, told apart by the width and dtype of qs), so the
+    blocks of the port's oracle and of any oracle with the same layout are
+    taken alike. A field may be a NumPy array or a tensor."""
+    if all(hasattr(t, f) for f in _Q4K_FIELDS):
+        return "q4_k"
+    if all(hasattr(t, f) for f in _Q6K_FIELDS):
+        return "q6_k"
+    if all(hasattr(t, f) for f in _Q32_FIELDS):
+        k = t.shape[-1]
+        qs = _field(t.qs)
+        fmt = {(k, torch.int8): "q8_0", (k // 2, torch.uint8): "q4_0"}.get(
+            (qs.shape[-1], qs.dtype))
+        if fmt is None:
+            raise ValueError(f"qs {qs.dtype} {tuple(qs.shape)} is neither "
+                             f"Q8_0 nor Q4_0 of shape {tuple(t.shape)}")
+        return fmt
+    raise NotImplementedError(f"{type(t).__name__} is none of the port's "
+                              f"formats ({', '.join(FORMATS)})")
+
+
 def from_oracle(t, device=None) -> QuantLinear:
     """Port container from planar Q8_0, Q4_0, Q4_K or Q6_K blocks (the same
     values; fp16 d, or the bf16 effective scales), on the card unless
-    ``device`` says otherwise. ``t`` is read by its fields (Q4_K: qs, sc,
-    mn, d, dmin, shape; Q6_K: qs, sc, d, shape; Q8_0 and Q4_0: qs, d,
-    shape, told apart by the width and dtype of qs), so the blocks of the
-    port's oracle and of any oracle with the same layout are taken
-    alike."""
+    ``device`` says otherwise. ``t``'s fields (``block_format``) may be
+    NumPy arrays or tensors; tensor fields are folded where they lie (a
+    GGUF tensor decoded on the card stays there)."""
     device = resolve_device(device)
+    fmt = block_format(t)
     n, k = t.shape
-    if all(hasattr(t, f) for f in _Q4K_FIELDS):
-        d8 = torch.from_numpy(np.repeat(t.d, 8, axis=-1))   # [N, K/32] f32
-        dm8 = torch.from_numpy(np.repeat(t.dmin, 8, axis=-1))
-        es = (d8 * torch.from_numpy(t.sc).float()).to(torch.bfloat16)
-        em = (dm8 * torch.from_numpy(t.mn).float()).to(torch.bfloat16)
-        qs = torch.from_numpy(np.ascontiguousarray(t.qs, np.uint8))
-        return QuantLinear(fmt="q4_k", shape=(n, k), qs=qs.to(device),
-                           es=es.to(device), em=em.to(device))
-    if all(hasattr(t, f) for f in _Q6K_FIELDS):
-        d16 = torch.from_numpy(np.repeat(t.d, QK_K // QK6, axis=-1))
-        es = (d16 * torch.from_numpy(t.sc).float()).to(torch.bfloat16)
-        qs, qh = _pack_q6(torch.from_numpy(
-            np.ascontiguousarray(t.qs, np.uint8)).reshape(n, k))
-        return QuantLinear(fmt="q6_k", shape=(n, k), qs=qs.to(device),
-                           es=es.to(device), qh=qh.to(device))
-    if all(hasattr(t, f) for f in _Q32_FIELDS):
-        qs = np.ascontiguousarray(t.qs)
-        fmt = {(k, np.int8): "q8_0", (k // 2, np.uint8): "q4_0"}.get(
-            (qs.shape[-1], qs.dtype.type))
-        if fmt is None:
-            raise ValueError(f"from_oracle: qs {qs.dtype} {qs.shape} is "
-                             f"neither Q8_0 nor Q4_0 of shape {(n, k)}")
-        d = torch.from_numpy(np.asarray(t.d, np.float32)).half()
+    qs = _field(t.qs)
+    if fmt == "q4_k":
+        d8 = _field(t.d).float().repeat_interleave(8, -1)   # [N, K/32] f32
+        dm8 = _field(t.dmin).float().repeat_interleave(8, -1)
+        es = (d8 * _field(t.sc).float()).to(torch.bfloat16)
+        em = (dm8 * _field(t.mn).float()).to(torch.bfloat16)
         return QuantLinear(fmt=fmt, shape=(n, k),
-                           qs=torch.from_numpy(qs).to(device), d=d.to(device))
-    raise NotImplementedError(f"from_oracle: {type(t).__name__} is none of "
-                              f"the port's formats ({', '.join(FORMATS)})")
+                           qs=qs.to(device, torch.uint8),
+                           es=es.to(device), em=em.to(device))
+    if fmt == "q6_k":
+        d16 = _field(t.d).float().repeat_interleave(QK_K // QK6, -1)
+        es = (d16 * _field(t.sc).float()).to(torch.bfloat16)
+        qs, qh = _pack_q6(qs.to(torch.uint8).reshape(n, k))
+        return QuantLinear(fmt=fmt, shape=(n, k), qs=qs.to(device),
+                           es=es.to(device), qh=qh.to(device))
+    d = _field(t.d).float().half()
+    return QuantLinear(fmt=fmt, shape=(n, k), qs=qs.to(device),
+                       d=d.to(device))
 
 
 def _nibbles(qs: torch.Tensor, n: int, k: int) -> torch.Tensor:

@@ -98,7 +98,7 @@ def forward_logits(params, cfg: ModelConfig, tokens) -> np.ndarray:
         if "router" in layer:                      # MoE
             raise NotImplementedError(
                 "forward_logits: MoE layers wait for the port of "
-                "models/moe.py (ROADMAP A.6)")
+                "models/moe.py (ROADMAP A.5)")
         if "w_gu" in layer:
             y = x @ _dense(layer["w_gu"]).T
             half = y.shape[-1] // 2

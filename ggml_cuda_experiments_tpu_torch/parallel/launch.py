@@ -52,10 +52,14 @@ def _to_host(obj):
     return obj
 
 
-def loaded_modules() -> list[str]:
-    """The modules this process has imported (a rank's, for the check that
-    no rank of the port imports jax or the JAX package)."""
+def loaded_modules(*imports: str) -> list[str]:
+    """The modules this process has imported once it has imported
+    ``imports`` (a rank's, for the check that no rank of the port imports
+    jax or the JAX package)."""
+    import importlib
     import sys
+    for name in imports:
+        importlib.import_module(name)
     return sorted(sys.modules)
 
 

@@ -15,7 +15,10 @@ gives the oracle's from the same (quantized) weights. Prints both PPLs,
 the largest logit difference and the PPL's relative difference, and exits
 1 when the PPLs differ by more than ``PPL_TOL`` or a logit by more than
 ``LOGIT_TOL`` (the JAX package's bounds, ``tests/test_oracle_model.py``).
-``--gguf`` waits for the port's GGUF reader (ROADMAP A.1).
+With ``--gguf PATH`` the model is a llama.cpp GGUF file instead, loaded by
+``utils/gguf.load_gguf`` (its configuration from the file's metadata, its
+quantized tensors as they are stored; ``--model`` and ``--fmt`` are not
+used).
 """
 
 from __future__ import annotations
@@ -63,17 +66,19 @@ def tokens_for(cfg, batch: int, n: int, seed: int):
 
 
 def run(cfg, fmt: str, n_tokens: int, batch: int, seed: int, device,
-        skip_oracle: bool = False) -> dict:
-    """The port's prefill and (unless skipped) the oracle on one model:
-    {"logits", "ppl", "tokens", "prefill_s"; "ref_logits", "ppl_ref",
-    "max_diff", "rel", "oracle_s"}."""
+        skip_oracle: bool = False, params=None) -> dict:
+    """The port's prefill and (unless skipped) the oracle on one model
+    (``params``, else ``weights(cfg, fmt, seed)``): {"logits", "ppl",
+    "tokens", "prefill_s"; "ref_logits", "ppl_ref", "max_diff", "rel",
+    "oracle_s"}."""
     import numpy as np
     import torch
 
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.oracle import model as oracle_model
 
-    _, params = weights(cfg, fmt, seed, device)
+    if params is None:
+        _, params = weights(cfg, fmt, seed, device)
     tokens = tokens_for(cfg, batch, n_tokens, seed)
     cache = llama.KVCache.create(
         cfg, batch, max(256, n_tokens), device=device,
@@ -99,19 +104,25 @@ def run(cfg, fmt: str, n_tokens: int, batch: int, seed: int, device,
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.gguf:
-        raise NotImplementedError("--gguf waits for ROADMAP A.1 (the port's "
-                                  "GGUF reader)")
     import torch
 
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     from ggml_cuda_experiments_tpu_torch.utils.platform import require_cuda
     dev = torch.device("cpu") if args.cpu else require_cuda()
-    cfg = PRESETS[args.model]
+    params = None
+    if args.gguf:
+        from ggml_cuda_experiments_tpu_torch.utils.gguf import load_gguf
+        t0 = time.perf_counter()
+        params, cfg = load_gguf(args.gguf, device=dev)
+        args.fmt = "gguf"
+        print(f"loaded {args.gguf} in {time.perf_counter() - t0:.2f} s "
+              "(host clock)")
+    else:
+        cfg = PRESETS[args.model]
     print(f"model {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, "
           f"{args.fmt}, {args.batch} x {args.tokens} tokens, on {dev}")
     r = run(cfg, args.fmt, args.tokens, args.batch, args.seed, dev,
-            args.skip_oracle)
+            args.skip_oracle, params)
     print(f"engine  PPL ({args.fmt}): {r['ppl']:.4f}  (prefill "
           f"{r['prefill_s']:.2f} s, host clock)")
     if args.skip_oracle:

@@ -26,8 +26,10 @@ decoding. The port's counterpart of the JAX package's
 Weights are built from seed 0 (``init_weights(cfg, seed=0)``, as the JAX
 tool's) and quantized to q4_k on the card, the configuration ``x_quant8`` as
 in the JAX tool. The JAX tool caches its quantized weights in a GCTC file
-(``utils/loader.py``); the port has no such cache yet (ROADMAP A.1), so
-every run builds them. Runs on the card; the measuring functions take any
+(its ``utils/loader.py``); the port has that container too
+(``utils/loader.py``: ``save_params`` / ``load_params``), but its tools,
+this one among them, build their weights every run: wiring the cache in
+is listed in ROADMAP A. Runs on the card; the measuring functions take any
 device, so the CPU tests call them at the ``debug`` size.
 """
 

@@ -1650,3 +1650,63 @@ def test_probe_tools_on_the_card(dev):
                            "dma,zponly,zlonly,full,noand,cols256,split,"
                            "full_pre,full:1"]) == 0
     assert exp_q4.main(["--check", "--rows", "4096"]) == 0
+
+
+@pytest.mark.parametrize("fmt", qm.FORMATS)
+def test_quantize_blocks_on_the_card(dev, fmt):
+    """The GGML fields a GGUF writer encodes, computed on the card: equal
+    to the port's oracle bit for bit (ties, a zero and a constant block
+    among the rows)."""
+    from ggml_cuda_experiments_tpu_torch.oracle import quant as oq
+    w = _randn(21, 256, 4096, scale=0.05)
+    w[0, :32] = 0.01
+    w[0, 3], w[0, 9] = 0.5, -0.5
+    w[1, :256] = 0.0
+    w[2, :256] = 0.125
+    got = qm.quantize_blocks(w.to(dev), fmt)
+    want = getattr(oq, f"quantize_{fmt}")(w.numpy())
+    for f in dataclasses.fields(want):
+        if f.name != "shape":
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert a.is_cuda and np.array_equal(a.cpu().numpy(), b), f.name
+
+
+def test_load_gguf_onto_the_card(dev, tmp_path):
+    """A Q4_K_M-style file of the debug model, written from weights on the
+    card and loaded there: every field equal to the CPU load's (the codecs
+    on the card are exact), the loaded model's generate equal to the same
+    blocks quantized directly on the card."""
+    from ggml_cuda_experiments_tpu_torch.utils import gguf
+    cfg = PRESETS["debug"]
+    dense = llama.init_weights(cfg, seed=4, device=dev)
+    path = str(tmp_path / "debug.gguf")
+    gguf.export_llama(path, dense, cfg)
+    on_card, lcfg = gguf.load_gguf(path)
+    on_cpu, _ = gguf.load_gguf(path, device="cpu")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in tree for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        if isinstance(tree, qm.QuantLinear):
+            return [t for t in (tree.qs, tree.es, tree.em, tree.qh, tree.d)
+                    if t is not None]
+        return [tree]
+
+    for a, b in zip(leaves(on_card), leaves(on_cpu), strict=True):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    fmt = lambda n: gguf.q4_k_m_format(n, cfg.n_layers)
+    direct = dict(on_card, lm_head=qm.quantize(dense["lm_head"],
+                                               fmt("output.weight")))
+    direct["layers"] = [dict(lay, wq=qm.quantize(d["wq"], "q4_k"),
+                             wk=qm.quantize(d["wk"], "q4_k"))
+                        for lay, d in zip(on_card["layers"],
+                                          dense["layers"])]
+    for lay, d in zip(direct["layers"], on_card["layers"]):
+        for k in ("wq", "wk"):                 # back in the original rows
+            assert all(torch.equal(a, b) for a, b in zip(
+                leaves(lay[k]), leaves(d[k]), strict=True)), k
+    prompt = torch.arange(1, 9, device=dev)[None]
+    assert np.array_equal(llama.generate(on_card, lcfg, prompt, steps=6),
+                          llama.generate(direct, lcfg, prompt, steps=6))

@@ -26,13 +26,13 @@ import torch
 from ggml_cuda_experiments_tpu.models import llama as jl
 from ggml_cuda_experiments_tpu.models.config import PRESETS
 from ggml_cuda_experiments_tpu.ops import quant_matmul as jqm
-from ggml_cuda_experiments_tpu.utils.tensor_io import load_tensor
 from ggml_cuda_experiments_tpu_torch.models import convert
 from ggml_cuda_experiments_tpu_torch.models import engine as te
 from ggml_cuda_experiments_tpu_torch.models import llama as tl
 from ggml_cuda_experiments_tpu_torch.models.config import (
     ModelConfig as TModelConfig, PRESETS as TPRESETS)
 from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as tqm
+from ggml_cuda_experiments_tpu_torch.utils.tensor_io import load_tensor
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "data" / "golden_debug.tensor"
@@ -176,6 +176,7 @@ def test_7b_width_one_layer_matches_jax(params_7b):
 def test_reproduces_golden_file():
     """tests/data/golden_debug.tensor: seed 1234, prompt 1..8, q4_k."""
     want, name = load_tensor(GOLDEN)
+    want = want.numpy()
     assert name.startswith("debug_q4k_seed1234")
     cfg = TPRESETS["debug"]
     params = tl.quantize_params(convert.params_from_jax(
@@ -297,14 +298,20 @@ def test_port_package_never_imports_jax():
         "new = ['parallel.' + m for m in ('mesh', 'launch', 'ring_attention',"
         " 'tp', 'collective_matmul', 'pipeline', 'full', 'multihost')]\n"
         "new.append('tools.multihost_run')\n"
+        "new += ['utils.' + m for m in ('gguf', 'tokenizer', 'tensor_io',"
+        " 'loader')]\n"
         "assert all(p.__name__ + '.' + m in mods for m in new), new\n"
         "from ggml_cuda_experiments_tpu_torch.parallel import launch\n"
-        "ranks = launch.run_spmd(launch.loaded_modules, 2, 'gloo', 'cpu', 120)\n"
+        "ckpt = tuple(p.__name__ + '.utils.' + m for m in ('gguf', "
+        "'tokenizer', 'tensor_io', 'loader'))\n"
+        "ranks = launch.run_spmd(launch.loaded_modules, 2, 'gloo', 'cpu', 120,"
+        " args=ckpt)\n"
         "for got in ranks:\n"
         "    bad = [m for m in got if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'ml_dtypes', 'ggml_cuda_experiments_tpu')]\n"
         "    assert not bad, bad\n"
         "    assert 'ggml_cuda_experiments_tpu_torch.parallel.multihost' in got\n"
+        "    assert all(m in got for m in ckpt), ckpt\n"
         "print('imported', len(mods))\n")
     r = _run([sys.executable, "-I", "-c", code, str(REPO)])
     assert r.returncode == 0, r.stderr

@@ -206,7 +206,7 @@ def test_forward_logits_takes_oracle_blocks_and_refuses_moe():
     got = tom.forward_logits(head, cfg, tokens)
     assert np.abs(got - want).max() < 0.05 * np.abs(want).max()
     moe = dict(dense, layers=[dict(dense["layers"][0], router=None)])
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         tom.forward_logits(moe, cfg, tokens)
 
 

@@ -10,7 +10,8 @@
   JAX oracle's ``perplexity``), within ``tests/test_oracle_model.py``'s
   bounds: f32 logits within 2e-3, quantized PPL within 2% and the largest
   logit difference under 0.35; and it passes against its own oracle.
-- ``perplexity --gguf`` waits for the GGUF reader.
+- ``perplexity --gguf`` on a Q4_K_M-style file of the debug model passes,
+  with the logits of the same weights quantized in-process.
 - ``fa_tiles`` (the flash-attention kernel's tile variants) finds the two
   lines it replaces, and refuses to start without a card.
 """
@@ -23,9 +24,12 @@ import torch
 from ggml_cuda_experiments_tpu.models import llama as jllama
 from ggml_cuda_experiments_tpu.models.config import PRESETS as JPRESETS
 from ggml_cuda_experiments_tpu.oracle import model as jom
+from ggml_cuda_experiments_tpu_torch.models import llama as tllama
 from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as tqm
 from ggml_cuda_experiments_tpu_torch.tools import (
     fa_tiles, gemm_bench, kernel_test, perplexity)
+from ggml_cuda_experiments_tpu_torch.utils import gguf as tgguf
 
 _SMALL = ["--cpu", "--kv-size", "256", "--heads", "8", "--kv-heads", "2",
           "--head-dim", "64", "--kv-splits", "4"]
@@ -122,6 +126,34 @@ def test_perplexity_quantized_matches_the_jax_pipeline(capsys, fmt):
     assert np.abs(r["logits"] - want).max() < 0.35
 
 
-def test_perplexity_gguf_waits():
-    with pytest.raises(NotImplementedError, match="A.1"):
-        perplexity.main(["--cpu", "--gguf", "model.gguf"])
+def test_perplexity_gguf(tmp_path, capsys):
+    """A Q4_K_M-style file of the debug model (the port's export): the tool
+    passes against its oracle, and its logits are those of the same
+    weights quantized in-process (the loader adds nothing)."""
+    cfg = PRESETS["debug"]
+    dense = tllama.init_weights(cfg, seed=1, device="cpu")
+    path = str(tmp_path / "debug.gguf")
+    tgguf.export_llama(path, dense, cfg)
+    args = ["--cpu", "--gguf", path, "--tokens", "32", "--seed", "1"]
+    assert perplexity.main(args) == 0
+    assert "PASS" in capsys.readouterr().out
+    fmt = lambda name: tgguf.q4_k_m_format(name, cfg.n_layers)
+    direct = {"embed": tqm.dequantize(tqm.quantize(dense["embed"], "q4_k"),
+                                      torch.bfloat16),
+              "final_norm": dense["final_norm"],
+              "lm_head": tqm.quantize(dense["lm_head"], fmt("output.weight")),
+              "layers": [{k: w if w.dim() == 1 else tqm.quantize(
+                  w, fmt(f"blk.{i}.{_GGUF_NAMES[k]}.weight"))
+                  for k, w in layer.items()}
+                  for i, layer in enumerate(dense["layers"])]}
+    loaded, lcfg = tgguf.load_gguf(path, device="cpu")
+    got = perplexity.run(lcfg, "gguf", 32, 1, 1, torch.device("cpu"),
+                         skip_oracle=True, params=loaded)
+    want = perplexity.run(lcfg, "gguf", 32, 1, 1, torch.device("cpu"),
+                          skip_oracle=True, params=direct)
+    assert np.array_equal(got["logits"], want["logits"])
+
+
+_GGUF_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
+               "wo": "attn_output", "w_gate": "ffn_gate", "w_up": "ffn_up",
+               "w_down": "ffn_down"}
