@@ -187,6 +187,19 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      perplexity --gguf on a tinyllama-shaped file (22 layers) within its
      PPL_TOL / LOGIT_TOL. The files live in a temporary directory the
      phase deletes.
+  12. (after 11, every earlier model freed) mixtral-8x7b at full width and
+     depth (32 layers, dim 4096, GQA 32/8, 8 experts of intermediate 14336,
+     top-2), built on the card one layer at a time from a seed (q4_k
+     attention and experts through quantize + moe.stack_expert_quant, a
+     q6_k head; build seconds, streamed bytes and peak memory logged);
+     q4k_matvec and q4k_gemm (M 8, 512) at the experts' two shapes on the
+     model's expert weights against their plain versions and bounds;
+     phase 5's three prompts, 8 tokens generated each, through generate
+     (launch counts asserted, q4k_matvec by K and q4k_gemm by route too),
+     TTFT / decode rate; a decode step under torch.profiler; generate_scan
+     (CUDA graphs) token-equal to generate, its counts asserted, and its
+     ms a token beside the stream bound; request 1 forced layer by layer
+     against the plain versions (2e-2 * max).
 The last line is the contract line {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON
 object with every kernel's route, source, launches per path, error,
@@ -1702,8 +1715,12 @@ def _counts():
 def _forced_forward(params, cfg, tokens, caches, decode):
     """One step of the model on the kernel path, with every layer and the
     head also run through the plain versions on the kernel path's input.
-    caches: (kernel cache, plain cache). Returns (per-layer max error
-    relative to max|plain|, (kernel logits, plain logits))."""
+    A MoE layer's MLP is forced too: the plain MLP takes the kernel path's
+    MLP input, so both take one routing (a top-k choice is discrete: an
+    ulp of the attention's output may swap a near-tied expert, which is no
+    kernel's error). caches: (kernel cache, plain cache). Returns
+    (per-layer max error relative to max|plain|, (kernel logits, plain
+    logits))."""
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
@@ -1717,14 +1734,15 @@ def _forced_forward(params, cfg, tokens, caches, decode):
     h = params["embed"][tokens]
     worst = []
     for li, layer in enumerate(params["layers"]):
-        def block(cache, h=h, li=li, layer=layer):
+        def block(cache, h=h, li=li, layer=layer, mlp_in=None):
             a, _ = llama._attention_block(layer, cfg, h, cache, li,
                                           positions, decode=decode)
             x = h + a
-            return x + llama._mlp_block(layer, cfg, x)
-        hk = block(ck)
+            return x, x + llama._mlp_block(layer, cfg,
+                                           x if mlp_in is None else mlp_in)
+        xk, hk = block(ck)
         with plain_versions():
-            hp = block(cp)
+            _, hp = block(cp, mlp_in=xk if "router" in layer else None)
         worst.append(float((hk - hp).float().abs().max()
                            / hp.float().abs().max()))
         h = hk
@@ -4224,6 +4242,284 @@ def phase_parallel(dev, seed, params, prompts, card, cfg=None,
     return paths, metrics
 
 
+# ---------------------------------------------------------------------------
+# 12. mixtral-8x7b
+# ---------------------------------------------------------------------------
+
+MIXTRAL_FORCED = 2          # decode steps teacher-forced after the prompt
+# phase 5's prompts with 8 tokens generated each: an eager Mixtral step
+# takes 150-260 ms of host time, and the smoke must stay under its limit
+MIXTRAL_REQUESTS = tuple((p, 8) for p, _ in REQUESTS)
+
+
+def _mixtral_params(cfg, seed, dev):
+    """``cfg``'s MoE weights built on the card one layer at a time (the
+    dense bf16 model would not fit): each linear drawn from one seeded
+    generator, quantized at once and its dense copy freed. Attention as
+    ``quantize_params`` makes it for a dense layer (q4_k, wq | wk | wv
+    fused into ``wqkv``, ``wo``); each expert's w_gate, w_up and w_down
+    through ``quantize`` (q4_k), the E experts of each stacked by
+    ``moe.stack_expert_quant``; the router and norms dense bf16, the embed
+    dense bf16, the head q6_k (llama.cpp's Q4_K_M keeps output.weight in
+    Q6_K)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import moe
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, hd, E = cfg.dim, cfg.head_dim, cfg.n_experts
+    inter = cfg.moe_intermediate or cfg.intermediate
+
+    def lin(n, k):
+        return (torch.randn((n, k), generator=gen, device=dev)
+                / float(k ** 0.5)).to(torch.bfloat16)
+
+    def quant(w, fmt="q4_k"):
+        return qm.quantize(w.float(), fmt)
+
+    def ones():
+        return torch.ones((d,), dtype=torch.bfloat16, device=dev)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"wqkv": quant(torch.cat([lin(cfg.n_heads * hd, d),
+                                          lin(cfg.n_kv_heads * hd, d),
+                                          lin(cfg.n_kv_heads * hd, d)])),
+                 "wo": quant(lin(d, cfg.n_heads * hd)),
+                 "attn_norm": ones(), "mlp_norm": ones(),
+                 "router": lin(E, d)}
+        for key, (n, k) in (("w_gate", (inter, d)), ("w_up", (inter, d)),
+                            ("w_down", (d, inter))):
+            layer[key] = moe.stack_expert_quant([quant(lin(n, k))
+                                                 for _ in range(E)])
+        layers.append(layer)
+    embed = (torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+    return {"embed": embed, "layers": layers, "final_norm": ones(),
+            "lm_head": quant(lin(cfg.vocab_size, d), "q6_k")}
+
+
+def _mixtral_kernels(res, params, cfg, dev):
+    """q4k_matvec and q4k_gemm (M = 8 and 512) at the experts' two shapes,
+    w_gate / w_up [inter, dim] and w_down [dim, inter] (K = 14336), on the
+    model's own expert weights (consecutive experts, enough to stream past
+    the L2), each against its plain version, timed as phase 4's cases
+    (``tools/qgemm_bench.py``'s timing), beside its bound."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import moe
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    from ggml_cuda_experiments_tpu_torch.utils.bench import copies_for
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    spec = _spec()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(41)
+    for key in ("w_gate", "w_down"):
+        experts = [moe._expert_slice(layer[key], e)
+                   for layer in params["layers"][:2]
+                   for e in range(cfg.n_experts)]
+        ws = experts[:copies_for(experts[0].nbytes)]
+        n, k = ws[0].array_shape
+        x = torch.randn((1, k), generator=g, device=dev)
+        y = qm.q4k_matvec(x, ws[0])
+        with plain_versions():
+            ref = qm.q4k_matvec(x, ws[0])
+        err, sc = rel_err(y, ref)
+        t = qb.matvec_case(qm, "q4_k", ws, x)
+        with plain_versions():
+            pms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]),
+                          calls=2, replays=3)
+        res.add("q4k_matvec", f"mixtral {key} N={n} K={k} (splits "
+                f"{qm.matvec_splits(n, k, sms)}, {len(ws)} experts)", err,
+                sc, 1e-4, t["ms"], pms,
+                spec.bound_ms(t["bytes"], t["flops"], "f32"))
+        log(f"    {_rate(t['bytes'], t['flops'], t['ms'], 'f32')}")
+        for m in (8, 512):
+            x = qb.gemm_x(m, n, k, dev)
+            y = qm.q4k_gemm(x, ws[0])
+            with plain_versions():
+                ref = qm.q4k_gemm(x, ws[0])
+            err, sc = rel_err(y, ref)
+            t = qb.gemm_times(qm, qm.q4k_gemm, x, ws)
+            with plain_versions():
+                pms = time_ms(lambda i: qm.q4k_gemm(x, ws[i % len(ws)]),
+                              calls=2, replays=3)
+            nbytes = ws[0].nbytes + 2 * m * k + 4 * m * n
+            res.add("q4k_gemm", f"mixtral {key} M={m} N={n} K={k} "
+                    f"({qm.gemm_route(m)}, {len(ws)} experts)", err, sc,
+                    2e-2, t["ms"], pms,
+                    spec.bound_ms(nbytes, 2 * m * n * k, "bf16"))
+            log(f"    {_rate(nbytes, 2 * m * n * k, t['ms'])}; torch.matmul "
+                f"on the dequantized bf16 W {t['matmul_ms']:.4f} ms")
+        del experts, ws
+        torch.cuda.empty_cache()
+
+
+def _mixtral_profile(params, cfg, prompt, dev, steps: int = 2):
+    """Where a decode step's device time goes: torch.profiler over
+    ``steps`` eager decode steps after ``prompt``'s prefill, the expert
+    and attention matvecs (q4_matvec_kernel) apart from the rest; the
+    device's busy share of the (host-bound) eager wall time."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    cache = llama.KVCache.create(cfg, 1, 256, device=dev)
+    logits, cache = llama.prefill(params, cfg, prompt, cache)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    llama.decode_step(params, cfg, tok, cache)
+
+    def run():
+        t = tok
+        for _ in range(steps):
+            lg, _ = llama.decode_step(params, cfg, t, cache)
+            t = torch.argmax(lg, -1).to(torch.int32)
+
+    _, wall_us, busy, events = _profiled(run)
+    mv = [e for e in events if "q4_matvec" in e.key]
+    out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+           "matvec_ms": sum(_dev_us(e) for e in mv) / steps / 1e3,
+           "matvec_calls": sum(e.count for e in mv) // steps,
+           "kernels": sum(e.count for e in events) // steps}
+    log(f"  a decode step under torch.profiler ({steps} eager steps): wall "
+        f"{out['wall_ms']:.2f} ms, device busy {out['busy_ms']:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%) in {out['kernels']} kernels, of "
+        f"which q4_matvec_kernel {out['matvec_ms']:.2f} ms in "
+        f"{out['matvec_calls']} calls; the rest "
+        f"{out['busy_ms'] - out['matvec_ms']:.2f} ms")
+    _log_top(events, steps, "step")
+    return out
+
+
+def phase_mixtral(dev, seed, res: Results, card):
+    """mixtral-8x7b at full width and depth (32 layers, dim 4096, GQA
+    32/8, 8 experts of intermediate 14336, top-2, rope_theta 1e6), q4_k
+    attention and experts, a q6_k head, a bf16 cache, the preset's flags:
+    MoE layers have no ``w_gu`` and x_quant8 is off, so every fused decode
+    kernel stays closed and each expert linear is its own q4k_matvec (one
+    row) or q4k_gemm (a prompt). The reference's dense dispatch: every
+    expert runs on every token."""
+    import collections
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    cfg = PRESETS["mixtral-8x7b"]
+    L, R, E = cfg.n_layers, len(MIXTRAL_REQUESTS), cfg.n_experts
+    steps = sum(n for _, n in MIXTRAL_REQUESTS)
+    per_step = (2 + 3 * E) * L          # wqkv, wo and the experts' linears
+    t_phase = time.perf_counter()
+    log(f"== 12. {cfg.name}: dim {cfg.dim}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {E} experts (top "
+        f"{cfg.n_active_experts}) of intermediate {cfg.intermediate}, q4_k "
+        "attention and experts, q6_k head, bf16 cache, dense dispatch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _mixtral_params(cfg, seed + 40, dev)
+    torch.cuda.synchronize()
+    metrics = {"build_s": time.perf_counter() - t0,
+               "peak_build_gib": torch.cuda.max_memory_allocated() / 2**30}
+    stream = params["lm_head"].nbytes + params["final_norm"].nbytes + sum(
+        w.nbytes for layer in params["layers"] for w in layer.values())
+    spec = _spec()
+    metrics.update(stream_bytes=stream, embed_bytes=params["embed"].nbytes,
+                   bound_ms=1e3 * stream / spec.hbm_bytes_per_s)
+    log(f"  built one layer at a time in {metrics['build_s']:.2f} s, peak "
+        f"{metrics['peak_build_gib']:.2f} GiB; a decode token streams "
+        f"{stream} bytes (every expert: dense dispatch) + the bf16 embed "
+        f"{params['embed'].nbytes}; the stream bound "
+        f"{metrics['bound_ms']:.3f} ms a token at {spec.name}'s HBM rate")
+    _mixtral_kernels(res, params, cfg, dev)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
+                             device=dev, dtype=torch.int64)
+               for p, _ in MIXTRAL_REQUESTS]
+    by_k = collections.Counter()
+    matvec = qm.q4k_matvec
+
+    def tallied(x, w):                   # q4k_matvec launches by K
+        by_k[w.array_shape[1]] += 1
+        return matvec(x, w)
+
+    routes0 = dict(qm.GEMM_ROUTE_LAUNCHES)
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, qm, "q4k_matvec", matvec)
+        qm.q4k_matvec = tallied
+        outs, counts = _drive_generate(params, cfg, prompts, MIXTRAL_REQUESTS,
+                                       "generate mixtral")
+    routes = {r: n - routes0[r] for r, n in qm.GEMM_ROUTE_LAUNCHES.items()}
+    want = _prefill_counts(L, MIXTRAL_REQUESTS)
+    want.update(q4k_gemm=per_step * R, q4k_matvec=per_step * steps,
+                q6k_q8_matvec=R + steps, flash_decode=steps * L,
+                lse_merge=steps * L)
+    _assert_counts("generate mixtral", counts, want)
+    k_want = {cfg.dim: (2 + 2 * E) * L * steps, cfg.intermediate:
+              E * L * steps}
+    r_want = {"stream": sum(per_step for p, _ in MIXTRAL_REQUESTS if p <= 32),
+              "tc": sum(per_step for p, _ in MIXTRAL_REQUESTS if p > 32)}
+    log(f"  q4k_matvec by K {dict(by_k)} (want {k_want}); q4k_gemm by "
+        f"route {routes} (want {r_want})")
+    if by_k != k_want or routes != r_want:
+        raise AssertionError(f"mixtral: q4k_matvec by K {dict(by_k)}, "
+                             f"q4k_gemm by route {routes}")
+    log(f"  launch counts equal what the path implies (per decode step "
+        f"{per_step} q4k_matvec, 1 q6k_q8_matvec, {L} flash_decode + "
+        f"lse_merge, no fused kernel; per prefill {per_step} q4k_gemm, {L} "
+        f"flash_attention, {L} rope_pack at prompts 128 and 512)")
+    paths = {"generate_mixtral": counts}
+    timing = _time_requests(params, cfg, prompts, MIXTRAL_REQUESTS, outs, dev)
+
+    # generate_scan: each request's decode step captured once into a CUDA
+    # graph and replayed; the launches are the prefills, the eager warm-up
+    # steps and their captures (the replays are not counted)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for (p, n), prompt, toks in zip(MIXTRAL_REQUESTS, prompts, outs):
+        scan = llama.generate_scan(params, cfg, prompt,
+                                   _cache(cfg, p, n, dev, {}), n)
+        if scan.tolist() != toks.tolist():
+            raise AssertionError(f"mixtral generate_scan (prompt {p}) gave "
+                                 f"{scan[0, :8]}..., generate {toks[0, :8]}")
+    counts = _counts()
+    want = _prefill_counts(L, MIXTRAL_REQUESTS)
+    want.update(q4k_gemm=per_step * R, q4k_matvec=per_step * 2 * R,
+                q6k_q8_matvec=R + 2 * R, flash_decode=2 * R * L,
+                lse_merge=2 * R * L)
+    _assert_counts("generate_scan mixtral (the prefills, one eager step and "
+                   "one capture a request)", counts, want)
+    paths["generate_scan_mixtral"] = counts
+    log("  generate_scan's tokens equal generate's for every request")
+    # ms a token in a graph: the marginal of 8 and 40 replays of one
+    # captured step after request 1's prefill (uncounted)
+    t_tok = sb.plain_per_token(params, cfg, prompts[0])
+    eager = [1e3 / t["decode_tok_s"] for t in timing]
+    metrics.update(graph_ms_per_token=t_tok * 1e3,
+                   eager_ms_per_token=eager,
+                   ttft_512_ms=timing[-1]["ttft_ms"], requests=timing)
+    log(f"  [{card}] {cfg.name}: decode eager "
+        + ", ".join(f"{e:.2f}" for e in eager)
+        + f" ms a token (prompts {', '.join(str(p) for p, _ in MIXTRAL_REQUESTS)}),"
+        f" graph {t_tok * 1e3:.3f} ms a token ({1 / t_tok:.2f} tok/s; the "
+        f"stream bound {metrics['bound_ms']:.3f} ms, "
+        f"{100 * metrics['bound_ms'] / (t_tok * 1e3):.1f}% of it); TTFT at "
+        f"512 {timing[-1]['ttft_ms']:.2f} ms")
+    metrics["profile"] = _mixtral_profile(params, cfg, prompts[0], dev)
+
+    # teacher-forced against the plain versions on the card: every layer's
+    # input forced to the kernel path's, each layer and the logits within
+    # 2e-2 * max
+    forced = torch.from_numpy(outs[0][0, :MIXTRAL_FORCED]).to(dev,
+                                                              torch.int32)
+    _check_forced(params, cfg, prompts[0], forced, dev)
+    metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{card}] phase 12 in {metrics['phase_s']:.1f} s, peak device "
+        f"memory {metrics['peak_gib']:.2f} GiB")
+    return paths, metrics
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4279,11 +4575,13 @@ def main() -> int:
     bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
     torch.cuda.empty_cache()
     ckpt_paths, ckpt_metrics = phase_checkpoint(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    moe_paths, moe_metrics = phase_mixtral(dev, args.seed, res, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
              **vpu_paths, **b7_paths, **bench_paths, **par_paths,
-             **ckpt_paths}
+             **ckpt_paths, **moe_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -4318,6 +4616,7 @@ def main() -> int:
                       "speculative": spec_metrics,
                       "parallel": par_metrics,
                       "checkpoint": ckpt_metrics,
+                      "mixtral": moe_metrics,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
                                 "decode": {"llama2-7b": b7_metrics,
                                            "tinyllama-1.1b": btiny_metrics}}

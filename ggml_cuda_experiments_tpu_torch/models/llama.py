@@ -25,9 +25,12 @@ purpose:
   (a device table of weight pointers, no copy) that picks ``model_step``.
   So a q6_k head takes the same call with or without ``hperm`` (the
   reference un-permutes the hidden vector for it).
-- Not ported yet, and raised, never computed another way:
-  ``cfg.xla_attn_max_cache``, MoE layers, the ``x_prepermuted`` argument
-  (no interleaved order exists here).
+- MoE layers (``models/moe.py``) take the reference's dense dispatch
+  in ``_mlp_block``; they have no ``w_gu``, so the fused MLP and the layer
+  kernel stay closed for them, and ``quantize_params`` /
+  ``permute_hidden_params`` refuse them, as the reference fails there.
+- Not ported, and raised, never computed another way: the
+  ``x_prepermuted`` argument (no interleaved order exists here).
 - PyTorch runs eagerly and the cache is updated IN PLACE: ``prefill`` and
   ``decode_step`` write k, v and lengths of the cache they are given and
   return it. Positions and lengths stay on the device; the only host fetch
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ggml_cuda_experiments_tpu_torch.models import moe
 from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
 from ggml_cuda_experiments_tpu_torch.models.sampling import (
     SamplingParams, sample)
@@ -73,14 +77,6 @@ Params = dict[str, Any]
 # no kernel. To be measured again on the H100.
 _QMATVEC_MAX_ROWS = 32
 _QPIPE_MAX_ROWS = 512
-
-
-def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
-    if cfg.xla_attn_max_cache:
-        raise NotImplementedError("cfg.xla_attn_max_cache: only the flash "
-                                  "decode path is ported")
 
 
 def apply_linear(x: torch.Tensor, w, xq8: bool = False,
@@ -258,6 +254,32 @@ def _quantize_rowwise(x: torch.Tensor, fmt: str = "int8"
 # transformer blocks
 # ---------------------------------------------------------------------------
 
+def _xla_decode_attention(q: torch.Tensor, cache: KVCache, li: int,
+                          lengths: torch.Tensor, scale: float
+                          ) -> torch.Tensor:
+    """The reference's full-read decode attention for small padded caches
+    (B == 1, ``cfg.xla_attn_max_cache``): every cached position of layer
+    ``li`` read in f32 (dequantized by the per-token scales for an int8 /
+    fp8 cache), the positions at or past ``lengths`` masked, one softmax.
+    Plain PyTorch, as it is plain XLA in the reference (no Pallas kernel).
+
+    q: [B, Hq, D]; returns [B, Hq, D] f32."""
+    k, v = cache.k[li], cache.v[li]                # [B, Hkv, S, D]
+    B, Hkv, S, D = k.shape
+    Hq = q.shape[1]
+    qf = q.reshape(B, Hkv, Hq // Hkv, D).float() * scale
+    kf, vf = k.float(), v.float()
+    if cache.quantized:
+        kf = kf * cache.k_scale[li][..., None]
+        vf = vf * cache.v_scale[li][..., None]
+    s = torch.einsum("bhrd,bhsd->bhrs", qf, kf)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    s = torch.where(pos[None, None, None, :] < lengths[:, None, None, None],
+                    s, torch.full_like(s, float("-inf")))
+    o = torch.einsum("bhrs,bhsd->bhrd", torch.softmax(s, dim=-1), vf)
+    return o.reshape(B, Hq, D)
+
+
 def _append_kv(cache: KVCache, li: int, kn: torch.Tensor, vn: torch.Tensor,
                pos0: torch.Tensor) -> None:
     """Append one token's k / v [Hkv, D] of layer ``li`` at pos0 (B == 1)."""
@@ -332,7 +354,12 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         vt = v.reshape(B, T, Hkv, D).transpose(1, 2)
     if valid is not False:
         _write_kv(cache, li, kt, vt, positions[:, 0], b0)
-    if decode:
+    if decode and not micro and B == 1 \
+            and cache.k.shape[3] <= cfg.xla_attn_max_cache:
+        # the reference's small-cache gate: one full read, no kernel
+        o = _xla_decode_attention(q[:, 0], cache, li, cache.lengths + 1,
+                                  float(1.0 / D ** 0.5))[:, None]
+    elif decode:
         # this layer's rows b0 .. b0 + B (contiguous views, no copy)
         rows = lambda a: None if a is None else a[li, b0:b0 + B]
         o = flash_decode(q[:, 0].contiguous(), rows(cache.k), rows(cache.v),
@@ -353,12 +380,16 @@ def _mlp_block(layer: Params, cfg: ModelConfig, h: torch.Tensor,
                reduce_axis: str | None = None, expert_axis: str | None = None,
                mesh=None) -> torch.Tensor:
     """The MLP block; ``reduce_axis`` (with ``mesh``): w_gate / w_up
-    column-parallel, the w_down product psum'd. ``expert_axis`` belongs to
-    the MoE layers, not ported yet. The fused MLP has no ``reduce_axis``
-    gate, as in the reference (a tensor-parallel layer has no ``w_gu``)."""
-    if "router" in layer:
-        raise NotImplementedError("MoE layers are not ported yet")
+    column-parallel, the w_down product psum'd. A MoE layer (``router``)
+    takes ``moe.moe_mlp``, its experts sharded over ``expert_axis`` when
+    given; it has nothing to reduce over ``reduce_axis`` (its experts are
+    whole on every model rank, as in the reference). The fused MLP has no
+    ``reduce_axis`` gate, as in the reference (a tensor-parallel layer has
+    no ``w_gu``)."""
     x = rms_norm(h, layer["mlp_norm"], cfg.rms_eps)
+    if "router" in layer:
+        return moe.moe_mlp(layer, cfg, x, expert_axis=expert_axis,
+                           mesh=mesh, xq8=cfg.x_quant8)
     x2 = x.reshape(-1, x.shape[-1])
     if (x2.shape[0] == 1 and cfg.fuse_mlp and "w_gu" in layer
             and mlp_fused_supported(layer["w_gu"], layer["w_down"])):
@@ -392,7 +423,6 @@ def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the first batch row h covers), and its result is the layer's input.
     It observes or replaces the hidden state between layers; with a hook
     the model runs layer by layer (not through the whole-model kernel)."""
-    _check_cfg(cfg)
     h = params["embed"][tokens]                  # [B, T, dim]
     B, T = tokens.shape
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -640,7 +670,11 @@ def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
     out["layers"] = []
     for layer in params["layers"]:
         if "router" in layer:
-            raise NotImplementedError("MoE layers are not ported yet")
+            # the reference fails here too (it unpacks a stacked weight)
+            raise NotImplementedError(
+                "quantize_params: MoE layers are not taken; quantize each "
+                "expert with quantize() and stack them with "
+                "moe.stack_expert_quant()")
         ql = dict(layer)
         inter = layer["w_gate"].shape[0]
         inter_p = -(-inter // 4096) * 4096
@@ -681,7 +715,8 @@ def permute_hidden_params(params: Params, cfg: ModelConfig) -> Params:
     state stays in logical order, so nothing is permuted and this only
     attaches the model pack (``build_model_pack``)."""
     if any("router" in layer for layer in params["layers"]):
-        raise NotImplementedError("hperm: MoE layers are not ported yet")
+        raise NotImplementedError("hperm: MoE layers are unsupported, as "
+                                  "in the reference")
     return build_model_pack(params, cfg)
 
 

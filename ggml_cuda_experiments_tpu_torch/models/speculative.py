@@ -72,7 +72,6 @@ def chunk_step(params: llama.Params, cfg: ModelConfig, tokens: torch.Tensor,
     logits [B, T, vocab] for every window position, the cache with the
     window's K / V written and lengths += T). For verify-then-rollback,
     rewind with ``rewind(cache, n)``."""
-    llama._check_cfg(cfg)
     T = tokens.shape[1]
     positions = cache.lengths[:, None] + torch.arange(
         T, dtype=torch.int32, device=tokens.device)

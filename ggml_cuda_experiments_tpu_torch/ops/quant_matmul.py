@@ -98,6 +98,11 @@ class QuantLinear:
     in the high nibble), qh uint8 [N, K/4] bytes 4b..4b+3 (byte i: the high
     2 bits of elements i, i + 4, i + 8, i + 12 at bits 0-1, 2-3, 4-5,
     6-7), es bf16 [N, K/16]; em is None. 0.875 bytes per weight.
+
+    A stack of experts (``models/moe.stack_expert_quant``) carries a
+    leading E dim on every array; ``shape`` and ``array_shape`` stay one
+    expert's. The kernels take one expert at a time
+    (``moe._expert_slice``): a stack fails their shape checks.
     """
 
     fmt: str
@@ -110,7 +115,7 @@ class QuantLinear:
 
     @property
     def array_shape(self) -> tuple[int, int]:
-        n, kq = self.qs.shape
+        n, kq = self.qs.shape[-2:]
         return n, kq * (1 if self.fmt == "q8_0" else 2)
 
     @property

@@ -7,7 +7,8 @@ dequantizing any quantized weight first, with no cache and no kernel. A
 weight may be a NumPy array, a torch tensor (on any device), one of the
 port's oracle blocks (``oracle/quant.py``) or the port's ``QuantLinear``
 (dequantized by ``ops/quant_matmul.dequantize``, bit-equal to the JAX
-package's ``dequantize_jnp`` on the same blocks).
+package's ``dequantize_jnp`` on the same blocks). A MoE layer runs
+``models/moe.moe_mlp_oracle`` (every expert, f32), as the reference's does.
 """
 
 from __future__ import annotations
@@ -96,9 +97,9 @@ def forward_logits(params, cfg: ModelConfig, tokens) -> np.ndarray:
 
         x = _rms_norm(h, _dense(layer["mlp_norm"]), cfg.rms_eps)
         if "router" in layer:                      # MoE
-            raise NotImplementedError(
-                "forward_logits: MoE layers wait for the port of "
-                "models/moe.py (ROADMAP A.5)")
+            from ggml_cuda_experiments_tpu_torch.models import moe
+            h = h + moe.moe_mlp_oracle(layer, cfg, x)
+            continue
         if "w_gu" in layer:
             y = x @ _dense(layer["w_gu"]).T
             half = y.shape[-1] // 2

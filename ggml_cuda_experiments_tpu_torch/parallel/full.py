@@ -8,14 +8,18 @@ a 5-axis mesh composing
     seq     ring attention for prefill, the LSE-merged partial decode
                                                (parallel/ring_attention.py)
     model   Megatron tensor parallelism        (parallel/tp.py)
-    expert  MoE experts: size 1 here; the MoE layers wait for
-            ``models/moe.py``
+    expert  MoE experts: the stacked expert weights' leading dim
+            (``models/moe.py``: each rank folds its experts, one psum)
 
 Sequence shards are block-contiguous and owner-writes: at prefill seq rank
 i stores positions [i * T_loc, (i + 1) * T_loc) at offsets [0, T_loc) of
 its cache shard; at decode the new token goes to the LAST seq rank (offset
 T_loc + step), every rank computes its (O, M, S) partial and
 ``lse_combine_axis`` merges them.
+
+A MoE model is sharded as the reference shards it: attention Megatron
+over "model", the router replicated, w_gate / w_up / w_down split over
+"expert" on their leading (expert) dim and whole on every model rank.
 
 What differs from the reference, which runs only ``moe-debug`` in its test:
 for a dense model its ``shard_full_params`` gives w_gate / w_up / w_down
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ggml_cuda_experiments_tpu_torch.models import llama
+from ggml_cuda_experiments_tpu_torch.models import llama, moe
 from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
 from ggml_cuda_experiments_tpu_torch.parallel import pipeline, tp
 from ggml_cuda_experiments_tpu_torch.parallel.mesh import (
@@ -128,13 +132,19 @@ def _sp_attention_block(seq_axis: str, prefill_t_loc: int):
 
 def full_param_specs(params: llama.Params) -> dict:
     """Per layer leaf, the axes of its dims after the stacked layer dim:
-    Megatron over "model" for attention AND the dense MLP."""
-    if any("router" in layer for layer in params["layers"]):
-        raise NotImplementedError("MoE layers wait for models/moe.py")
+    Megatron over "model" for attention, and for the dense MLP too; a MoE
+    model's router replicated and its experts split over "expert" (the
+    reference's specs)."""
+    moe = ["router" in layer for layer in params["layers"]]
+    if any(moe) and not all(moe):
+        raise ValueError("a tree mixing MoE and dense layers")
     lspec = {"wq": ("model",), "wk": ("model",), "wv": ("model",),
              "wo": (None, "model"), "w_gate": ("model",),
              "w_up": ("model",), "w_down": (None, "model"),
              "wqkv": (), "w_gu": (), "attn_norm": (), "mlp_norm": ()}
+    if any(moe):
+        lspec.update(router=(), w_gate=("expert",), w_up=("expert",),
+                     w_down=("expert",))
     return dict(embed=(None, None), final_norm=(None,),
                 lm_head=(None, None), layers=("pipe", lspec))
 
@@ -142,13 +152,12 @@ def full_param_specs(params: llama.Params) -> dict:
 def shard_full_params(params: llama.Params, mesh: Mesh, cfg: ModelConfig
                       ) -> tuple[llama.Params, dict]:
     """(this rank's params, the spec tree): its stage's layers, each
-    sliced over "model" (attention heads and the MLP intermediate);
-    embed, norms and head replicated."""
+    sliced over "model" (attention heads and a dense MLP's intermediate)
+    and a MoE layer's experts over "expert"; embed, norms and head
+    replicated."""
     specs = full_param_specs(params)
-    if axis_size(mesh, "expert") != 1:
-        raise NotImplementedError("expert > 1: the MoE layers wait for "
-                                  "models/moe.py")
     n, i = axis_size(mesh, "model"), axis_index(mesh, "model")
+    n_e, i_e = axis_size(mesh, "expert"), axis_index(mesh, "expert")
     local = pipeline.shard_params_pp(pipeline.stack_layers(params), mesh)
     layers = []
     for layer in local["layers"]:
@@ -158,13 +167,24 @@ def shard_full_params(params: llama.Params, mesh: Mesh, cfg: ModelConfig
         out = {}
         for k, w in layer.items():
             spec = specs["layers"][1][k]
-            if spec[:1] == ("model",):
+            if spec[:1] == ("expert",):
+                w = _expert_shard(w, i_e, n_e)
+            elif spec[:1] == ("model",):
                 w = tp.shard_rows(w, i, n)
             elif spec[1:2] == ("model",):
                 w = tp.shard_quant_linear(w, i, n)
             out[k] = w
         layers.append(out)
     return dict(local, layers=layers), specs
+
+
+def _expert_shard(w, i: int, n: int):
+    """Experts [i * E / n, (i + 1) * E / n) of a stacked expert leaf (a
+    dense [E, ...] tensor or a stacked QuantLinear): views, no copy."""
+    E = moe.n_local_experts(w)
+    if E % n:
+        raise ValueError(f"{E} experts over expert={n}")
+    return moe._expert_slice(w, slice(i * E // n, (i + 1) * E // n))
 
 
 def make_full_step(cfg: ModelConfig, mesh: Mesh, *, n_micro: int,

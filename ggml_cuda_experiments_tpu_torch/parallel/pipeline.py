@@ -9,8 +9,8 @@ with their cache writes masked (``valid=False``); only the last stage's
 valid steps run the head. Tensor parallelism (``reduce_axis``) and the
 sequence-parallel attention block of ``parallel/full.py`` (``seq_axis``,
 ``attention_block``) compose inside the stage body; ``expert_axis`` is
-passed on to the MLP (the MoE layers, and so the MoE composition, wait for
-``models/moe.py``).
+passed on to the MLP, where a MoE layer (``models/moe.py``) folds the
+stage's experts sharded over it.
 
 The reference stacks the layers into arrays with a leading layer dim and
 shards that dim; the port keeps the list of per-layer trees, and a stage

@@ -45,6 +45,7 @@ from typing import Any, BinaryIO
 import numpy as np
 import torch
 
+from ggml_cuda_experiments_tpu_torch.models import moe
 from ggml_cuda_experiments_tpu_torch.models.config import ModelConfig
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
     _field, block_format, dequantize, from_oracle, quantize, quantize_blocks)
@@ -510,6 +511,14 @@ _LAYER_MAP = {
     "ffn_down_exps.weight": "w_down",
 }
 _NORMS = ("attn_norm", "mlp_norm", "final_norm")
+_DENSE = (*_NORMS, "embed", "router")         # float tensors kept dense
+
+
+def _expert_blocks(t, e: int):
+    """Expert e's planar blocks of a stacked [E, N, K] tensor's (views)."""
+    return dataclasses.replace(t, shape=tuple(t.shape[1:]), **{
+        f.name: getattr(t, f.name)[e] for f in dataclasses.fields(t)
+        if f.name != "shape"})
 
 
 def config_from_metadata(md: dict[str, Any]) -> ModelConfig:
@@ -572,16 +581,20 @@ def load_gguf(path: str, *, requantize: str | None = None,
 
     As in the reference, the projections stay separate (``wq`` / ``wk`` /
     ``wv``, ``w_gate`` / ``w_up``): a loaded model decodes unfused, since
-    the fused decode kernels need ``wqkv`` / ``w_gu``. A file with
-    ``expert_count`` > 0 raises: MoE layers are not ported (ROADMAP A.5).
+    the fused decode kernels need ``wqkv`` / ``w_gu``.
+
+    A MoE file (``expert_count`` > 0) maps as the reference's:
+    ``ffn_gate_inp`` -> ``router`` (dense bf16; it must be a float
+    tensor) and ``ffn_{gate,up,down}_exps`` [E, N, K] -> the stacked
+    ``w_gate`` / ``w_up`` / ``w_down``: float stacks dense bf16 (never
+    requantized, as in the reference), quantized stacks decoded expert by
+    expert and stacked by ``moe.stack_expert_quant``. The reference's
+    ``from_oracle`` unpacks a 2-D shape and fails on a quantized stack: a
+    fault not inherited (ROADMAP C.3.11).
     """
     device = resolve_device(device)
     gf = read_gguf(path)
     cfg = config_from_metadata(gf.metadata)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{path}: expert_count {cfg.n_experts}: MoE layers are not "
-            "ported (ROADMAP A.5)")
     if max_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
                                                     max_layers))
@@ -597,12 +610,16 @@ def load_gguf(path: str, *, requantize: str | None = None,
             raw = unpermute_qk(raw.reshape(info.shape[0], -1), heads[key])
         t = decode_tensor(raw, info.ggml_type, info.shape)
         if isinstance(t, torch.Tensor):
-            dense = key in _NORMS or key == "embed" or t.dim() != 2
+            dense = key in _DENSE or t.dim() != 2
             value = (quantize(t, requantize) if requantize and not dense
                      else t.to(torch.bfloat16))
-        elif key in _NORMS:
+        elif key in _NORMS or key == "router":
             raise ValueError(f"{path}: {name} is {info.type_name}; a norm "
-                             "must be a float tensor")
+                             "or router must be a float tensor")
+        elif len(info.shape) == 3:
+            value = moe.stack_expert_quant([
+                from_oracle(_expert_blocks(t, e), device)
+                for e in range(info.shape[0])])
         else:
             value = from_oracle(t, device)
             if key == "embed":

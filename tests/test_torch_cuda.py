@@ -1710,3 +1710,63 @@ def test_load_gguf_onto_the_card(dev, tmp_path):
     prompt = torch.arange(1, 9, device=dev)[None]
     assert np.array_equal(llama.generate(on_card, lcfg, prompt, steps=6),
                           llama.generate(direct, lcfg, prompt, steps=6))
+
+
+@pytest.mark.parametrize("n,k", [(14336, 4096), (4096, 14336)])
+def test_moe_expert_slices(dev, n, k):
+    """Expert slices of a stacked q4_k weight at Mixtral's expert shapes
+    (K = 14336: K / 32 = 448 blocks) are views the kernels take as they
+    are: q4k_matvec and q4k_gemm on each slice bit-equal to the same call
+    on a standalone copy of that expert, and within their tolerances of
+    the plain versions."""
+    from ggml_cuda_experiments_tpu_torch.models import moe
+    g = torch.Generator(device=dev).manual_seed(n + 3 * k)
+    experts = [qm.quantize(torch.randn((n, k), generator=g, device=dev)
+                           * k ** -0.5) for _ in range(3)]
+    stack = moe.stack_expert_quant(experts)
+    x1 = torch.randn((1, k), generator=g, device=dev)
+    x8 = torch.randn((8, k), generator=g, device=dev).to(torch.bfloat16)
+    for e, alone in enumerate(experts):
+        s = moe._expert_slice(stack, e)
+        assert s.qs.data_ptr() == stack.qs[e].data_ptr()
+        qm._check_ql(s, dev)
+        assert torch.equal(qm.q4k_matvec(x1, s), qm.q4k_matvec(x1, alone))
+        assert torch.equal(qm.q4k_gemm(x8, s), qm.q4k_gemm(x8, alone))
+    _check(qm.q4k_matvec, x1, s, tol=1e-4)
+    _check(qm.q4k_gemm, x8, s, tol=2e-2)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_moe_mlp_on_card(dev, rows):
+    """moe_mlp on stacked q4_k experts (moe-debug's layer at dim 4096):
+    one q4k_matvec or q4k_gemm per expert linear, within 2e-2 * max of the
+    plain versions; the one-row step captured in a graph replays to the
+    same bits."""
+    from ggml_cuda_experiments_tpu_torch.models import moe
+    cfg = dataclasses.replace(PRESETS["moe-debug"], dim=4096,
+                              intermediate=1024)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    E = cfg.n_experts
+
+    def lin(*shape):
+        return torch.randn(shape, generator=g, device=dev) * shape[-1] ** -0.5
+
+    layer = {"router": lin(E, 4096).to(torch.bfloat16)}
+    for key, (n, k) in (("w_gate", (1024, 4096)), ("w_up", (1024, 4096)),
+                        ("w_down", (4096, 1024))):
+        layer[key] = moe.stack_expert_quant([qm.quantize(lin(n, k))
+                                             for _ in range(E)])
+    x = lin(rows, 4096).to(torch.bfloat16) * 64
+    name = "q4k_matvec" if rows == 1 else "q4k_gemm"
+    before = qm.LAUNCHES[name]
+    _check(moe.moe_mlp, layer, cfg, x, tol=2e-2)
+    assert qm.LAUNCHES[name] == before + 3 * E
+    if rows == 1:
+        want = moe.moe_mlp(layer, cfg, x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = moe.moe_mlp(layer, cfg, x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)

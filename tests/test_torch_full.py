@@ -3,8 +3,8 @@ CPU: ``make_full_mesh``'s factorization, and the port's ``make_full_step``
 prefill + 2 greedy decode steps against the JAX single-device ``prefill`` /
 ``decode_step`` in f32 at tests/test_full.py's tolerance (2e-4), for a
 dense debug config at (data, pipe, seq, model) = (1, 2, 2, 2), (2, 1, 1, 2)
-and (1, 2, 1, 2), expert 1. The JAX test's own sizes run ``moe-debug``,
-whose MoE layers wait for the port of ``models/moe.py``. One ``run_spmd``
+and (1, 2, 1, 2), expert 1 (the JAX test's own sizes, which run
+``moe-debug``, are held in tests/test_torch_moe_parallel.py). One ``run_spmd``
 of 8 ranks runs the three sizes in turn (a 4-rank size on the first 4, as
 the JAX mesh takes the first n devices). No jax at the top of this module
 (the ranks import it)."""
@@ -102,13 +102,22 @@ def test_full_step_matches_single(ranks, i):
 
 
 def test_refusals():
-    """MoE layers and a fused projection cut over model are refused."""
+    """MoE layers take the reference's specs (router replicated, experts
+    over "expert"), dense layers keep the MLP over "model"; a tree mixing
+    the two is refused."""
     from ggml_cuda_experiments_tpu_torch.models import llama
     params = llama.init_weights(TCFG, seed=0, device="cpu")
-    moe = dict(params, layers=[dict(params["layers"][0],
-                                    router=torch.zeros(4, 256))])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        full.full_param_specs(moe)
+    dense = full.full_param_specs(params)["layers"][1]
+    assert dense["w_gate"] == ("model",) and dense["w_down"] == (None, "model")
+    moe_layer = dict(params["layers"][0], router=torch.zeros(4, 256))
+    moe = full.full_param_specs(dict(params, layers=[moe_layer]))
+    assert moe["layers"][1]["router"] == ()
+    for key in ("w_gate", "w_up", "w_down"):
+        assert moe["layers"][1][key] == ("expert",)
+    assert moe["layers"][1]["wq"] == ("model",)
+    with pytest.raises(ValueError, match="mixing"):
+        full.full_param_specs(dict(params, layers=[moe_layer,
+                                                   params["layers"][1]]))
 
 
 def _jax_full_prefill(params, cfg, prompt, sizes):

@@ -446,7 +446,8 @@ def test_reference_faults_the_port_does_not_inherit(model_files):
 
 def test_tied_head_and_experts(tmp_path, rng):
     """No output.weight: the head is the quantized embedding (as JAX ties
-    it); expert_count > 0 is refused (ROADMAP A.5)."""
+    it); expert_count > 0 makes a MoE config (tests/test_torch_moe.py loads
+    a whole MoE file)."""
     blocks = _blocks(_weights(3), "q4_k_m")
     del blocks["output.weight"]
     path = str(tmp_path / "tied.gguf")
@@ -459,5 +460,8 @@ def test_tied_head_and_experts(tmp_path, rng):
     moe = str(tmp_path / "moe.gguf")
     tg.write_gguf(moe, {"output_norm.weight": np.ones(CFG.dim, np.float32)},
                   {**_METADATA, "llama.expert_count": 4})
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tg.load_gguf(moe, device="cpu")
+    params, cfg = tg.load_gguf(moe, device="cpu")
+    want = jg.config_from_metadata(jg.read_gguf(moe).metadata)
+    assert cfg.is_moe and cfg.n_experts == want.n_experts == 4
+    assert cfg.n_active_experts == want.n_active_experts == 2
+    assert torch.equal(params["final_norm"].float(), torch.ones(CFG.dim))

@@ -249,24 +249,16 @@ def test_generate_is_deterministic_greedy():
     assert ((out1 >= 0) & (out1 < DEBUG.vocab_size)).all()
 
 
-@pytest.mark.parametrize("case", ["moe", "xla_attn_max_cache",
-                                  "native_scheduler", "x_prepermuted",
+@pytest.mark.parametrize("case", ["native_scheduler", "x_prepermuted",
                                   "hperm_moe"])
 def test_unported_options_raise(case):
     params = tl.quantize_params(tl.init_weights(TDEBUG, seed=1, device="cpu"),
                                 "q4_k")
-    prompt = torch.arange(1, 5)[None]
     # the native scheduler is ported; what it does not take (chunked
     # prefill, as in the reference) raises ValueError
     err = ValueError if case == "native_scheduler" else NotImplementedError
     with pytest.raises(err):
-        if case in ("moe", "xla_attn_max_cache"):
-            cfg = dataclasses.replace(
-                TDEBUG, **({"n_experts": 4} if case == "moe"
-                           else {case: 256}))
-            tl.prefill(params, cfg, prompt,
-                       tl.KVCache.create(cfg, 1, 256, device="cpu"))
-        elif case == "x_prepermuted":
+        if case == "x_prepermuted":
             tl.apply_linear(torch.zeros((1, 256)), params["lm_head"],
                             x_prepermuted=True)
         elif case == "hperm_moe":
@@ -297,7 +289,7 @@ def test_port_package_never_imports_jax():
         "assert 'ggml_cuda_experiments_tpu_torch.models.llama' in mods\n"
         "new = ['parallel.' + m for m in ('mesh', 'launch', 'ring_attention',"
         " 'tp', 'collective_matmul', 'pipeline', 'full', 'multihost')]\n"
-        "new.append('tools.multihost_run')\n"
+        "new += ['tools.multihost_run', 'models.moe']\n"
         "new += ['utils.' + m for m in ('gguf', 'tokenizer', 'tensor_io',"
         " 'loader')]\n"
         "assert all(p.__name__ + '.' + m in mods for m in new), new\n"

@@ -205,9 +205,18 @@ def test_forward_logits_takes_oracle_blocks_and_refuses_moe():
         dense["lm_head"].float().numpy()))
     got = tom.forward_logits(head, cfg, tokens)
     assert np.abs(got - want).max() < 0.05 * np.abs(want).max()
-    moe = dict(dense, layers=[dict(dense["layers"][0], router=None)])
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tom.forward_logits(moe, cfg, tokens)
+    # a MoE layer runs moe_mlp_oracle, as the JAX oracle does
+    from ggml_cuda_experiments_tpu_torch.models import moe as tmoe
+    mcfg = dataclasses.replace(PRESETS["moe-debug"], n_layers=1)
+    moe = tmoe.init_moe_weights(mcfg, seed=3, device="cpu",
+                                dtype=torch.float32)
+    np_moe = {k: v.numpy() for k, v in moe.items() if k != "layers"}
+    np_moe["layers"] = [{k: v.numpy() for k, v in moe["layers"][0].items()}]
+    want = jom.forward_logits(np_moe, dataclasses.replace(
+        JPRESETS["moe-debug"], n_layers=1), tokens)
+    got = tom.forward_logits(moe, mcfg, tokens)
+    assert got.shape == want.shape == (1, 6, mcfg.vocab_size)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_perplexity_math():

@@ -12,8 +12,8 @@ tokens. Every output is also held against the JAX single-device model at
 the port's model bound against JAX, 2e-2 * max|ref| (bf16 sums in another
 order part the two implementations by up to ~1.5% of max elementwise, on
 one device too), and the greedy tokens equal JAX's. ``test_pp_moe_compose``
-waits for the MoE port. One ``run_spmd`` computes every port case; no jax
-at the top of this module (the ranks import it)."""
+is in tests/test_torch_moe_parallel.py. One ``run_spmd`` computes every
+port case; no jax at the top of this module (the ranks import it)."""
 
 import dataclasses
 
