@@ -200,10 +200,38 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      (CUDA graphs) token-equal to generate, its counts asserted, and its
      ms a token beside the stream bound; request 1 forced layer by layer
      against the plain versions (2e-2 * max).
-The last line is the contract line {"ok": true, "device": {...}}; the line
-before it is the card's name and power limit, and before that one JSON
-object with every kernel's route, source, launches per path, error,
-times and bound. Imports nothing of jax or of the JAX package.
+  13. (after 12, on its own memory) llama3-8b at full width and depth (32
+     layers, GQA 32/8, vocab 128256, intermediate 14336 padded to 16384 by
+     quantize_params, rope_theta 5e5), q4_k layers and head, weights drawn
+     on the card from a seed: its new shapes' kernels on the model's own
+     weights (q4k_matvec / q4k_gemm at w_gu and w_down K 16384, both
+     matvecs at the 128256-row head, fused_mlp at Kd 16384, fused_attention
+     at GQA 32/8, rope_pack at theta 5e5) against their plain versions and
+     bounds, the layer kernel's occupancy at Kd 16384; phase 5's three
+     requests through generate and generate_scan (token-equal) in the
+     preset's configuration (the fused MLP) and under x_quant8
+     (fused_attention + fused_mlp, the int8 head), counts asserted, TTFT /
+     decode rate, each forced layer by layer (2e-2 * max), the x_quant8
+     step's graph ms a token and profile; bench.py's decode configuration
+     forced layer by layer (layer_step within 5e-3 * max, model_step equal
+     to the chained launches) and model_step timed at Kd 16384; then the
+     benchmark entry's --decode --model=llama3-8b with its counts.
+  14. (after 13, on its own memory) llama2-70b at full width and depth (80
+     layers, dim 8192, GQA 64/8, intermediate 28672), q4_k layers and head,
+     built on the card one layer at a time; every fused gate is closed at
+     dim 8192. q4k_matvec and q4k_gemm (M 16, 128, 512) at every linear
+     and the head, flash_decode at 8 query heads a KV head, flash_attention
+     and rope_pack at 64/8 heads, each against its plain version and bound;
+     phase 5's prompts, 8 tokens generated each, through generate and
+     generate_scan (token-equal; counts asserted, q4k_matvec by K and
+     q4k_gemm by route too), TTFT / decode rate, graph ms a token, a
+     profiled decode step, request 1 forced layer by layer; peak memory.
+Each phase's wall seconds are printed on a line of their own ("phase 13:
+<seconds> s") and kept in the JSON line's "phase_seconds". The last line is
+the contract line {"ok": true, "device": {...}}; the line before it is the
+card's name and power limit, and before that one JSON object with every
+kernel's route, source, launches per path, error, times and bound. Imports
+nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -476,7 +504,7 @@ def phase_build():
     # (fused_attention)
     for block in (0, 1):
         log(f"  layer_decode_kernel {('layers', 'attention block')[block]}: "
-            f"{_info(lib.layer_kernel_info, block)}")
+            f"{_info(lib.layer_kernel_info, block, 3 * 4096)}")
 
 
 def phase_quantizer(dev, seed):
@@ -603,13 +631,108 @@ def _matvec_cases(res, spec, fmt, g, randn):
         del ws
 
 
-def phase_kernels(dev, seed, res: Results):
+def _flash_decode_cases(res, spec, randn, shapes, tag=""):
+    """flash_decode (+ lse_merge) over stacked caches [L, 1, Hkv, S, D] of
+    ``shapes`` (L, Hq, Hkv, S, D) against their plain versions, beside one
+    SDPA over the layer with a length mask; the split count at half and
+    twice pick_splits' choice logged. The headline: MHA at length 1024
+    (untagged)."""
+    import torch
+    import torch.nn.functional as F
+    from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    tag = f"{tag} " if tag else ""
+    for (L, Hq, Hkv, S, D) in shapes:
+        kc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
+        vc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
+        q = randn(1, Hq, D, dtype=torch.bfloat16)
+        dev = q.device
+        for length in ((1, 300, 1024) if Hq == Hkv else (300, 1024)):
+            lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+            layer = 5 if L > 5 else 1
+            y = fd.flash_decode(q, kc, vc, lens, layer=layer)
+            with plain_versions():
+                ref = fd.flash_decode(q, kc, vc, lens, layer=layer)
+            err, sc = rel_err(y, ref)
+            n = fd.pick_splits(1, Hkv, S, fd._sm_count(0))
+            scale = D ** -0.5
+            ms = time_ms(lambda i: fd.flash_decode_partials(
+                q, kc, vc, lens, scale=scale, n_splits=n, layer=i % L))
+            with plain_versions():
+                pms = time_ms(lambda i: fd.flash_decode_partials(
+                    q, kc, vc, lens, scale=scale, n_splits=n, layer=i % L))
+            mask = (torch.arange(S, device=dev) < length)[None, None, None]
+            lib = time_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], kc[i % L], vc[i % L], attn_mask=mask,
+                enable_gqa=Hq != Hkv))
+            case = (f"{tag}[{L},1,{Hkv},{S},{D}] Hq={Hq} len={length} "
+                    f"splits={n}")
+            part_bytes = n * Hq * (D + 2) * 4
+            res.add("flash_decode", case, err, sc, 1e-2, ms, pms,
+                    spec.bound_ms(2 * Hkv * length * D * 2 + Hq * D * 2
+                                  + part_bytes, 4 * Hq * length * D, "bf16"),
+                    headline=Hq == Hkv and length == 1024 and not tag,
+                    library_ms=lib)
+            parts = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
+                                             n_splits=n, layer=layer)
+            y2 = fd.lse_merge(parts)
+            with plain_versions():
+                ref2 = fd.lse_merge(parts)
+            err2, sc2 = rel_err(y2, ref2)
+            ms2 = time_ms(lambda i: fd.lse_merge(parts))
+            with plain_versions():
+                pms2 = time_ms(lambda i: fd.lse_merge(parts))
+            res.add("lse_merge", case, err2, sc2, 1e-2, ms2, pms2,
+                    spec.bound_ms(part_bytes + Hq * D * 2, 3 * n * Hq * D,
+                                  "f32"),
+                    headline=Hq == Hkv and length == 1024 and not tag)
+            # the split count at about half and twice pick_splits' choice
+            for nn in (max(1, n // 2), n, 2 * n):
+                t1 = time_ms(lambda i: fd.flash_decode_partials(
+                    q, kc, vc, lens, scale=scale, n_splits=nn, layer=i % L))
+                pp = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
+                                              n_splits=nn, layer=layer)
+                t2 = time_ms(lambda i: fd.lse_merge(pp))
+                log(f"    kv_splits {nn:3d}: partials {t1 * 1e3:.1f} us + "
+                    f"lse_merge {t2 * 1e3:.1f} us = "
+                    f"{(t1 + t2) / lib:.3f}x SDPA")
+        del kc, vc
+
+
+def _flash_attention_cases(res, spec, randn, shapes, tag=""):
+    """flash_attention, a causal prefill of ``shapes`` (T, Hq, Hkv, D),
+    against its plain version, beside causal SDPA. The headline: T 512
+    (untagged)."""
     import torch
     import torch.nn.functional as F
     from ggml_cuda_experiments_tpu_torch.ops import flash_attention as fa
-    from ggml_cuda_experiments_tpu_torch.ops import flash_decode as fd
-    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    tag = f"{tag} " if tag else ""
+    for (T, Hq, Hkv, D) in shapes:
+        q = randn(1, Hq, T, D, dtype=torch.bfloat16)
+        k = randn(1, Hkv, T, D, dtype=torch.bfloat16)
+        v = randn(1, Hkv, T, D, dtype=torch.bfloat16)
+        y = fa.flash_attention(q, k, v, causal=True)
+        with plain_versions():
+            ref = fa.flash_attention(q, k, v, causal=True)
+        err, sc = rel_err(y, ref)
+        ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
+        with plain_versions():
+            pms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
+        lib = time_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
+        pairs = T * (T + 1) // 2                   # visible (query, key)
+        res.add("flash_attention",
+                f"{tag}T={T} Hq={Hq} Hkv={Hkv} D={D} causal", err, sc, 1e-2,
+                ms, pms,
+                spec.bound_ms(2 * (2 * Hq + 2 * Hkv) * T * D,
+                              4 * Hq * pairs * D, "bf16"),
+                headline=T == 512 and not tag, library_ms=lib)
+
+
+def phase_kernels(dev, seed, res: Results):
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     log("== 4. kernels vs plain versions on the card")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     spec = _spec()
@@ -634,81 +757,13 @@ def phase_kernels(dev, seed, res: Results):
     # flash_decode (+ lse_merge) on the stacked 7B MHA cache, and GQA 32/8;
     # the PyTorch call for the same function: one SDPA over the layer with
     # a length mask
-    for (L, Hq, Hkv, S, D) in ((32, 32, 32, 1024, 128), (2, 32, 8, 1024, 128)):
-        kc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
-        vc = randn(L, 1, Hkv, S, D, dtype=torch.bfloat16)
-        q = randn(1, Hq, D, dtype=torch.bfloat16)
-        for length in ((1, 300, 1024) if Hq == Hkv else (300, 1024)):
-            lens = torch.full((1,), length, dtype=torch.int32, device=dev)
-            layer = 5 if L > 5 else 1
-            y = fd.flash_decode(q, kc, vc, lens, layer=layer)
-            with plain_versions():
-                ref = fd.flash_decode(q, kc, vc, lens, layer=layer)
-            err, sc = rel_err(y, ref)
-            n = fd.pick_splits(1, Hkv, S, fd._sm_count(0))
-            scale = D ** -0.5
-            ms = time_ms(lambda i: fd.flash_decode_partials(
-                q, kc, vc, lens, scale=scale, n_splits=n, layer=i % L))
-            with plain_versions():
-                pms = time_ms(lambda i: fd.flash_decode_partials(
-                    q, kc, vc, lens, scale=scale, n_splits=n, layer=i % L))
-            mask = (torch.arange(S, device=dev) < length)[None, None, None]
-            lib = time_ms(lambda i: F.scaled_dot_product_attention(
-                q[:, :, None], kc[i % L], vc[i % L], attn_mask=mask,
-                enable_gqa=Hq != Hkv))
-            case = (f"[{L},1,{Hkv},{S},{D}] Hq={Hq} len={length} "
-                    f"splits={n}")
-            part_bytes = n * Hq * (D + 2) * 4
-            res.add("flash_decode", case, err, sc, 1e-2, ms, pms,
-                    spec.bound_ms(2 * Hkv * length * D * 2 + Hq * D * 2
-                                  + part_bytes, 4 * Hq * length * D, "bf16"),
-                    headline=(Hq == Hkv and length == 1024), library_ms=lib)
-            parts = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
-                                             n_splits=n, layer=layer)
-            y2 = fd.lse_merge(parts)
-            with plain_versions():
-                ref2 = fd.lse_merge(parts)
-            err2, sc2 = rel_err(y2, ref2)
-            ms2 = time_ms(lambda i: fd.lse_merge(parts))
-            with plain_versions():
-                pms2 = time_ms(lambda i: fd.lse_merge(parts))
-            res.add("lse_merge", case, err2, sc2, 1e-2, ms2, pms2,
-                    spec.bound_ms(part_bytes + Hq * D * 2, 3 * n * Hq * D,
-                                  "f32"),
-                    headline=(Hq == Hkv and length == 1024))
-            # the split count at about half and twice pick_splits' choice
-            for nn in (max(1, n // 2), n, 2 * n):
-                t1 = time_ms(lambda i: fd.flash_decode_partials(
-                    q, kc, vc, lens, scale=scale, n_splits=nn, layer=i % L))
-                pp = fd.flash_decode_partials(q, kc, vc, lens, scale=scale,
-                                              n_splits=nn, layer=layer)
-                t2 = time_ms(lambda i: fd.lse_merge(pp))
-                log(f"    kv_splits {nn:3d}: partials {t1 * 1e3:.1f} us + "
-                    f"lse_merge {t2 * 1e3:.1f} us = "
-                    f"{(t1 + t2) / lib:.3f}x SDPA")
-        del kc, vc
+    _flash_decode_cases(res, spec, randn, ((32, 32, 32, 1024, 128),
+                                           (2, 32, 8, 1024, 128)))
 
     # flash_attention, causal prefill; the PyTorch call: causal SDPA
-    for (T, Hq, Hkv, D) in ((128, 32, 32, 128), (512, 32, 32, 128),
-                            (128, 32, 4, 64)):
-        q = randn(1, Hq, T, D, dtype=torch.bfloat16)
-        k = randn(1, Hkv, T, D, dtype=torch.bfloat16)
-        v = randn(1, Hkv, T, D, dtype=torch.bfloat16)
-        y = fa.flash_attention(q, k, v, causal=True)
-        with plain_versions():
-            ref = fa.flash_attention(q, k, v, causal=True)
-        err, sc = rel_err(y, ref)
-        ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
-        with plain_versions():
-            pms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
-        lib = time_ms(lambda i: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
-        pairs = T * (T + 1) // 2                   # visible (query, key)
-        res.add("flash_attention", f"T={T} Hq={Hq} Hkv={Hkv} D={D} causal",
-                err, sc, 1e-2, ms, pms,
-                spec.bound_ms(2 * (2 * Hq + 2 * Hkv) * T * D,
-                              4 * Hq * pairs * D, "bf16"),
-                headline=T == 512, library_ms=lib)
+    _flash_attention_cases(res, spec, randn, ((128, 32, 32, 128),
+                                              (512, 32, 32, 128),
+                                              (128, 32, 4, 64)))
 
 
 PAGED_LENGTHS = (1, 63, 64, 65, 300, 512, 777, 1024)
@@ -2108,7 +2163,6 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
     from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
-    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
     base = PRESETS["llama2-7b"]
     L = base.n_layers
     cfg = dataclasses.replace(base, x_quant8=True, hperm=True)
@@ -2181,20 +2235,41 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
                    "and its capture; 96 replays uncounted)", counts, want)
     paths["generate_scan_x_quant8"] = counts
 
-    # forced check on request 3's cache (512 tokens) and its first token
-    cache = llama.KVCache.create(cfg, 1, 768, device=dev)
-    logits, cache = llama.prefill(pb, cfg, prompts[2], cache)
+    _model_step_check(pb, cfg, prompts[2], dev, res, card, headline=True)
+    _layer_probe(card)
+    if profile:
+        _profile_decode(pb, cfg, prompts[0], dev, profile, "model_step")
+    return paths, timing
+
+
+def _model_step_check(pb, cfg, prompt, dev, res: Results, card,
+                      headline=False):
+    """bench.py's decode step (``model_step``, every layer in one launch)
+    after ``prompt``'s prefill, forced layer by layer (``_forced_fused``:
+    each layer_step within 5e-3 * max of its plain version on the kernel
+    path's input, model_step equal to the chained launches, the head's
+    logits within 2e-2 * max); then model_step's time at that cache beside
+    its bound."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as lk
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    L = cfg.n_layers
+    cache = llama.KVCache.create(
+        cfg, 1, llama._round_up(prompt.shape[1] + 1, 256), device=dev)
+    logits, cache = llama.prefill(pb, cfg, prompt, cache)
     tok = torch.argmax(logits, -1)
     worst, chain_diff, (lk_, lp_), free_err = _forced_fused(
         pb, pb["m_pack"], cfg, tok, cache)
     err, sc = float((lk_ - lp_).abs().max()), float(lp_.abs().max())
     li, lerr = max(enumerate(worst), key=lambda t: t[1])
+    length = int(cache.lengths[0]) + 1
     ok = (lk_.shape == (1, cfg.vocab_size) and bool(torch.isfinite(lk_).all())
           and err <= 2e-2 * sc and lerr <= 5e-3 and chain_diff == 0.0)
-    log(f"  forced decode step at length 512: worst layer_step {li}: "
-        f"{lerr:.3e} of max (bound 5e-3); model_step vs the chained "
-        f"layer_step launches max diff {chain_diff:.3e} (must be 0); head "
-        f"logits max_abs_err {err:.4e} vs 2e-2*{sc:.4e}; argmax "
+    log(f"  {cfg.name}: forced decode step at length {length - 1}: worst "
+        f"layer_step {li}: {lerr:.3e} of max (bound 5e-3); model_step vs "
+        f"the chained layer_step launches max diff {chain_diff:.3e} (must be "
+        f"0); head logits max_abs_err {err:.4e} vs 2e-2*{sc:.4e}; argmax "
         f"{int(lk_.argmax())} / {int(lp_.argmax())}; the plain chain run "
         f"free: logits {free_err:.3e} of max (printed) "
         f"{'ok' if ok else 'FAIL'}")
@@ -2213,7 +2288,6 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
     with plain_versions():
         pms = time_ms(lambda i: lk.model_step(*args, **kw), calls=1,
                       replays=1)
-    length = int(cache.lengths[0]) + 1
     wbytes = sum(lay[k].nbytes for lay in pb["layers"] for k in lk.STREAM)
     ops = 2 * L * sum(pb["layers"][0][k].array_shape[0]
                       * pb["layers"][0][k].array_shape[1] for k in lk.STREAM)
@@ -2222,19 +2296,18 @@ def phase_fused_decode(dev, seed, params, prompts, res: Results, card,
     with plain_versions():
         hp = lk.model_step(*args, **kw)[0]
     e, s_ = rel_err(hm, hp)
-    log(f"  [{card}] model_step, {L} layers at length {length}: "
+    kd = pb["layers"][0]["w_down"].array_shape[1]
+    log(f"  [{card}] model_step, {cfg.name}, {L} layers (Kd {kd}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}) at length {length}: "
         f"{wbytes / 1e9:.3f} GB of weights, {kv / 1e6:.1f} MB of K/V; "
         f"against its plain version run free over the {L} layers "
         f"{e:.3e} (max {s_:.3e}, printed)")
     # its error: the forced per-layer check above (the chain is exact)
-    res.add("layer_kernel", f"model_step, {L} layers, len {length}",
+    res.add("layer_kernel",
+            f"{cfg.name} model_step, {L} layers, len {length}",
             lerr, 1.0, 5e-3, ms, pms,
             spec.bound_ms(wbytes + kv + 8 * cfg.dim, ops, "int8"),
-            headline=True)
-    _layer_probe(card)
-    if profile:
-        _profile_decode(pb, cfg, prompts[0], dev, profile, "model_step")
-    return paths, timing
+            headline=headline)
 
 
 def _layer_probe(card):
@@ -2697,7 +2770,7 @@ def phase_bench_decode(dev, params, model, card):
     r = eb.decode_bench(model, params=params, dev=dev)
     torch.cuda.synchronize()
     counts = _counts()
-    path = f"bench_decode_{model.split('-')[0]}"
+    path = "bench_decode_" + model.replace("-", "_").replace(".", "_")
     _assert_counts(path, counts, _decode_bench_counts(
         L, "model_step" in r["path"]))
     line = r["line"]
@@ -4243,27 +4316,29 @@ def phase_parallel(dev, seed, params, prompts, card, cfg=None,
 
 
 # ---------------------------------------------------------------------------
-# 12. mixtral-8x7b
+# 12. mixtral-8x7b, 13. llama3-8b, 14. llama2-70b
 # ---------------------------------------------------------------------------
 
-MIXTRAL_FORCED = 2          # decode steps teacher-forced after the prompt
+FORCED_STEPS = 2            # decode steps teacher-forced after the prompt
 # phase 5's prompts with 8 tokens generated each: an eager Mixtral step
-# takes 150-260 ms of host time, and the smoke must stay under its limit
+# takes 150-260 ms of host time, and the smoke must stay under its limit;
+# llama2-70b takes the same requests
 MIXTRAL_REQUESTS = tuple((p, 8) for p, _ in REQUESTS)
 
 
-def _mixtral_params(cfg, seed, dev):
-    """``cfg``'s MoE weights built on the card one layer at a time (the
-    dense bf16 model would not fit): each linear drawn from one seeded
-    generator, quantized at once and its dense copy freed. Attention as
-    ``quantize_params`` makes it for a dense layer (q4_k, wq | wk | wv
-    fused into ``wqkv``, ``wo``); each expert's w_gate, w_up and w_down
-    through ``quantize`` (q4_k), the E experts of each stacked by
-    ``moe.stack_expert_quant``; the router and norms dense bf16, the embed
-    dense bf16, the head q6_k (llama.cpp's Q4_K_M keeps output.weight in
-    Q6_K)."""
+def _layerwise_params(cfg, seed, dev, head_fmt="q4_k"):
+    """``cfg``'s weights built on the card one layer at a time (the dense
+    bf16 model may not fit): each linear drawn from one seeded generator,
+    quantized at once and its dense copy freed. A dense layer goes through
+    ``quantize_params`` as a one-layer tree (q4_k; wq | wk | wv fused into
+    ``wqkv``, w_gate | w_up into ``w_gu``, the intermediate padded by its
+    rule). A MoE layer's attention as ``quantize_params`` makes it, each
+    expert's w_gate, w_up and w_down through ``quantize`` (q4_k), the E
+    experts of each stacked by ``moe.stack_expert_quant``, the router dense
+    bf16. Norms and the embed dense bf16; the head in ``head_fmt``
+    (llama.cpp's Q4_K_M keeps output.weight in Q6_K)."""
     import torch
-    from ggml_cuda_experiments_tpu_torch.models import moe
+    from ggml_cuda_experiments_tpu_torch.models import llama, moe
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hd, E = cfg.dim, cfg.head_dim, cfg.n_experts
@@ -4281,12 +4356,22 @@ def _mixtral_params(cfg, seed, dev):
 
     layers = []
     for _ in range(cfg.n_layers):
-        layer = {"wqkv": quant(torch.cat([lin(cfg.n_heads * hd, d),
-                                          lin(cfg.n_kv_heads * hd, d),
-                                          lin(cfg.n_kv_heads * hd, d)])),
-                 "wo": quant(lin(d, cfg.n_heads * hd)),
-                 "attn_norm": ones(), "mlp_norm": ones(),
-                 "router": lin(E, d)}
+        layer = {"wq": lin(cfg.n_heads * hd, d),
+                 "wk": lin(cfg.n_kv_heads * hd, d),
+                 "wv": lin(cfg.n_kv_heads * hd, d),
+                 "wo": lin(d, cfg.n_heads * hd),
+                 "attn_norm": ones(), "mlp_norm": ones()}
+        if not cfg.is_moe:
+            layer.update(w_gate=lin(inter, d), w_up=lin(inter, d),
+                         w_down=lin(d, inter))
+            layers.append(llama.quantize_params(
+                {"layers": [layer]}, "q4_k", quantize_head=False)
+                ["layers"][0])
+            continue
+        layer["wqkv"] = quant(torch.cat([layer.pop(k)
+                                         for k in ("wq", "wk", "wv")]))
+        layer["wo"] = quant(layer["wo"])
+        layer["router"] = lin(E, d)
         for key, (n, k) in (("w_gate", (inter, d)), ("w_up", (inter, d)),
                             ("w_down", (d, inter))):
             layer[key] = moe.stack_expert_quant([quant(lin(n, k))
@@ -4295,17 +4380,18 @@ def _mixtral_params(cfg, seed, dev):
     embed = (torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
              * 0.02).to(torch.bfloat16)
     return {"embed": embed, "layers": layers, "final_norm": ones(),
-            "lm_head": quant(lin(cfg.vocab_size, d), "q6_k")}
+            "lm_head": quant(lin(cfg.vocab_size, d), head_fmt)}
 
 
-def _mixtral_kernels(res, params, cfg, dev):
-    """q4k_matvec and q4k_gemm (M = 8 and 512) at the experts' two shapes,
-    w_gate / w_up [inter, dim] and w_down [dim, inter] (K = 14336), on the
-    model's own expert weights (consecutive experts, enough to stream past
-    the L2), each against its plain version, timed as phase 4's cases
-    (``tools/qgemm_bench.py``'s timing), beside its bound."""
+def _linear_kernels(res, tag, sets, dev, ms=(8, 512), matvec="q4k_matvec"):
+    """A model's own q4_k weights through the batch-1 matvec (``matvec``:
+    q4k_matvec, or q4k_q8_matvec as x_quant8 runs it) and q4k_gemm at M in
+    ``ms``: ``sets`` [(name, [QuantLinear of one shape, ...])], a linear's
+    copies in consecutive layers or experts, of which as many as stream
+    past the L2 are cycled (one where one does). Each against its plain
+    version, timed as phase 4's cases (``tools/qgemm_bench.py``'s timing),
+    beside its bound."""
     import torch
-    from ggml_cuda_experiments_tpu_torch.models import moe
     from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
     from ggml_cuda_experiments_tpu_torch.utils.bench import copies_for
@@ -4313,27 +4399,28 @@ def _mixtral_kernels(res, params, cfg, dev):
     spec = _spec()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(41)
-    for key in ("w_gate", "w_down"):
-        experts = [moe._expert_slice(layer[key], e)
-                   for layer in params["layers"][:2]
-                   for e in range(cfg.n_experts)]
-        ws = experts[:copies_for(experts[0].nbytes)]
+    fn = getattr(qm, matvec)
+    kind = "int8" if matvec == "q4k_q8_matvec" else "f32"
+    for key, copies in sets:
+        ws = copies[:copies_for(copies[0].nbytes)]
         n, k = ws[0].array_shape
         x = torch.randn((1, k), generator=g, device=dev)
-        y = qm.q4k_matvec(x, ws[0])
+        y = fn(x, ws[0])
         with plain_versions():
-            ref = qm.q4k_matvec(x, ws[0])
+            ref = fn(x, ws[0])
         err, sc = rel_err(y, ref)
-        t = qb.matvec_case(qm, "q4_k", ws, x)
+        ms_ = time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=qb.CHAIN)
         with plain_versions():
-            pms = time_ms(lambda i: qm.q4k_matvec(x, ws[i % len(ws)]),
-                          calls=2, replays=3)
-        res.add("q4k_matvec", f"mixtral {key} N={n} K={k} (splits "
-                f"{qm.matvec_splits(n, k, sms)}, {len(ws)} experts)", err,
-                sc, 1e-4, t["ms"], pms,
-                spec.bound_ms(t["bytes"], t["flops"], "f32"))
-        log(f"    {_rate(t['bytes'], t['flops'], t['ms'], 'f32')}")
-        for m in (8, 512):
+            pms = time_ms(lambda i: fn(x, ws[i % len(ws)]), calls=2,
+                          replays=3)
+        nbytes, flops = ws[0].nbytes + 4 * (k + n), 2 * n * k
+        split = (f"splits {qm.matvec_splits(n, k, sms)}, "
+                 if matvec == "q4k_matvec" else "")
+        res.add(matvec, f"{tag} {key} N={n} K={k} ({split}{len(ws)} "
+                "copies)", err, sc, 1e-4, ms_, pms,
+                spec.bound_ms(nbytes, flops, kind))
+        log(f"    {_rate(nbytes, flops, ms_, kind)}")
+        for m in ms:
             x = qb.gemm_x(m, n, k, dev)
             y = qm.q4k_gemm(x, ws[0])
             with plain_versions():
@@ -4344,21 +4431,22 @@ def _mixtral_kernels(res, params, cfg, dev):
                 pms = time_ms(lambda i: qm.q4k_gemm(x, ws[i % len(ws)]),
                               calls=2, replays=3)
             nbytes = ws[0].nbytes + 2 * m * k + 4 * m * n
-            res.add("q4k_gemm", f"mixtral {key} M={m} N={n} K={k} "
-                    f"({qm.gemm_route(m)}, {len(ws)} experts)", err, sc,
+            res.add("q4k_gemm", f"{tag} {key} M={m} N={n} K={k} "
+                    f"({qm.gemm_route(m)}, {len(ws)} copies)", err, sc,
                     2e-2, t["ms"], pms,
                     spec.bound_ms(nbytes, 2 * m * n * k, "bf16"))
-            log(f"    {_rate(nbytes, 2 * m * n * k, t['ms'])}; torch.matmul "
-                f"on the dequantized bf16 W {t['matmul_ms']:.4f} ms")
-        del experts, ws
+            lib = (f"; torch.matmul on the dequantized bf16 W "
+                   f"{t['matmul_ms']:.4f} ms" if "matmul_ms" in t else "")
+            log(f"    {_rate(nbytes, 2 * m * n * k, t['ms'])}{lib}")
+        del ws
         torch.cuda.empty_cache()
 
 
-def _mixtral_profile(params, cfg, prompt, dev, steps: int = 2):
+def _step_profile(params, cfg, prompt, dev, parts, steps: int = 2):
     """Where a decode step's device time goes: torch.profiler over
-    ``steps`` eager decode steps after ``prompt``'s prefill, the expert
-    and attention matvecs (q4_matvec_kernel) apart from the rest; the
-    device's busy share of the (host-bound) eager wall time."""
+    ``steps`` eager decode steps after ``prompt``'s prefill, the kernels
+    whose names hold each of ``parts`` ({label: name part}) apart from the
+    rest; the device's busy share of the (host-bound) eager wall time."""
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
     cache = llama.KVCache.create(cfg, 1, 256, device=dev)
@@ -4373,19 +4461,161 @@ def _mixtral_profile(params, cfg, prompt, dev, steps: int = 2):
             t = torch.argmax(lg, -1).to(torch.int32)
 
     _, wall_us, busy, events = _profiled(run)
-    mv = [e for e in events if "q4_matvec" in e.key]
     out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
-           "matvec_ms": sum(_dev_us(e) for e in mv) / steps / 1e3,
-           "matvec_calls": sum(e.count for e in mv) // steps,
            "kernels": sum(e.count for e in events) // steps}
+    rest = out["busy_ms"]
+    text = []
+    for label, part in parts.items():
+        ev = [e for e in events if part in e.key]
+        out[f"{label}_ms"] = sum(_dev_us(e) for e in ev) / steps / 1e3
+        out[f"{label}_calls"] = sum(e.count for e in ev) // steps
+        rest -= out[f"{label}_ms"]
+        text.append(f"{part} {out[f'{label}_ms']:.3f} ms in "
+                    f"{out[f'{label}_calls']} calls")
     log(f"  a decode step under torch.profiler ({steps} eager steps): wall "
         f"{out['wall_ms']:.2f} ms, device busy {out['busy_ms']:.2f} ms "
         f"({100 * busy / wall_us:.1f}%) in {out['kernels']} kernels, of "
-        f"which q4_matvec_kernel {out['matvec_ms']:.2f} ms in "
-        f"{out['matvec_calls']} calls; the rest "
-        f"{out['busy_ms'] - out['matvec_ms']:.2f} ms")
+        f"which {', '.join(text)}; the rest {rest:.3f} ms")
     _log_top(events, steps, "step")
     return out
+
+
+def _generate_and_scan(params, cfg, prompts, requests, tag, step, head,
+                       gemms, by_k=None):
+    """``generate`` on ``requests`` with its launches asserted: ``step``
+    ({kernel: launches}) a decode step; a prefill ``gemms`` q4k_gemm (on
+    ``gemm_route``'s route, asserted too), one ``head`` launch (the last
+    row), flash_attention and rope_pack as ``_prefill_counts`` has them;
+    q4k_matvec by K against ``by_k`` ({K: launches} over the run) where
+    given. Then ``generate_scan`` (each request's decode step captured once
+    into a CUDA graph and replayed) token-equal to generate, its launches
+    asserted: the prefills, one eager step and its capture a request (the
+    replays are not counted). Returns ({path: counts}, generate's
+    tokens)."""
+    import collections
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    L, R = cfg.n_layers, len(requests)
+    name = tag.replace(" ", "_").replace("-", "_").replace(".", "_")
+    dev = prompts[0].device
+
+    def want(decode_steps):
+        w = _prefill_counts(L, requests)
+        w["q4k_gemm"] = gemms * sum(1 for p, _ in requests if 2 <= p <= 512)
+        w[head] += R
+        for k, v in step.items():
+            w[k] += v * decode_steps
+        return w
+
+    tally = collections.Counter()
+    matvec = qm.q4k_matvec
+
+    def tallied(x, w):                   # q4k_matvec launches by K
+        tally[w.array_shape[1]] += 1
+        return matvec(x, w)
+
+    routes0 = dict(qm.GEMM_ROUTE_LAUNCHES)
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, qm, "q4k_matvec", matvec)
+        qm.q4k_matvec = tallied
+        outs, counts = _drive_generate(params, cfg, prompts, requests,
+                                       f"generate {tag}")
+    routes = {r: n - routes0.get(r, 0)
+              for r, n in qm.GEMM_ROUTE_LAUNCHES.items()}
+    _assert_counts(f"generate {tag}", counts,
+                   want(sum(n for _, n in requests)))
+    r_want = {r: 0 for r in routes}
+    for p, _ in requests:
+        r_want[qm.gemm_route(p)] += gemms
+    log(f"  q4k_matvec by K {dict(tally)}" + (f" (want {by_k})" if by_k
+                                               else "")
+        + f"; q4k_gemm by route {routes} (want {r_want})")
+    if routes != r_want or (by_k is not None and tally != by_k):
+        raise AssertionError(f"{tag}: q4k_matvec by K {dict(tally)}, "
+                             f"q4k_gemm by route {routes}")
+    per_step = ", ".join(f"{v} {k}" for k, v in step.items())
+    log(f"  launch counts equal what the path implies (per decode step "
+        f"{per_step}; per prefill {gemms} q4k_gemm, 1 {head}, {L} "
+        f"flash_attention, {L} rope_pack at prompts 128 and 512)")
+    paths = {f"generate_{name}": counts}
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    for (p, n), prompt, toks in zip(requests, prompts, outs):
+        scan = llama.generate_scan(params, cfg, prompt,
+                                   _cache(cfg, p, n, dev, {}), n)
+        if scan.tolist() != toks.tolist():
+            raise AssertionError(f"{tag}: generate_scan (prompt {p}) gave "
+                                 f"{scan[0, :8]}..., generate {toks[0, :8]}")
+    counts = _counts()
+    _assert_counts(f"generate_scan {tag} (the prefills, one eager step and "
+                   "one capture a request)", counts, want(2 * R))
+    paths[f"generate_scan_{name}"] = counts
+    log(f"  {tag}: generate_scan's tokens equal generate's for every "
+        "request")
+    return paths, outs
+
+
+def _graph_rate(params, cfg, prompt, timing, bound_ms, card, tag):
+    """generate_scan's ms a token (the marginal of 8 and 40 replays of one
+    captured step after ``prompt``'s prefill; uncounted) beside the eager
+    rate of each request and the stream bound; TTFT at 512."""
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    t_tok = sb.plain_per_token(params, cfg, prompt)
+    eager = [1e3 / t["decode_tok_s"] for t in timing]
+    log(f"  [{card}] {tag}: decode eager "
+        + ", ".join(f"{e:.2f}" for e in eager)
+        + f" ms a token (prompts {', '.join(str(t['prompt']) for t in timing)}"
+        f"), graph {t_tok * 1e3:.3f} ms a token ({1 / t_tok:.2f} tok/s; the "
+        f"stream bound {bound_ms:.3f} ms, {100 * bound_ms / (t_tok * 1e3):.1f}"
+        f"% of it); TTFT at 512 {timing[-1]['ttft_ms']:.2f} ms")
+    return {"graph_ms_per_token": t_tok * 1e3, "eager_ms_per_token": eager,
+            "ttft_512_ms": timing[-1]["ttft_ms"], "requests": timing}
+
+
+def _built(params, t0, card, tag):
+    """Build seconds, peak memory and the stream bound of a model just
+    built, logged; its metrics."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.tools.bench import stream_bytes
+    torch.cuda.synchronize()
+    spec = _spec()
+    stream = stream_bytes(params)        # every expert: dense dispatch
+    metrics = {"build_s": time.perf_counter() - t0,
+               "peak_build_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "stream_bytes": stream, "embed_bytes": params["embed"].nbytes,
+               "bound_ms": 1e3 * stream / spec.hbm_bytes_per_s}
+    log(f"  [{card}] {tag}: built in {metrics['build_s']:.2f} s, peak "
+        f"{metrics['peak_build_gib']:.2f} GiB; a decode token streams "
+        f"{stream} bytes + the bf16 embed {params['embed'].nbytes}; the "
+        f"stream bound {metrics['bound_ms']:.3f} ms a token at {spec.name}'s "
+        "HBM rate")
+    return metrics
+
+
+def _prompts(cfg, requests, seed, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
+                          device=dev, dtype=torch.int64)
+            for p, _ in requests]
+
+
+def _forced_tokens(outs, dev):
+    import torch
+    return torch.from_numpy(outs[0][0, :FORCED_STEPS]).to(dev, torch.int32)
+
+
+def _phase_end(params, metrics, t_phase, card, tag):
+    """Peak memory of the phase, the model freed, its seconds."""
+    import torch
+    metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    params.clear()
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{card}] {tag} in {metrics['phase_s']:.1f} s, peak device "
+        f"memory {metrics['peak_gib']:.2f} GiB")
 
 
 def phase_mixtral(dev, seed, res: Results, card):
@@ -4396,14 +4626,11 @@ def phase_mixtral(dev, seed, res: Results, card):
     kernel stays closed and each expert linear is its own q4k_matvec (one
     row) or q4k_gemm (a prompt). The reference's dense dispatch: every
     expert runs on every token."""
-    import collections
     import torch
-    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models import moe
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
-    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
-    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
     cfg = PRESETS["mixtral-8x7b"]
-    L, R, E = cfg.n_layers, len(MIXTRAL_REQUESTS), cfg.n_experts
+    L, E = cfg.n_layers, cfg.n_experts
     steps = sum(n for _, n in MIXTRAL_REQUESTS)
     per_step = (2 + 3 * E) * L          # wqkv, wo and the experts' linears
     t_phase = time.perf_counter()
@@ -4414,110 +4641,268 @@ def phase_mixtral(dev, seed, res: Results, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = _mixtral_params(cfg, seed + 40, dev)
-    torch.cuda.synchronize()
-    metrics = {"build_s": time.perf_counter() - t0,
-               "peak_build_gib": torch.cuda.max_memory_allocated() / 2**30}
-    stream = params["lm_head"].nbytes + params["final_norm"].nbytes + sum(
-        w.nbytes for layer in params["layers"] for w in layer.values())
-    spec = _spec()
-    metrics.update(stream_bytes=stream, embed_bytes=params["embed"].nbytes,
-                   bound_ms=1e3 * stream / spec.hbm_bytes_per_s)
-    log(f"  built one layer at a time in {metrics['build_s']:.2f} s, peak "
-        f"{metrics['peak_build_gib']:.2f} GiB; a decode token streams "
-        f"{stream} bytes (every expert: dense dispatch) + the bf16 embed "
-        f"{params['embed'].nbytes}; the stream bound "
-        f"{metrics['bound_ms']:.3f} ms a token at {spec.name}'s HBM rate")
-    _mixtral_kernels(res, params, cfg, dev)
-
-    g = torch.Generator(device=dev).manual_seed(seed + 41)
-    prompts = [torch.randint(1, cfg.vocab_size, (1, p), generator=g,
-                             device=dev, dtype=torch.int64)
-               for p, _ in MIXTRAL_REQUESTS]
-    by_k = collections.Counter()
-    matvec = qm.q4k_matvec
-
-    def tallied(x, w):                   # q4k_matvec launches by K
-        by_k[w.array_shape[1]] += 1
-        return matvec(x, w)
-
-    routes0 = dict(qm.GEMM_ROUTE_LAUNCHES)
-    with contextlib.ExitStack() as stack:
-        stack.callback(setattr, qm, "q4k_matvec", matvec)
-        qm.q4k_matvec = tallied
-        outs, counts = _drive_generate(params, cfg, prompts, MIXTRAL_REQUESTS,
-                                       "generate mixtral")
-    routes = {r: n - routes0[r] for r, n in qm.GEMM_ROUTE_LAUNCHES.items()}
-    want = _prefill_counts(L, MIXTRAL_REQUESTS)
-    want.update(q4k_gemm=per_step * R, q4k_matvec=per_step * steps,
-                q6k_q8_matvec=R + steps, flash_decode=steps * L,
-                lse_merge=steps * L)
-    _assert_counts("generate mixtral", counts, want)
-    k_want = {cfg.dim: (2 + 2 * E) * L * steps, cfg.intermediate:
-              E * L * steps}
-    r_want = {"stream": sum(per_step for p, _ in MIXTRAL_REQUESTS if p <= 32),
-              "tc": sum(per_step for p, _ in MIXTRAL_REQUESTS if p > 32)}
-    log(f"  q4k_matvec by K {dict(by_k)} (want {k_want}); q4k_gemm by "
-        f"route {routes} (want {r_want})")
-    if by_k != k_want or routes != r_want:
-        raise AssertionError(f"mixtral: q4k_matvec by K {dict(by_k)}, "
-                             f"q4k_gemm by route {routes}")
-    log(f"  launch counts equal what the path implies (per decode step "
-        f"{per_step} q4k_matvec, 1 q6k_q8_matvec, {L} flash_decode + "
-        f"lse_merge, no fused kernel; per prefill {per_step} q4k_gemm, {L} "
-        f"flash_attention, {L} rope_pack at prompts 128 and 512)")
-    paths = {"generate_mixtral": counts}
+    params = _layerwise_params(cfg, seed + 40, dev, head_fmt="q6_k")
+    metrics = _built(params, t0, card, f"{cfg.name} one layer at a time "
+                     "(every expert streamed: dense dispatch)")
+    _linear_kernels(res, "mixtral", [
+        (key, [moe._expert_slice(layer[key], e)
+               for layer in params["layers"][:2] for e in range(E)])
+        for key in ("w_gate", "w_down")], dev)
+    prompts = _prompts(cfg, MIXTRAL_REQUESTS, seed + 41, dev)
+    paths, outs = _generate_and_scan(
+        params, cfg, prompts, MIXTRAL_REQUESTS, "mixtral",
+        {"q4k_matvec": per_step, "q6k_q8_matvec": 1, "flash_decode": L,
+         "lse_merge": L}, "q6k_q8_matvec", per_step,
+        by_k={cfg.dim: (2 + 2 * E) * L * steps,
+              cfg.intermediate: E * L * steps})
     timing = _time_requests(params, cfg, prompts, MIXTRAL_REQUESTS, outs, dev)
-
-    # generate_scan: each request's decode step captured once into a CUDA
-    # graph and replayed; the launches are the prefills, the eager warm-up
-    # steps and their captures (the replays are not counted)
-    torch.cuda.synchronize()
-    _reset_counts()
-    for (p, n), prompt, toks in zip(MIXTRAL_REQUESTS, prompts, outs):
-        scan = llama.generate_scan(params, cfg, prompt,
-                                   _cache(cfg, p, n, dev, {}), n)
-        if scan.tolist() != toks.tolist():
-            raise AssertionError(f"mixtral generate_scan (prompt {p}) gave "
-                                 f"{scan[0, :8]}..., generate {toks[0, :8]}")
-    counts = _counts()
-    want = _prefill_counts(L, MIXTRAL_REQUESTS)
-    want.update(q4k_gemm=per_step * R, q4k_matvec=per_step * 2 * R,
-                q6k_q8_matvec=R + 2 * R, flash_decode=2 * R * L,
-                lse_merge=2 * R * L)
-    _assert_counts("generate_scan mixtral (the prefills, one eager step and "
-                   "one capture a request)", counts, want)
-    paths["generate_scan_mixtral"] = counts
-    log("  generate_scan's tokens equal generate's for every request")
-    # ms a token in a graph: the marginal of 8 and 40 replays of one
-    # captured step after request 1's prefill (uncounted)
-    t_tok = sb.plain_per_token(params, cfg, prompts[0])
-    eager = [1e3 / t["decode_tok_s"] for t in timing]
-    metrics.update(graph_ms_per_token=t_tok * 1e3,
-                   eager_ms_per_token=eager,
-                   ttft_512_ms=timing[-1]["ttft_ms"], requests=timing)
-    log(f"  [{card}] {cfg.name}: decode eager "
-        + ", ".join(f"{e:.2f}" for e in eager)
-        + f" ms a token (prompts {', '.join(str(p) for p, _ in MIXTRAL_REQUESTS)}),"
-        f" graph {t_tok * 1e3:.3f} ms a token ({1 / t_tok:.2f} tok/s; the "
-        f"stream bound {metrics['bound_ms']:.3f} ms, "
-        f"{100 * metrics['bound_ms'] / (t_tok * 1e3):.1f}% of it); TTFT at "
-        f"512 {timing[-1]['ttft_ms']:.2f} ms")
-    metrics["profile"] = _mixtral_profile(params, cfg, prompts[0], dev)
-
+    metrics.update(_graph_rate(params, cfg, prompts[0], timing,
+                               metrics["bound_ms"], card, cfg.name))
+    metrics["profile"] = _step_profile(params, cfg, prompts[0], dev,
+                                       {"matvec": "q4_matvec"})
     # teacher-forced against the plain versions on the card: every layer's
     # input forced to the kernel path's, each layer and the logits within
     # 2e-2 * max
-    forced = torch.from_numpy(outs[0][0, :MIXTRAL_FORCED]).to(dev,
-                                                              torch.int32)
-    _check_forced(params, cfg, prompts[0], forced, dev)
-    metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del params
-    torch.cuda.empty_cache()
-    metrics["phase_s"] = time.perf_counter() - t_phase
-    log(f"  [{card}] phase 12 in {metrics['phase_s']:.1f} s, peak device "
-        f"memory {metrics['peak_gib']:.2f} GiB")
+    _check_forced(params, cfg, prompts[0], _forced_tokens(outs, dev), dev)
+    _phase_end(params, metrics, t_phase, card, "phase 12")
     return paths, metrics
+
+
+def _rope_case(res, spec, dev, g, T, hq, hkv, theta, tag):
+    """rope_pack at a T-token prompt of ``hq`` / ``hkv`` heads of 128 and
+    RoPE base ``theta``, its tables made once and given (as a prefill hands
+    them to each layer), bit-exact against its plain version."""
+    from ggml_cuda_experiments_tpu_torch.ops import prefill_fuse as pf
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    inputs = qb.rope_inputs(dev, T, hq, hkv, g)
+    ys, pos, kw = inputs
+    tables = pf.rope_tables(pos, kw["head_dim"], theta)
+    nbytes, ops = qb.rope_bytes(inputs, True)
+    _versus_plain(res, "rope_pack", f"{tag} T={T} {hq}/{hkv} D=128 theta "
+                  f"{theta:g} ({len(ys)} copies), tables given",
+                  lambda i: pf.rope_pack_prefill(
+                      ys[i % len(ys)], pos, **kw, rope_theta=theta,
+                      tables=tables), 0.0, spec.bound_ms(nbytes, ops, "f32"))
+
+
+def _llama3_kernels(res, params, cfg, dev, seed):
+    """llama3-8b's new shapes on the model's own weights: q4k_matvec and
+    q4k_gemm (M 16, 512) at w_gu [32768, 4096] and w_down [4096, 16384] (K
+    padded from 14336), q4k_matvec and q4k_q8_matvec at the 128256-row
+    head, fused_mlp at Kd 16384, fused_attention at GQA 32/8 and theta 5e5
+    over 513 keys, rope_pack at 32/8 and theta 5e5; each against its plain
+    version, beside its bound."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    spec = _spec()
+    layers, tag = params["layers"], cfg.name
+    _linear_kernels(res, tag, [(k, [lay[k] for lay in layers])
+                               for k in ("w_gu", "w_down")], dev, ms=(16, 512))
+    head = [("lm_head", [params["lm_head"]])]
+    _linear_kernels(res, tag, head, dev, ms=())
+    _linear_kernels(res, tag, head, dev, ms=(), matvec="q4k_q8_matvec")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, cfg.dim), generator=g, device=dev)
+    gu, down = layers[0]["w_gu"].array_shape, layers[0]["w_down"].array_shape
+    nbytes = layers[0]["w_gu"].nbytes + layers[0]["w_down"].nbytes
+    _versus_plain(res, "fused_mlp", f"{tag} w_gu {gu[0]}x{gu[1]}, w_down "
+                  f"{down[0]}x{down[1]} (2 layers)",
+                  lambda i: qm.mlp_fused(x, layers[i % 2]["w_gu"],
+                                         layers[i % 2]["w_down"]), 5e-3,
+                  spec.bound_ms(nbytes + 8 * cfg.dim,
+                                2 * (gu[0] * gu[1] + down[0] * down[1]),
+                                "int8"))
+    hkv, S, length = cfg.n_kv_heads, 1024, 512
+    kc = torch.randn((2, 1, hkv, S, cfg.head_dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 1, hkv, S, cfg.head_dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=hkv, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta)
+    inputs = (x, [(lay["wqkv"], lay["wo"]) for lay in layers[:3]], kc, vc,
+              lens, kw)
+    nbytes, ops = qb.attn_bytes(inputs)
+    _versus_plain(res, "fused_attention", f"{tag} Hq={cfg.n_heads} Hkv={hkv} "
+                  f"len {length + 1} theta {cfg.rope_theta:g}, "
+                  f"{len(fat.split_plan(length, S, hkv, sms, kc.dtype))} "
+                  "splits (3 layers)",
+                  lambda i: fat.attention_fused(
+                      x, *inputs[1][i % 3], kc, vc, lens, i % 2, **kw),
+                  5e-3, spec.bound_ms(nbytes, ops, "int8"))
+    del kc, vc
+    _rope_case(res, spec, dev, g, 512, cfg.n_heads, hkv, cfg.rope_theta, tag)
+
+
+def phase_llama3(dev, seed, res: Results, card):
+    """llama3-8b at full width and depth (32 layers, dim 4096, GQA 32/8,
+    vocab 128256, intermediate 14336 padded to 16384 by quantize_params,
+    rope_theta 5e5), q4_k layers and head, a bf16 cache: (a) the preset's
+    configuration (the fused MLP at Kd 16384), (b) x_quant8 (fused_attention
+    + fused_mlp a layer, the int8 head), each through generate and
+    generate_scan with its counts and forced layer by layer; (c) bench.py's
+    decode (x_quant8 + permute_hidden_params: one model_step a token),
+    forced layer by layer (5e-3) and through tools/bench.py --decode."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import _build
+    from ggml_cuda_experiments_tpu_torch.ops.probes import _info
+    cfg = PRESETS["llama3-8b"]
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    log(f"== 13. {cfg.name}: dim {cfg.dim}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}, "
+        f"intermediate {cfg.intermediate}, rope_theta {cfg.rope_theta:g}, "
+        "q4_k layers and head, bf16 cache")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = llama.init_weights(cfg, seed=seed + 50, device=dev)
+    params = llama.quantize_params(dense, "q4_k")
+    del dense
+    torch.cuda.empty_cache()
+    metrics = _built(params, t0, card, f"{cfg.name} (init_weights + "
+                     "quantize_params)")
+    kd = params["layers"][0]["w_down"].array_shape[1]
+    log(f"  w_gu {params['layers'][0]['w_gu'].array_shape}, w_down "
+        f"{params['layers'][0]['w_down'].array_shape}: intermediate "
+        f"{cfg.intermediate} padded to {kd}; layer_decode_kernel layers at "
+        f"Kd {kd}: {_info(_build.lib().layer_kernel_info, 0, kd)}")
+    if kd != 16384:
+        raise AssertionError(f"{cfg.name}: intermediate padded to {kd}")
+    _llama3_kernels(res, params, cfg, dev, seed + 52)
+    prompts = _prompts(cfg, REQUESTS, seed + 51, dev)
+
+    # (a) the preset's configuration: the fused MLP, the rest unfused
+    paths, outs = _generate_and_scan(
+        params, cfg, prompts, REQUESTS, cfg.name,
+        {"q4k_matvec": 2 * L + 1, "fused_mlp": L, "flash_decode": L,
+         "lse_merge": L}, "q4k_matvec", 4 * L)
+    timing = {"generate": _time_requests(params, cfg, prompts, REQUESTS,
+                                         outs, dev)}
+    _check_forced(params, cfg, prompts[0], _forced_tokens(outs, dev), dev)
+
+    # (b) x_quant8: fused_attention + fused_mlp a layer, the int8 head
+    xq8 = dataclasses.replace(cfg, x_quant8=True)
+    tag = f"{cfg.name} x_quant8"
+    p8, outs8 = _generate_and_scan(
+        params, xq8, prompts, REQUESTS, tag,
+        {"q4k_q8_matvec": 1, "fused_attention": L, "fused_mlp": L},
+        "q4k_q8_matvec", 4 * L)
+    paths.update(p8)
+    timing["generate_x_quant8"] = _time_requests(params, xq8, prompts,
+                                                 REQUESTS, outs8, dev)
+    _check_forced(params, xq8, prompts[0], _forced_tokens(outs8, dev), dev)
+    metrics.update(_graph_rate(params, xq8, prompts[0],
+                               timing["generate_x_quant8"],
+                               metrics["bound_ms"], card, tag))
+    metrics["profile_x_quant8"] = _step_profile(
+        params, xq8, prompts[0], dev,
+        {"fused_attention": "layer_decode_kernel<true>",
+         "fused_mlp": "fused_mlp_kernel"})
+
+    # (c) bench.py's decode: model_step, forced layer by layer, then the
+    # benchmark entry's --decode on these weights
+    bcfg = dataclasses.replace(xq8, hperm=True)
+    pb = llama.permute_hidden_params(params, bcfg)
+    if "m_pack" not in pb:
+        raise AssertionError(f"{cfg.name}: permute_hidden_params built no "
+                             "model pack")
+    _model_step_check(pb, bcfg, prompts[2], dev, res, card)
+    del pb
+    b_paths, metrics["bench_decode"] = phase_bench_decode(
+        dev, params, cfg.name, card)
+    paths.update(b_paths)
+    metrics["requests"] = timing
+    _phase_end(params, metrics, t_phase, card, "phase 13")
+    return paths, metrics
+
+
+def _l70b_kernels(res, params, cfg, dev, seed):
+    """llama2-70b's new shapes: q4k_matvec and q4k_gemm (M 16 on the
+    stream route, 128 and 512 on tc) at every linear on the model's own
+    weights (wqkv [10240, 8192], W_o [8192, 8192], w_gu [57344, 8192],
+    w_down [8192, 28672]), q4k_matvec at the head [32000, 8192],
+    flash_decode at 8 query heads a KV head (D 128), flash_attention at
+    64/8 heads over 512 tokens, rope_pack at 64/8 heads; each against its
+    plain version, beside its bound."""
+    import torch
+    layers, tag = params["layers"], cfg.name
+    _linear_kernels(res, tag, [(k, [lay[k] for lay in layers])
+                               for k in ("wqkv", "wo", "w_gu", "w_down")],
+                    dev, ms=(16, 128, 512))
+    _linear_kernels(res, tag, [("lm_head", [params["lm_head"]])], dev, ms=())
+    spec = _spec()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    hq, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _flash_decode_cases(res, spec, randn, ((cfg.n_layers, hq, hkv, 1024, D),),
+                        tag)
+    _flash_attention_cases(res, spec, randn, ((512, hq, hkv, D),), tag)
+    _rope_case(res, spec, dev, g, 512, hq, hkv, cfg.rope_theta, tag)
+
+
+def phase_llama2_70b(dev, seed, res: Results, card):
+    """llama2-70b at full width and depth (80 layers, dim 8192, GQA 64/8,
+    intermediate 28672), q4_k layers and head, a bf16 cache, the preset's
+    configuration: at dim 8192 every fused gate is closed, so each decode
+    linear is its own q4k_matvec and each prefill linear its own q4k_gemm.
+    Built on the card one layer at a time (the dense bf16 model, ~138 GB,
+    does not fit)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    cfg = PRESETS["llama2-70b"]
+    L = cfg.n_layers
+    steps = sum(n for _, n in MIXTRAL_REQUESTS)
+    t_phase = time.perf_counter()
+    log(f"== 14. {cfg.name}: dim {cfg.dim}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, intermediate {cfg.intermediate}, "
+        "q4_k layers and head, bf16 cache, the preset's configuration "
+        "(every fused gate closed at dim 8192)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _layerwise_params(cfg, seed + 60, dev)
+    metrics = _built(params, t0, card, f"{cfg.name} one layer at a time")
+    _l70b_kernels(res, params, cfg, dev, seed + 62)
+    prompts = _prompts(cfg, MIXTRAL_REQUESTS, seed + 61, dev)
+    R = len(MIXTRAL_REQUESTS)
+    paths, outs = _generate_and_scan(
+        params, cfg, prompts, MIXTRAL_REQUESTS, cfg.name,
+        {"q4k_matvec": 4 * L + 1, "flash_decode": L, "lse_merge": L},
+        "q4k_matvec", 4 * L,
+        by_k={cfg.dim: (3 * L + 1) * steps + R,
+              cfg.intermediate: L * steps})
+    timing = _time_requests(params, cfg, prompts, MIXTRAL_REQUESTS, outs, dev)
+    metrics.update(_graph_rate(params, cfg, prompts[0], timing,
+                               metrics["bound_ms"], card, cfg.name))
+    metrics["profile"] = _step_profile(params, cfg, prompts[0], dev,
+                                       {"matvec": "q4_matvec",
+                                        "attention": "flash_decode"})
+    _check_forced(params, cfg, prompts[0], _forced_tokens(outs, dev), dev)
+    _phase_end(params, metrics, t_phase, card, "phase 14")
+    return paths, metrics
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(tag, phase, *args):
+    """``phase(*args)``, its wall seconds logged on a line of its own and
+    kept under ``tag`` in ``PHASE_SECONDS`` (printed in the JSON line)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[tag] = round(time.perf_counter() - t0, 1)
+    log(f"phase {tag}: {PHASE_SECONDS[tag]} s")
+    return out
 
 
 def main() -> int:
@@ -4534,54 +4919,67 @@ def main() -> int:
     card = phase_env()
     import torch
     dev = torch.device("cuda", 0)
-    phase_build()
-    phase_quantizer(dev, args.seed)
+    timed("2", phase_build)
+    timed("3", phase_quantizer, dev, args.seed)
     res = Results()
-    phase_kernels(dev, args.seed, res)
-    phase_engine_kernels(dev, args.seed, res)
-    phase_fused_kernels(dev, args.seed, res)
-    phase_q4km_kernels(dev, args.seed, res)
-    phase_format_kernels(dev, args.seed, res)
-    phase_lab_kernels(dev, args.seed, res)
-    vpu_paths = phase_vpu_kernels(dev, args.seed, res)
-    probe_times = phase_probe_kernels(dev, args.seed, res)
-    phase_lse_kernel(dev, args.seed, res)
+    for tag, phase in (("4", phase_kernels), ("4b", phase_engine_kernels),
+                       ("4c", phase_fused_kernels),
+                       ("4d", phase_q4km_kernels),
+                       ("4e", phase_format_kernels),
+                       ("4f", phase_lab_kernels)):
+        timed(tag, phase, dev, args.seed, res)
+    vpu_paths = timed("4g", phase_vpu_kernels, dev, args.seed, res)
+    probe_times = timed("4h", phase_probe_kernels, dev, args.seed, res)
+    timed("4i", phase_lse_kernel, dev, args.seed, res)
     if args.kernels_only:
         log(json.dumps({"kernels": res.kernels}))
         return 0
-    counts, timing, params, prompts, head_dense = phase_model(
-        dev, args.seed, args.profile)
-    fused_paths, fused_timing = phase_fused_decode(
-        dev, args.seed, params, prompts, res, card, args.profile)
-    q4km_paths, q4km_timing = phase_q4km(dev, args.seed, params, head_dense,
-                                         prompts)
+    counts, timing, params, prompts, head_dense = timed(
+        "5", phase_model, dev, args.seed, args.profile)
+    fused_paths, fused_timing = timed(
+        "5b", phase_fused_decode, dev, args.seed, params, prompts, res, card,
+        args.profile)
+    q4km_paths, q4km_timing = timed("5c", phase_q4km, dev, args.seed,
+                                    params, head_dense, prompts)
     del head_dense
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
-    paths, engine_metrics = phase_engine(dev, args.seed, params,
-                                         PRESETS["llama2-7b"], card)
-    serving_paths, serving_metrics = phase_serving(
-        dev, args.seed, params, PRESETS["llama2-7b"], card)
-    spec_paths, spec_metrics = phase_speculative(dev, args.seed, params, card)
-    b7_paths, b7_metrics = phase_bench_decode(dev, params, "llama2-7b", card)
-    par_paths, par_metrics = phase_parallel(dev, args.seed, params, prompts,
-                                            card)
+    paths, engine_metrics = timed("6", phase_engine, dev, args.seed, params,
+                                  PRESETS["llama2-7b"], card)
+    serving_paths, serving_metrics = timed(
+        "6c", phase_serving, dev, args.seed, params, PRESETS["llama2-7b"],
+        card)
+    spec_paths, spec_metrics = timed("8", phase_speculative, dev, args.seed,
+                                     params, card)
+    b7_paths, b7_metrics = timed("9 decode llama2-7b", phase_bench_decode,
+                                 dev, params, "llama2-7b", card)
+    par_paths, par_metrics = timed("10", phase_parallel, dev, args.seed,
+                                   params, prompts, card)
     del params
     torch.cuda.empty_cache()
-    fmt_paths, fmt_timing = phase_formats(dev, args.seed, prompts, card)
-    tiny_paths, tiny_timing = phase_tinyllama(dev, args.seed, card)
+    fmt_paths, fmt_timing = timed("5e 5f 6b", phase_formats, dev, args.seed,
+                                  prompts, card)
+    tiny_paths, tiny_timing = timed("5d 5g 9 decode tinyllama",
+                                    phase_tinyllama, dev, args.seed, card)
     btiny_metrics = tiny_timing.pop("bench_decode_tinyllama")
     torch.cuda.empty_cache()
-    lab_paths = phase_lab(dev, args.seed)
-    bench_paths, bench_metrics = phase_bench(dev, args.seed, card)
+    lab_paths = timed("7", phase_lab, dev, args.seed)
+    bench_paths, bench_metrics = timed("9", phase_bench, dev, args.seed, card)
     torch.cuda.empty_cache()
-    ckpt_paths, ckpt_metrics = phase_checkpoint(dev, args.seed, card)
+    ckpt_paths, ckpt_metrics = timed("11", phase_checkpoint, dev, args.seed,
+                                     card)
     torch.cuda.empty_cache()
-    moe_paths, moe_metrics = phase_mixtral(dev, args.seed, res, card)
+    moe_paths, moe_metrics = timed("12", phase_mixtral, dev, args.seed, res,
+                                   card)
+    l3_paths, l3_metrics = timed("13", phase_llama3, dev, args.seed, res,
+                                 card)
+    bl3_metrics = l3_metrics.pop("bench_decode")
+    l70_paths, l70_metrics = timed("14", phase_llama2_70b, dev, args.seed,
+                                   res, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
              **vpu_paths, **b7_paths, **bench_paths, **par_paths,
-             **ckpt_paths, **moe_paths}
+             **ckpt_paths, **moe_paths, **l3_paths, **l70_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -4617,9 +5015,14 @@ def main() -> int:
                       "parallel": par_metrics,
                       "checkpoint": ckpt_metrics,
                       "mixtral": moe_metrics,
+                      "llama3-8b": l3_metrics,
+                      "llama2-70b": l70_metrics,
+                      "phase_seconds": PHASE_SECONDS,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
-                                "decode": {"llama2-7b": b7_metrics,
-                                           "tinyllama-1.1b": btiny_metrics}}
+                                "decode": {
+                                    "llama2-7b": b7_metrics,
+                                    "tinyllama-1.1b": btiny_metrics,
+                                    "llama3-8b": bl3_metrics}}
                       }))
     print(card)
     print(json.dumps({"ok": True, "device": {

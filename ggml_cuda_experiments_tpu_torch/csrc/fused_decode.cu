@@ -1292,13 +1292,14 @@ GCT_EXPORT int layer_kernel(
 }
 
 // registers, shared memory and occupancy of the layer kernel's instances
-// (kernel_info in common.cuh): block 0 the whole layers, 1 the attention
-// block
-GCT_EXPORT int layer_kernel_info(int block, int* out) {
+// (kernel_info in common.cuh): block 0 the whole layers at the padded
+// intermediate Kd, 1 the attention block (its Kd is LK_DIM)
+GCT_EXPORT int layer_kernel_info(int block, int Kd, int* out) {
+  if (Kd < LK_DIM || Kd % LK_SEG) return (int)cudaErrorInvalidValue;
   return block ? kernel_info(layer_decode_kernel<true>, LK_THREADS,
                              lk_smem_bytes(LK_DIM), out)
                : kernel_info(layer_decode_kernel<false>, LK_THREADS,
-                             lk_smem_bytes(3 * LK_DIM), out);
+                             lk_smem_bytes(Kd), out);
 }
 
 GCT_EXPORT int kernels_clear_error() { return (int)cudaGetLastError(); }

@@ -127,8 +127,8 @@ SIGNATURES = {
     "q4_ladder_info": (_I, _I, _P),
     # D / dtype, D
     "flash_attention_info": (_I, _P),
-    # the layer kernel (0) or its attention block (1)
-    "layer_kernel_info": (_I, _P),
+    # the layer kernel (0) or its attention block (1), Kd
+    "layer_kernel_info": (_I, _I, _P),
     "vpu_attention_info": (_I, _I, _P),
     # clears and returns the runtime's last error
     "kernels_clear_error": (),

@@ -35,6 +35,7 @@ import traceback
 import torch
 
 from ggml_cuda_experiments_tpu_torch.parallel.mesh import BACKENDS
+from ggml_cuda_experiments_tpu_torch.utils.platform import require_cuda
 
 HOST_ENV = "GCT_HOST_ID"          # the launcher's host id of a rank
 
@@ -87,14 +88,17 @@ def _rank_main(fn, args, rank, world, backend, device, init_method,
         raise
 
 
-def run_spmd(fn, world: int, backend: str, device: str = "cpu",
+def run_spmd(fn, world: int, backend: str, device: str | None = None,
              timeout: float = 300.0, args: tuple = (), hosts: int = 1
              ) -> list:
     """``fn(*args)`` on ``world`` ranks over a ``backend`` process group;
     returns the results in rank order. ``fn`` must be importable by name
-    (a module-level function). ``device``: "cpu" or "cuda"."""
+    (a module-level function). ``device``: "cuda" or "cpu"; None is the
+    card (raising without one), as every entry point of the port."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if device is None:
+        device = require_cuda().type
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device {device!r}: 'cpu' or 'cuda'")
     if backend == "nccl" and (device != "cuda"

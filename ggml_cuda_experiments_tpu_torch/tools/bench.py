@@ -2,7 +2,7 @@
 
     python -m ggml_cuda_experiments_tpu_torch.tools.bench [--trace DIR]
     python -m ggml_cuda_experiments_tpu_torch.tools.bench --decode
-        [--model=tinyllama-1.1b|llama2-7b] [--exact] [--no-hperm]
+        [--model=tinyllama-1.1b|llama2-7b|llama3-8b] [--exact] [--no-hperm]
     python -m ggml_cuda_experiments_tpu_torch.tools.bench --cpu [--decode]
 
 Prints ONE JSON line on stdout, with bench.py's keys; context lines (the
@@ -402,8 +402,10 @@ def cpu_check(decode: bool, model: str) -> int:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--decode", action="store_true")
+    # llama2-70b is left out: decode_bench builds the dense model whole
+    # (~138 GB in bf16), more than one card holds
     ap.add_argument("--model", default="tinyllama-1.1b",
-                    choices=("tinyllama-1.1b", "llama2-7b"))
+                    choices=("tinyllama-1.1b", "llama2-7b", "llama3-8b"))
     ap.add_argument("--exact", action="store_true",
                     help="--decode without x_quant8")
     ap.add_argument("--no-hperm", action="store_true",

@@ -173,12 +173,25 @@ def test_decode_bench_gates_name_their_path_on_the_cpu():
     assert not bench.decode_config("llama2-7b", exact=True).x_quant8
 
 
-@pytest.mark.parametrize("argv", [["--cpu"], ["--cpu", "--decode"]])
+@pytest.mark.parametrize("argv", [["--cpu"], ["--cpu", "--decode"],
+                                  ["--cpu", "--decode", "--model=llama3-8b"]])
 def test_the_entry_runs_its_plain_versions_with_cpu(argv, capsys):
     assert bench.main(argv) == 0
     out = capsys.readouterr()
     assert out.out == ""                       # no JSON line: no time
     assert "not measured" in out.err
+    if "--model=llama3-8b" in argv:
+        assert "llama3-8b measured only on the card" in out.err
+
+
+def test_decode_takes_the_presets_one_card_holds(capsys):
+    """--model takes llama3-8b, as JAX bench.py takes any preset, but not
+    llama2-70b: decode_bench builds the dense model whole (~138 GB)."""
+    assert bench.decode_config("llama3-8b").x_quant8
+    assert bench.decode_config("llama3-8b").rope_theta == 5e5
+    with pytest.raises(SystemExit):
+        bench.main(["--cpu", "--decode", "--model=llama2-70b"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_roofline_sweep_variants():

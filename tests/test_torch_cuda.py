@@ -317,7 +317,8 @@ def test_quant_gemm_refuses_an_unaligned_x_base(dev, fmt):
     assert qm.LAUNCHES == before
 
 
-@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 2, 128),
+                                      (64, 8, 128)])
 @pytest.mark.parametrize("splits", [None, 1, 5])
 def test_flash_decode(dev, hq, hkv, d, splits):
     L, B, S = 3, 3, 320
@@ -782,7 +783,7 @@ def test_q4k_q8_matvec(dev, n, k):
     assert qm.LAUNCHES["q4k_q8_matvec"] == before + 1
 
 
-@pytest.mark.parametrize("kd", [4096, 8192])
+@pytest.mark.parametrize("kd", [4096, 8192, 16384])
 def test_fused_mlp(dev, kd):
     w_gu = qm.quantize(_randn(22, 2 * kd, 4096, scale=1 / 64).to(dev))
     w_down = qm.quantize(_randn(23, 256, kd, scale=1 / 64).to(dev))
@@ -931,14 +932,28 @@ def test_layer_step_and_model_step(dev, hkv, cache_dtype):
     LAYER_LENGTHS. The kernel's ring of 9 slots of 20 KB (units of 8 rows)
     wraps several times a layer, so it wraps within each layer and from
     layer to layer."""
-    layers = _layers(30, 3, hkv, dev)
-    kc = _randn(31, 3, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
-    vc = _randn(32, 3, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
-    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+    _layer_chain(dev, _layers(30, 3, hkv, dev), hkv, cache_dtype,
+                 LAYER_LENGTHS)
+
+
+def test_layer_step_and_model_step_at_llama3_width(dev):
+    """The same checks at llama3-8b's layer: GQA 32/8, the intermediate
+    padded to Kd 16384 (the kernel's largest shared memory, 227,728 bytes
+    a CTA) and rope_theta 5e5, at lengths around the tiles and the
+    splits."""
+    _layer_chain(dev, _layers(60, 2, 8, dev, kd=16384), 8, torch.bfloat16,
+                 (0, 63, 64, 300, 513, LAYER_S - 1), rope_theta=5e5)
+
+
+def _layer_chain(dev, layers, hkv, cache_dtype, lengths, **rope):
+    n = len(layers)
+    kc = _randn(31, n, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
+    vc = _randn(32, n, 1, hkv, LAYER_S, 128).to(dev, cache_dtype)
+    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128, **rope)
     h = _randn(33, 1, 4096).to(dev)
     packs = [lk.pack_layers([layer]) for layer in layers]
     m_pack = lk.pack_layers(layers)
-    for length in LAYER_LENGTHS:
+    for length in lengths:
         lens = torch.tensor([length], dtype=torch.int32, device=dev)
         hp, hk, kns, vns = h, h, [], []
         for li, pack in enumerate(packs):

@@ -1,8 +1,8 @@
 """Gate parity: for every ``ModelConfig`` flag combination (x_quant8,
 fuse_attn, fuse_mlp, fuse_layer, hperm) at the debug, tinyllama-1.1b,
-llama2-7b and llama3-8b shapes, the port's batch-1 decode step takes the
-JAX package's branch: the same fused kernels, or the same unfused
-products, in the same order.
+llama2-7b, llama3-8b and llama2-70b shapes, the port's batch-1 decode
+step takes the JAX package's branch: the same fused kernels, or the same
+unfused products, in the same order.
 
 Decided from shapes, no kernel runs: both packages' ``quantize_params``
 run with their quantizer swapped for one that makes an empty weight of the
@@ -29,7 +29,7 @@ from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
 from ggml_cuda_experiments_tpu_torch.ops import layer_kernel as tlk
 from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as tqm
 
-SHAPES = ("debug", "tinyllama-1.1b", "llama2-7b", "llama3-8b")
+SHAPES = ("debug", "tinyllama-1.1b", "llama2-7b", "llama3-8b", "llama2-70b")
 FLAGS = ("x_quant8", "fuse_attn", "fuse_mlp", "fuse_layer", "hperm")
 
 
@@ -240,9 +240,9 @@ def _branches(shape, monkeypatch, quantized=False):
 def test_decode_branches_match_jax(shape, monkeypatch):
     branches = _branches(shape, monkeypatch)
     # dim 4096 reaches all six: unfused, fused MLP, fused attention, both,
-    # model_step, layer_step; the small shapes stay unfused
-    assert len(branches) == (1 if shape in ("debug", "tinyllama-1.1b")
-                             else 6), branches
+    # model_step, layer_step; the small shapes and dim 8192 stay unfused
+    assert len(branches) == (6 if PRESETS[shape].dim == 4096 else 1), \
+        branches
 
 
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])

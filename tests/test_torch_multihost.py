@@ -9,6 +9,7 @@ single-rank Engine). No jax at the top of this module (the ranks import
 it)."""
 
 import pytest
+import torch
 
 from ggml_cuda_experiments_tpu_torch.parallel import multihost
 from ggml_cuda_experiments_tpu_torch.parallel.launch import run_spmd
@@ -52,6 +53,14 @@ def test_init_distributed_refusals():
         run_spmd(_pod_rank, 2, "mpi")
     with pytest.raises(ValueError, match="nccl"):
         run_spmd(_pod_rank, 2, "nccl", "cpu")
+
+
+def test_run_spmd_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """No device named: the ranks run on the card, and without one the
+    call raises before any rank starts (the CPU runs only when asked)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_spmd(_pod_rank, 2, "gloo")
 
 
 def _pod_rank():
