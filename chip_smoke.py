@@ -226,6 +226,22 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      generate_scan (token-equal; counts asserted, q4k_matvec by K and
      q4k_gemm by route too), TTFT / decode rate, graph ms a token, a
      profiled decode step, request 1 forced layer by layer; peak memory.
+  15. (after 14, on its own memory) llama2-7b with every q4_k linear in
+     the s6 encoding (quantize_params' tree, each linear through
+     quantize(..., enc="s6")), at full width and depth: each s6 kernel
+     (q4k_s6_matvec and q4k_s6_q8_matvec at wqkv, W_o, w_gu, w_down and
+     the head; q4k_s6_gemm there at M 4, 16, 512; fused_mlp_s6;
+     fused_attention_s6 at length 1024) against its plain version, its us
+     beside the Q4_K-E kernel's on the same shapes timed here and both
+     bounds; phase 5's prompts, 8 tokens each, through generate and
+     generate_scan (token-equal) in the preset's configuration and under
+     x_quant8, counts asserted (s6 kernels only: no Q4_K-E kernel and no
+     kernel-path scales_to_e), each forced layer by layer (2e-2 * max,
+     3e-2 under x_quant8), graph ms a token beside the s6 stream bound;
+     a ragged batch of 4 rows (prompts 17, 64, 200, 511, each prefilled
+     alone) decoded together through q4k_s6_gemm's stream route and
+     flash_decode over unequal lengths, each layer and the logits forced
+     against each row's batch-1 run (2e-2 * max), counts asserted.
 Each phase's wall seconds are printed on a line of their own ("phase 13:
 <seconds> s") and kept in the JSON line's "phase_seconds". The last line is
 the contract line {"ok": true, "device": {...}}; the line before it is the
@@ -384,6 +400,25 @@ KERNELS = {
     "vpu_attention_merge": (
         "ggml_cuda_experiments_tpu_torch/csrc/vpu_attention.cu",
         "ggml_cuda_experiments_tpu/ops/vpu_attention.py:53", []),
+    # the s6 instances of the q4_k kernels (phase 15)
+    "q4k_s6_matvec": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_matmul.cu",
+                      "ggml_cuda_experiments_tpu/ops/quant_matmul.py:670",
+                      ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1034",
+                       "ggml_cuda_experiments_tpu/ops/quant_matmul.py:616"]),
+    "q4k_s6_gemm": ("ggml_cuda_experiments_tpu_torch/csrc/q4k_gemm.cu",
+                    "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1084",
+                    ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1154",
+                     "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1115"]),
+    "q4k_s6_q8_matvec": (
+        "ggml_cuda_experiments_tpu_torch/csrc/q4k_q8.cu",
+        "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1465",
+        ["ggml_cuda_experiments_tpu/ops/quant_matmul.py:1540"]),
+    "fused_mlp_s6": ("ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
+                     "ggml_cuda_experiments_tpu/ops/quant_matmul.py:1937",
+                     []),
+    "fused_attention_s6": (
+        "ggml_cuda_experiments_tpu_torch/csrc/fused_decode.cu",
+        "ggml_cuda_experiments_tpu/ops/fused_attention.py:76", []),
 }
 # the probe kernels (#20): the q4_k stage ladder (one template, a mode per
 # JAX rung; floor is also bench.py's stream-only ceiling), q8_prep, the
@@ -2002,10 +2037,11 @@ def _time_requests(params, cfg, prompts, requests, outs, dev, cache_kw=None):
     return timing
 
 
-def _check_forced(params, cfg, prompt, forced, dev, cache_kw=None):
+def _check_forced(params, cfg, prompt, forced, dev, cache_kw=None,
+                  tol=2e-2):
     """The prompt, then each token of ``forced`` as a decode step, through
     ``_forced_forward``: every layer and the head against the plain
-    versions on the kernel path's own input (2e-2 * max), on two caches
+    versions on the kernel path's own input (``tol`` * max), on two caches
     made with ``cache_kw``."""
     import torch
     from ggml_cuda_experiments_tpu_torch.models import llama
@@ -2022,11 +2058,11 @@ def _check_forced(params, cfg, prompt, forced, dev, cache_kw=None):
         err, sc = float((lk - lp).abs().max()), float(lp.abs().max())
         tag = "prefill" if step == 0 else f"decode {step}"
         li, lerr = max(enumerate(worst), key=lambda t: t[1])
-        ok = err <= 2e-2 * sc and lerr <= 2e-2
+        ok = err <= tol * sc and lerr <= tol
         log(f"  teacher-forced {tag:9s} logits max_abs_err {err:.4e} vs "
-            f"2e-2*{sc:.4e}; worst layer {li}: {lerr:.3e} of max "
-            f"(bound 2e-2); argmax {int(lk.argmax())} / {int(lp.argmax())} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{tol:g}*{sc:.4e}; worst layer {li}: {lerr:.3e} of max "
+            f"(bound {tol:g}); argmax {int(lk.argmax())} / "
+            f"{int(lp.argmax())} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"{tag}: logits {err} vs {sc}, layer {li} {lerr}")
     if failed:
@@ -4481,13 +4517,14 @@ def _step_profile(params, cfg, prompt, dev, parts, steps: int = 2):
 
 
 def _generate_and_scan(params, cfg, prompts, requests, tag, step, head,
-                       gemms, by_k=None):
+                       gemms, by_k=None, gemm="q4k_gemm",
+                       matvec="q4k_matvec"):
     """``generate`` on ``requests`` with its launches asserted: ``step``
-    ({kernel: launches}) a decode step; a prefill ``gemms`` q4k_gemm (on
+    ({kernel: launches}) a decode step; a prefill ``gemms`` ``gemm`` (on
     ``gemm_route``'s route, asserted too), one ``head`` launch (the last
     row), flash_attention and rope_pack as ``_prefill_counts`` has them;
-    q4k_matvec by K against ``by_k`` ({K: launches} over the run) where
-    given. Then ``generate_scan`` (each request's decode step captured once
+    ``matvec``'s launches by K against ``by_k`` ({K: launches} over the
+    run) where given. Then ``generate_scan`` (each request's decode step captured once
     into a CUDA graph and replayed) token-equal to generate, its launches
     asserted: the prefills, one eager step and its capture a request (the
     replays are not counted). Returns ({path: counts}, generate's
@@ -4501,24 +4538,24 @@ def _generate_and_scan(params, cfg, prompts, requests, tag, step, head,
     dev = prompts[0].device
 
     def want(decode_steps):
-        w = _prefill_counts(L, requests)
-        w["q4k_gemm"] = gemms * sum(1 for p, _ in requests if 2 <= p <= 512)
+        w = _prefill_counts(L, requests, gemm=gemm)
+        w[gemm] = gemms * sum(1 for p, _ in requests if 2 <= p <= 512)
         w[head] += R
         for k, v in step.items():
             w[k] += v * decode_steps
         return w
 
     tally = collections.Counter()
-    matvec = qm.q4k_matvec
+    matvec_fn = getattr(qm, matvec)
 
-    def tallied(x, w):                   # q4k_matvec launches by K
+    def tallied(x, w):                   # the matvec's launches by K
         tally[w.array_shape[1]] += 1
-        return matvec(x, w)
+        return matvec_fn(x, w)
 
     routes0 = dict(qm.GEMM_ROUTE_LAUNCHES)
     with contextlib.ExitStack() as stack:
-        stack.callback(setattr, qm, "q4k_matvec", matvec)
-        qm.q4k_matvec = tallied
+        stack.callback(setattr, qm, matvec, matvec_fn)
+        setattr(qm, matvec, tallied)
         outs, counts = _drive_generate(params, cfg, prompts, requests,
                                        f"generate {tag}")
     routes = {r: n - routes0.get(r, 0)
@@ -4528,15 +4565,15 @@ def _generate_and_scan(params, cfg, prompts, requests, tag, step, head,
     r_want = {r: 0 for r in routes}
     for p, _ in requests:
         r_want[qm.gemm_route(p)] += gemms
-    log(f"  q4k_matvec by K {dict(tally)}" + (f" (want {by_k})" if by_k
-                                               else "")
-        + f"; q4k_gemm by route {routes} (want {r_want})")
+    log(f"  {matvec} by K {dict(tally)}" + (f" (want {by_k})" if by_k
+                                             else "")
+        + f"; {gemm} by route {routes} (want {r_want})")
     if routes != r_want or (by_k is not None and tally != by_k):
-        raise AssertionError(f"{tag}: q4k_matvec by K {dict(tally)}, "
-                             f"q4k_gemm by route {routes}")
+        raise AssertionError(f"{tag}: {matvec} by K {dict(tally)}, "
+                             f"{gemm} by route {routes}")
     per_step = ", ".join(f"{v} {k}" for k, v in step.items())
     log(f"  launch counts equal what the path implies (per decode step "
-        f"{per_step}; per prefill {gemms} q4k_gemm, 1 {head}, {L} "
+        f"{per_step}; per prefill {gemms} {gemm}, 1 {head}, {L} "
         f"flash_attention, {L} rope_pack at prompts 128 and 512)")
     paths = {f"generate_{name}": counts}
 
@@ -4803,7 +4840,7 @@ def phase_llama3(dev, seed, res: Results, card):
                                metrics["bound_ms"], card, tag))
     metrics["profile_x_quant8"] = _step_profile(
         params, xq8, prompts[0], dev,
-        {"fused_attention": "layer_decode_kernel<true>",
+        {"fused_attention": "layer_decode_kernel<true, false>",
          "fused_mlp": "fused_mlp_kernel"})
 
     # (c) bench.py's decode: model_step, forced layer by layer, then the
@@ -4892,6 +4929,385 @@ def phase_llama2_70b(dev, seed, res: Results, card):
     return paths, metrics
 
 
+# ---------------------------------------------------------------------------
+# 15. llama2-7b in q4_k's s6 encoding
+# ---------------------------------------------------------------------------
+
+S6_RAGGED = (17, 64, 200, 511)       # the ragged batch: a prompt a row
+S6_RAGGED_STEPS = 4
+
+
+def _s6_params(dense, **kw):
+    """``dense`` quantized by ``llama.quantize_params`` to q4_k with every
+    linear in the s6 encoding: its quantizer called as ``quantize(w, fmt,
+    enc="s6")`` (quantize_params takes no ``enc``, as the reference's takes
+    none), so the tree has quantize_params' layout and MLP pad (7B: 11008
+    -> 12288)."""
+    import functools
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, llama, "quantize", llama.quantize)
+        llama.quantize = functools.partial(qm.quantize, enc="s6")
+        return llama.quantize_params(dense, "q4_k", **kw)
+
+
+def _s6_case(res, name, case, calls, nbytes, tol, ops, kind,
+             headline=False):
+    """``calls`` = (s6 call(i), Q4_K-E call(i)), each cycling its weight
+    copies: the s6 one against its plain version and timed (a graph of
+    ``qgemm_bench.CHAIN`` calls), the e one timed the same way here;
+    ``nbytes`` = (s6, e) bytes a call must move. A call's further outputs
+    (k_new, v_new) within 2e-2 * max(1, max). Logs both times beside their
+    bounds; returns (s6 ms, e ms)."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    from ggml_cuda_experiments_tpu_torch.utils.platform import plain_versions
+    spec = _spec()
+    c6, ce = calls
+    y = c6(0)
+    with plain_versions():
+        ref = c6(0)
+    y, ref = ((t,) if isinstance(t, torch.Tensor) else t for t in (y, ref))
+    err, sc = rel_err(y[0], ref[0])
+    for gk, rk in zip(y[1:], ref[1:]):
+        e2, s2 = rel_err(gk, rk)
+        if e2 > 2e-2 * max(1.0, s2):
+            raise AssertionError(f"{name} {case}: k/v error {e2}")
+    ms6 = time_ms(c6, calls=qb.CHAIN)
+    mse = time_ms(ce, calls=qb.CHAIN)
+    with plain_versions():
+        pms = time_ms(c6, calls=2, replays=3)
+    b6, be = (spec.bound_ms(n, ops, kind) for n in nbytes)
+    res.add(name, case, err, sc, tol, ms6, pms, b6, headline=headline)
+    log(f"    s6 {1e3 * ms6:.2f} us ({100 * b6[0] / ms6:.1f}% of its bound "
+        f"{1e3 * b6[0]:.2f} us); e {1e3 * mse:.2f} us ({100 * be[0] / mse:.1f}"
+        f"% of {1e3 * be[0]:.2f} us); s6 / e {ms6 / mse:.3f}")
+    return ms6, mse
+
+
+def _s6_kernels(res, params, e_layers, e_head, cfg, dev, seed):
+    """Every s6 kernel at the 7B shapes on the model's own weights, each
+    beside the Q4_K-E kernel of its shape (``e_layers`` / ``e_head``: the
+    same dense weights quantized to Q4_K-E): both matvecs at every linear
+    and the head, q4k_s6_gemm at M 4, 16 and 512 on each linear,
+    fused_mlp_s6, fused_attention_s6 at 1024 keys. Returns {case: (s6 us,
+    e us)}."""
+    import torch
+    from ggml_cuda_experiments_tpu_torch.ops import fused_attention as fat
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import qgemm_bench as qb
+    from ggml_cuda_experiments_tpu_torch.utils.bench import copies_for
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    sets = [(k, [lay[k] for lay in params["layers"]],
+             [lay[k] for lay in e_layers]) for k in ("wqkv", "wo", "w_gu",
+                                                     "w_down")]
+    sets.append(("lm_head", [params["lm_head"]], [e_head]))
+    for key, s6, e in sets:
+        s6 = s6[:copies_for(s6[0].nbytes)]
+        e = e[:copies_for(e[0].nbytes)]
+        n, k = s6[0].array_shape
+        x = torch.randn((1, k), generator=g, device=dev)
+        io = 4 * (k + n)
+        for f6, fe, kind in (("q4k_s6_matvec", "q4k_matvec", "f32"),
+                             ("q4k_s6_q8_matvec", "q4k_q8_matvec", "int8")):
+            f6_, fe_ = getattr(qm, f6), getattr(qm, fe)
+            log(f"  {f6} {key} N={n} K={k} ({len(s6)} / {len(e)} copies)")
+            out[f"{f6} {key}"] = _s6_case(
+                res, f6, f"llama2-7b s6 {key} N={n} K={k}",
+                (lambda i: f6_(x, s6[i % len(s6)]),
+                 lambda i: fe_(x, e[i % len(e)])),
+                (s6[0].nbytes + io, e[0].nbytes + io), 1e-4, 2 * n * k,
+                kind, headline=key == ("lm_head" if "q8" in f6 else "w_gu"))
+        for m in (4, 16, 512) if key != "lm_head" else ():
+            xm = qb.gemm_x(m, n, k, dev)
+            io = 2 * m * k + 4 * m * n
+            log(f"  q4k_s6_gemm {key} M={m} N={n} K={k} ({qm.gemm_route(m)})")
+            out[f"q4k_s6_gemm {key} M={m}"] = _s6_case(
+                res, "q4k_s6_gemm", f"llama2-7b s6 {key} M={m} N={n} K={k} "
+                f"({qm.gemm_route(m)})",
+                (lambda i: qm.q4k_s6_gemm(xm, s6[i % len(s6)]),
+                 lambda i: qm.q4k_gemm(xm, e[i % len(e)])),
+                (s6[0].nbytes + io, e[0].nbytes + io), 2e-2, 2 * m * n * k,
+                "bf16", headline=(key, m) == ("w_gu", 16))
+        torch.cuda.empty_cache()
+    x = torch.randn((1, cfg.dim), generator=g, device=dev)
+    lays = (params["layers"][:2], e_layers[:2])
+    nb = [lay[0]["w_gu"].nbytes + lay[0]["w_down"].nbytes for lay in lays]
+    gu, dn = lays[0][0]["w_gu"].array_shape, lays[0][0]["w_down"].array_shape
+    log(f"  fused_mlp_s6 w_gu {gu[0]}x{gu[1]}, w_down {dn[0]}x{dn[1]} "
+        "(2 layers)")
+    out["fused_mlp_s6"] = _s6_case(
+        res, "fused_mlp_s6", f"llama2-7b s6 MLP w_gu {gu[0]}x{gu[1]}, w_down "
+        f"{dn[0]}x{dn[1]} (2 layers)",
+        tuple(lambda i, ls=ls: qm.mlp_fused(x, ls[i % len(ls)]["w_gu"],
+                                            ls[i % len(ls)]["w_down"])
+              for ls in lays),
+        tuple(b + 8 * cfg.dim for b in nb), 5e-3,
+        2 * (gu[0] * gu[1] + dn[0] * dn[1]), "int8", headline=True)
+    hkv, S, length = cfg.n_kv_heads, 1024, 1023
+    kc = torch.randn((2, 1, hkv, S, cfg.head_dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 1, hkv, S, cfg.head_dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=hkv, head_dim=cfg.head_dim)
+    lays = (params["layers"][:3], e_layers[:3])
+    nb = [qb.attn_bytes((x, [(ls[0]["wqkv"], ls[0]["wo"])], kc, vc, lens,
+                         kw))[0] for ls in lays]
+    log(f"  fused_attention_s6 Hq={cfg.n_heads} Hkv={hkv} len {length + 1} "
+        "(3 layers)")
+    out["fused_attention_s6"] = _s6_case(
+        res, "fused_attention_s6", f"llama2-7b s6 Hq={cfg.n_heads} "
+        f"Hkv={hkv} len {length + 1} (3 layers)",
+        tuple(lambda i, ls=ls: fat.attention_fused(
+            x, ls[i % len(ls)]["wqkv"], ls[i % len(ls)]["wo"], kc, vc, lens,
+            i % 2, **kw) for ls in lays),
+        nb, 5e-3, 2 * (lays[0][0]["wqkv"].array_shape[0] + 4096) * 4096,
+        "int8", headline=True)
+    return {k: [1e3 * v for v in t] for k, t in out.items()}
+
+
+def _ragged_batch(params, cfg, dev, seed):
+    """A ragged batch: the ``S6_RAGGED`` prompts, each prefilled alone into
+    a one-row cache and decoded alone for ``S6_RAGGED_STEPS`` greedy steps
+    (its batch-1 run, the MLP unfused: every linear the exact f32 matvec),
+    then the rows' caches as they were after their prefills copied into one
+    B-row ``KVCache`` (cache rows and ``lengths``) and decoded together,
+    teacher-forced with each row's batch-1 tokens: every linear on
+    q4k_s6_gemm's stream route, flash_decode over the rows' unequal lengths,
+    launches asserted. Each batched step runs with every layer's input
+    forced to the batch-1 run's of that row (``_forward``'s layer_hook):
+    each layer's output and the logits within 2e-2 * max of the batch-1
+    run's, greedy tokens equal or departing at a near-tie (the batch-1
+    run's top two within 2e-2 * max). The batch decoded again with only its
+    tokens forced (every layer free) is logged."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    cfg1 = dataclasses.replace(cfg, fuse_mlp=False)
+    L, B, steps, S = cfg.n_layers, len(S6_RAGGED), S6_RAGGED_STEPS, 1024
+    gemm = "q4k_s6_gemm"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = [llama.KVCache.create(cfg1, B, S, device=dev) for _ in "ff"]
+    rows = []
+    for b, n in enumerate(S6_RAGGED):
+        prompt = torch.randint(1, cfg.vocab_size, (1, n), generator=g,
+                               device=dev, dtype=torch.int64)
+        cache = llama.KVCache.create(cfg1, 1, S, device=dev)
+        logits, cache = llama.prefill(params, cfg1, prompt, cache)
+        for c in batch:
+            c.k[:, b] = cache.k[:, 0]
+            c.v[:, b] = cache.v[:, 0]
+            c.lengths[b] = cache.lengths[0]
+        row = {"tokens": [], "h": [], "logits": []}
+        for _ in range(steps):
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            rec = {}
+
+            def hook(li, h, b0, rec=rec):
+                rec[li] = h.clone()
+                return h
+            logits, cache = llama._forward(
+                params, cfg1, tok[:, None], cache, cache.lengths[:, None]
+                .clone(), decode=True, layer_hook=hook)
+            row["tokens"].append(tok)
+            row["h"].append(rec)
+            row["logits"].append(logits[0].float())
+        rows.append(row)
+        del cache
+    log(f"  ragged batch: rows of {list(S6_RAGGED)} tokens, each prefilled "
+        f"and decoded alone for {steps} greedy steps (the batch-1 run)")
+    torch.cuda.synchronize()
+    _reset_counts()
+    routes0 = dict(qm.GEMM_ROUTE_LAUNCHES)
+    worst_layer, worst_logits, departures = 0.0, 0.0, []
+    cache = batch[0]
+    for s in range(steps):
+        toks = torch.cat([r["tokens"][s] for r in rows])
+        errs = []
+
+        def force(li, h, b0, s=s, errs=errs):
+            want = torch.cat([r["h"][s][li] for r in rows])
+            if li > 0:
+                errs.append(float(((h - want).float().abs().amax((1, 2))
+                                   / want.float().abs().amax((1, 2))).max()))
+            return want
+        logits, cache = llama._forward(
+            params, cfg1, toks[:, None], cache, cache.lengths[:, None].clone(),
+            decode=True, layer_hook=force)
+        worst_layer = max(worst_layer, max(errs))
+        log(f"    step {s}: each layer's worst row "
+            + " ".join(f"{e:.2e}" for e in errs))
+        for b, r in enumerate(rows):
+            want = r["logits"][s]
+            got = logits[b].float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("ragged batch: non-finite logits")
+            err = float((got - want).abs().max() / want.abs().max())
+            worst_logits = max(worst_logits, err)
+            if int(got.argmax()) != int(want.argmax()):
+                top2 = torch.topk(want, 2).values
+                departures.append((b, s, float(top2[0] - top2[1]),
+                                   float(want.abs().max())))
+    counts = _counts()
+    routes = {r: n - routes0.get(r, 0)
+              for r, n in qm.GEMM_ROUTE_LAUNCHES.items()}
+    want = {k: 0 for k in counts}
+    want.update({gemm: steps * (4 * L + 1), "flash_decode": steps * L,
+                 "lse_merge": steps * L})
+    _assert_counts(f"ragged batch of {B} ({steps} steps)", counts, want)
+    if routes != {"stream": steps * (4 * L + 1), "tc": 0}:
+        raise AssertionError(f"ragged batch: {gemm} by route {routes}")
+    log(f"  ragged batch of {B} at lengths {cache.lengths.tolist()} after "
+        f"{steps} steps, every layer's input forced to its row's batch-1 "
+        f"run: worst layer {worst_layer:.3e} of max, worst logits "
+        f"{worst_logits:.3e} of max (bound 2e-2); greedy departures (row, "
+        f"step, top-2 gap, max) {departures}; {gemm} by route {routes}")
+    far = [d for d in departures if d[2] > 2e-2 * d[3]]
+    if worst_layer > 2e-2 or worst_logits > 2e-2 or far:
+        raise AssertionError(f"ragged batch: layer {worst_layer}, logits "
+                             f"{worst_logits}, departures {far}")
+    free, cache, gaps = 0.0, batch[1], []
+    for s in range(steps):
+        toks = torch.cat([r["tokens"][s] for r in rows])
+        logits, cache = llama.decode_step(params, cfg1, toks, cache)
+        for b, r in enumerate(rows):
+            want = r["logits"][s]
+            free = max(free, float((logits[b].float() - want).abs().max()
+                                   / want.abs().max()))
+            if int(logits[b].argmax()) != int(want.argmax()):
+                top2 = torch.topk(want, 2).values
+                gaps.append((b, s, float((top2[0] - top2[1])
+                                         / want.abs().max())))
+    log(f"  the same batch with only its tokens forced ({L} layers free): "
+        f"logits within {free:.3e} of max of the batch-1 runs' (printed), "
+        f"greedy tokens equal at {B * steps - len(gaps)} of {B * steps}; "
+        f"departures (row, step, top-2 gap of max) {gaps}")
+    return {"forced_layer": worst_layer, "forced_logits": worst_logits,
+            "departures": departures, "free_logits": free,
+            "free_departures": gaps, "counts": counts}
+
+
+def phase_s6(dev, seed, res: Results, card):
+    """llama2-7b at full width and depth with every q4_k linear (the head
+    too) in the s6 encoding (``_s6_params``): its kernels against their
+    plain versions beside the Q4_K-E kernels' times (``_s6_kernels``); the
+    preset's configuration (fused_mlp_s6, the rest q4k_s6_matvec a row) and
+    x_quant8 (fused_attention_s6 + fused_mlp_s6, q4k_s6_q8_matvec at the
+    head) through generate and generate_scan with their counts (no Q4_K-E
+    kernel launches and no kernel-path ``scales_to_e``), each forced layer
+    by layer; the graph step's ms a token beside the s6 stream bound; a
+    ragged batch (``_ragged_batch``). The layer kernel is shut for s6, as
+    in the reference."""
+    import dataclasses
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    from ggml_cuda_experiments_tpu_torch.tools.bench import stream_bytes
+    from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
+    cfg = PRESETS["llama2-7b"]
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    log(f"== 15. {cfg.name} in q4_k's s6 encoding: dim {cfg.dim}, {L} "
+        "layers, every linear and the head s6, bf16 cache")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = llama.init_weights(cfg, seed=seed + 70, device=dev)
+    params = _s6_params(dense)
+    e_params = llama.quantize_params(dense, "q4_k")  # the same weights, e
+    del dense
+    torch.cuda.empty_cache()
+    metrics = _built(params, t0, card, f"{cfg.name} s6 (init_weights + "
+                     "quantize_params with an s6 quantizer)")
+    encs = {w.enc for lay in params["layers"] for w in lay.values()
+            if isinstance(w, qm.QuantLinear)} | {params["lm_head"].enc}
+    e_stream = stream_bytes(e_params)
+    log(f"  encodings {sorted(encs)}; w_down "
+        f"{params['layers'][0]['w_down'].array_shape}; the Q4_K-E model of "
+        f"these shapes streams {e_stream:.0f} bytes a token "
+        f"({metrics['stream_bytes'] / e_stream:.4f} of it)")
+    if encs != {"s6"}:
+        raise AssertionError(f"s6 model: encodings {encs}")
+    from ggml_cuda_experiments_tpu_torch.ops import _build
+    from ggml_cuda_experiments_tpu_torch.ops.probes import _info
+    for k in (4096, 12288):             # the exact matvec's ring by K
+        log(f"  q4_matvec_kernel K={k}: e "
+            f"{_info(_build.lib().q4_matvec_info, 0, k)}; s6 "
+            f"{_info(_build.lib().q4_matvec_info, 2, k)}")
+    metrics["kernels_us"] = _s6_kernels(res, params, e_params["layers"],
+                                        e_params["lm_head"], cfg, dev,
+                                        seed + 71)
+    prompts = _prompts(cfg, MIXTRAL_REQUESTS, seed + 72, dev)
+    steps, R = sum(n for _, n in MIXTRAL_REQUESTS), len(MIXTRAL_REQUESTS)
+
+    expanded = []
+    expand = qm.scales_to_e
+
+    def counted(ql):                     # kernel-path expansions of s6
+        if ql.s6 and kernels_for(ql.qs):
+            expanded.append(ql.shape)
+        return expand(ql)
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, qm, "scales_to_e", expand)
+        qm.scales_to_e = counted
+        # (a) the preset's configuration: fused_mlp_s6, the rest a matvec
+        paths, outs = _generate_and_scan(
+            params, cfg, prompts, MIXTRAL_REQUESTS, f"{cfg.name} s6",
+            {"q4k_s6_matvec": 2 * L + 1, "fused_mlp_s6": L,
+             "flash_decode": L, "lse_merge": L}, "q4k_s6_matvec", 4 * L,
+            by_k={cfg.dim: (2 * L + 1) * steps + R}, gemm="q4k_s6_gemm",
+            matvec="q4k_s6_matvec")
+        timing = {"generate": _time_requests(params, cfg, prompts,
+                                             MIXTRAL_REQUESTS, outs, dev)}
+        # (b) x_quant8: fused_attention_s6 + fused_mlp_s6, the int8 head
+        xq8 = dataclasses.replace(cfg, x_quant8=True)
+        tag = f"{cfg.name} s6 x_quant8"
+        p8, outs8 = _generate_and_scan(
+            params, xq8, prompts, MIXTRAL_REQUESTS, tag,
+            {"q4k_s6_q8_matvec": 1, "fused_attention_s6": L,
+             "fused_mlp_s6": L}, "q4k_s6_q8_matvec", 4 * L,
+            by_k={cfg.dim: steps + R}, gemm="q4k_s6_gemm",
+            matvec="q4k_s6_q8_matvec")
+        paths.update(p8)
+        timing["generate_x_quant8"] = _time_requests(
+            params, xq8, prompts, MIXTRAL_REQUESTS, outs8, dev)
+        metrics["ragged"] = _ragged_batch(params, cfg, dev, seed + 73)
+        paths["ragged_batch_s6"] = metrics["ragged"].pop("counts")
+    log(f"  kernel-path scales_to_e calls on s6 weights: {len(expanded)} "
+        "(must be 0)")
+    if expanded:
+        raise AssertionError(f"s6 expanded on the kernel path: {expanded}")
+    _check_forced(params, cfg, prompts[0], _forced_tokens(outs, dev), dev)
+    _check_forced(params, xq8, prompts[0], _forced_tokens(outs8, dev), dev,
+                  tol=3e-2)
+    metrics["preset"] = _graph_rate(params, cfg, prompts[0],
+                                    timing["generate"], metrics["bound_ms"],
+                                    card, f"{cfg.name} s6")
+    metrics["x_quant8"] = _graph_rate(params, xq8, prompts[0],
+                                      timing["generate_x_quant8"],
+                                      metrics["bound_ms"], card, tag)
+    # the Q4_K-E model of the same weights, its graph step here
+    e_ms = {tag_: 1e3 * sb.plain_per_token(e_params, c, prompts[0])
+            for tag_, c in (("preset", cfg), ("x_quant8", xq8))}
+    log(f"  [{card}] the same weights in Q4_K-E: graph "
+        + ", ".join(f"{t} {ms:.3f} ms a token (s6 / e "
+                    f"{metrics[t]['graph_ms_per_token'] / ms:.3f})"
+                    for t, ms in e_ms.items())
+        + f"; the e stream bound {1e3 * e_stream / _spec().hbm_bytes_per_s:.3f}"
+        " ms")
+    metrics.update(e_stream_bytes=e_stream, e_graph_ms_per_token=e_ms)
+    e_params.clear()
+    _phase_end(params, metrics, t_phase, card, "phase 15")
+    return paths, metrics
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -4975,11 +5391,13 @@ def main() -> int:
     bl3_metrics = l3_metrics.pop("bench_decode")
     l70_paths, l70_metrics = timed("14", phase_llama2_70b, dev, args.seed,
                                    res, card)
+    s6_paths, s6_metrics = timed("15", phase_s6, dev, args.seed, res, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
              **vpu_paths, **b7_paths, **bench_paths, **par_paths,
-             **ckpt_paths, **moe_paths, **l3_paths, **l70_paths}
+             **ckpt_paths, **moe_paths, **l3_paths, **l70_paths,
+             **s6_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -5017,6 +5435,7 @@ def main() -> int:
                       "mixtral": moe_metrics,
                       "llama3-8b": l3_metrics,
                       "llama2-70b": l70_metrics,
+                      "llama2-7b s6": s6_metrics,
                       "phase_seconds": PHASE_SECONDS,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
                                 "decode": {

@@ -36,6 +36,13 @@
 // memory, in the order the consumer warps use them, and never waits at a
 // grid barrier; the consumers wait there only for activations.
 //
+// The Q4_K "s6" weights (quant_formats.cuh: Q4KS6) take their own
+// instances: fused_mlp_s6 (fused_mlp_s6_kernel, q8_rows through the s6
+// trait) and fused_attention_s6 (layer_decode_kernel<true, true>: the
+// attention block with an s6 slot layout, below); the Q4_K-E instances are
+// built from the same code unchanged. The layer kernel takes no s6 weight, as in
+// the JAX package.
+//
 // Numerics are the JAX kernels' (see q8_common.cuh and the Python
 // modules): q roped in f32 with 1/sqrt(D) folded in, k roped in f32 then
 // rounded to the cache type, v rounded, the new token at position
@@ -91,6 +98,13 @@ __device__ __forceinline__ Weights weights_of(const void* const* p) {
     w.em[i] = static_cast<const bf16*>(p[3 * i + 2]);
   }
   return w;
+}
+
+// the s6 scale trait of weight i (its slots w[3 i + 1], w[3 i + 2]: sm,
+// dd)
+__device__ __forceinline__ Q4KS6 s6_of(const void* const* w, int i) {
+  return Q4KS6{static_cast<const int8_t*>(w[3 * i + 1]),
+               static_cast<const bf16*>(w[3 * i + 2])};
 }
 
 // ------------------------------------------------------------ sources
@@ -172,6 +186,25 @@ fused_mlp_kernel(FusedArgs p) {
           [&](int n, float v) { out[n] = v; });
 }
 
+// fused_mlp's s6 instance: the same phases, the rows through the s6 trait
+__global__ void __launch_bounds__(Q8_THREADS, 1)
+fused_mlp_s6_kernel(FusedArgs p) {
+  extern __shared__ __align__(16) unsigned char fd_smem[];
+  cg::grid_group grid = cg::this_grid();
+  unsigned char* act_base = fd_smem + RED_BYTES + 4 * p.dim;
+  const Q8Act ax = q8_act_at(act_base, p.dim / 32);
+  q8_quant(GlobalVec{p.x}, ax);
+  float* ygu = p.ygu;
+  q8_rows(static_cast<const uint8_t*>(p.w[6]), s6_of(p.w, 2), 2 * p.Kd, ax,
+          [&](int n, float v) { ygu[n] = v; });
+  grid.sync();
+  const Q8Act am = q8_act_at(act_base, p.Kd / 32);
+  q8_quant(MidVec{p.ygu, p.Kd}, am);
+  float* out = p.out;
+  q8_rows(static_cast<const uint8_t*>(p.w[9]), s6_of(p.w, 3), p.Nd, am,
+          [&](int n, float v) { out[n] = v; });
+}
+
 // ------------------------------------------------------------ layer kernel
 //
 // layer_kernel: one CTA an SM (cooperative), 8 consumer warps and one
@@ -223,6 +256,15 @@ constexpr int LK_SEG = 4096;                    // K of a unit
 constexpr int LK_QS = LK_SEG / 2;               // qs bytes a row a unit
 constexpr int LK_SC = LK_SEG / 32 * 2;          // es (em) bytes a row a unit
 constexpr int LK_SLOT = LK_ROWS * (LK_QS + 2 * LK_SC);   // 20 KB
+// s6 (fused_attention_s6, K = LK_SEG: one unit a row group): a row's unit
+// is its qs, its 128 sc and 128 mn bytes and its 16 superblocks' bf16 d
+// and dmin (32 bytes each), the rows of a group back to back in each
+// array; a slot [8][qs] | [8][sc | mn] | [8][d | dmin], 18.5 KB of the 20,
+// copied by three bulk copies
+constexpr int LK_S6_SC = LK_SEG / 32;           // sc (mn) bytes a row a unit
+constexpr int LK_S6_D = LK_SEG / 256 * 2;       // d (dmin) bytes a row a unit
+constexpr int LK_S6_ROW = LK_QS + 2 * LK_S6_SC + 2 * LK_S6_D;
+static_assert(LK_ROWS * LK_S6_ROW <= LK_SLOT, "an s6 unit fits a slot");
 constexpr int LK_KV = 8192;                     // K (and V) bytes a tile
 constexpr int LK_STAGES = 9;
 // a cache of at most this many tiles keeps one split: its CTA then merges
@@ -450,25 +492,43 @@ struct Producer {
   }
 
   // rows rg of one q4_k matrix [., K], in units of LK_ROWS rows x 4096
+  // (S6, K = LK_SEG only: w[1] the sc | mn bytes [., K / 16], w[2] the
+  // d | dmin bf16 [., K / 128])
+  template <bool S6 = false>
   __device__ __forceinline__ void matrix(const void* const* w, Range rg,
                                          int K) {
     const uint8_t* qs = static_cast<const uint8_t*>(w[0]);
     const uint8_t* es = static_cast<const uint8_t*>(w[1]);
     const uint8_t* em = static_cast<const uint8_t*>(w[2]);
-    const int segs = K / LK_SEG;
-    for (int r = rg.r0; r < rg.r1; r += LK_ROWS) {
-      const int nr = min(LK_ROWS, rg.r1 - r);
-      for (int sg = 0; sg < segs; ++sg) {
-        const unsigned dst = begin(nr * (LK_QS + 2 * LK_SC));
-        if (lane < nr) {
-          const size_t row = (size_t)(r + lane);
-          copy(dst + lane * LK_QS, qs + row * (K / 2) + sg * LK_QS, LK_QS);
-          copy(dst + LK_ROWS * LK_QS + lane * LK_SC,
-               es + row * (K / 16) + sg * LK_SC, LK_SC);
-          copy(dst + LK_ROWS * (LK_QS + LK_SC) + lane * LK_SC,
-               em + row * (K / 16) + sg * LK_SC, LK_SC);
+    if constexpr (S6) {
+      for (int r = rg.r0; r < rg.r1; r += LK_ROWS) {
+        const int nr = min(LK_ROWS, rg.r1 - r);
+        const unsigned dst = begin(nr * LK_S6_ROW);
+        if (lane == 0) {
+          copy(dst, qs + (size_t)r * LK_QS, nr * LK_QS);
+          copy(dst + LK_ROWS * LK_QS, es + (size_t)r * 2 * LK_S6_SC,
+               nr * 2 * LK_S6_SC);
+          copy(dst + LK_ROWS * (LK_QS + 2 * LK_S6_SC),
+               em + (size_t)r * 2 * LK_S6_D, nr * 2 * LK_S6_D);
         }
         end();
+      }
+    } else {
+      const int segs = K / LK_SEG;
+      for (int r = rg.r0; r < rg.r1; r += LK_ROWS) {
+        const int nr = min(LK_ROWS, rg.r1 - r);
+        for (int sg = 0; sg < segs; ++sg) {
+          const unsigned dst = begin(nr * (LK_QS + 2 * LK_SC));
+          if (lane < nr) {
+            const size_t row = (size_t)(r + lane);
+            copy(dst + lane * LK_QS, qs + row * (K / 2) + sg * LK_QS, LK_QS);
+            copy(dst + LK_ROWS * LK_QS + lane * LK_SC,
+                 es + row * (K / 16) + sg * LK_SC, LK_SC);
+            copy(dst + LK_ROWS * (LK_QS + LK_SC) + lane * LK_SC,
+                 em + row * (K / 16) + sg * LK_SC, LK_SC);
+          }
+          end();
+        }
       }
     }
   }
@@ -563,22 +623,39 @@ __device__ __forceinline__ void lk_quant(const Src& src, const Q8Act& a) {
 }
 
 // one unit's row dot of warp `w` over segment sg: q8_row_dot's per-lane
-// sum of blocks sg * 128 + lane + 32 u, from the slot
+// sum of blocks sg * 128 + lane + 32 u, from the slot (S6: its s6 layout,
+// f32(d) * sc and f32(dmin) * mn as Q4KS6 decodes them)
+template <bool S6 = false>
 __device__ __forceinline__ float unit_dot(const unsigned char* slot, int w,
                                           const Q8Act& a, int sg, int lane,
                                           float acc) {
   const uint4* q = reinterpret_cast<const uint4*>(slot + w * LK_QS);
-  const bf16* es =
-      reinterpret_cast<const bf16*>(slot + LK_ROWS * LK_QS + w * LK_SC);
-  const bf16* em = reinterpret_cast<const bf16*>(
-      slot + LK_ROWS * (LK_QS + LK_SC) + w * LK_SC);
   uint4 wq[4];
   float s[4], mn[4];
+  if constexpr (S6) {
+    const int8_t* sc = reinterpret_cast<const int8_t*>(
+        slot + LK_ROWS * LK_QS + w * 2 * LK_S6_SC);
+    const int8_t* mv = sc + LK_S6_SC;
+    const uint16_t* d = reinterpret_cast<const uint16_t*>(
+        slot + LK_ROWS * (LK_QS + 2 * LK_S6_SC) + w * 2 * LK_S6_D);
+    const uint16_t* dm = d + LK_S6_D / 2;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    wq[u] = q[lane + 32 * u];
-    s[u] = __bfloat162float(es[lane + 32 * u]);
-    mn[u] = __bfloat162float(em[lane + 32 * u]);
+    for (int u = 0; u < 4; ++u) {
+      const int bl = lane + 32 * u;
+      wq[u] = q[bl];
+      Q4KS6::from(sc[bl], mv[bl], d[bl >> 3], dm[bl >> 3], s[u], mn[u]);
+    }
+  } else {
+    const bf16* es =
+        reinterpret_cast<const bf16*>(slot + LK_ROWS * LK_QS + w * LK_SC);
+    const bf16* em = reinterpret_cast<const bf16*>(
+        slot + LK_ROWS * (LK_QS + LK_SC) + w * LK_SC);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      wq[u] = q[lane + 32 * u];
+      s[u] = __bfloat162float(es[lane + 32 * u]);
+      mn[u] = __bfloat162float(em[lane + 32 * u]);
+    }
   }
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -625,8 +702,8 @@ struct Consumer {
   }
 
   // rows rg of a matrix [., K] against the operands a; store(n, y) by
-  // lane 0 of the row's warp
-  template <class Store>
+  // lane 0 of the row's warp (S6: the producer's s6 units)
+  template <bool S6 = false, class Store>
   __device__ __forceinline__ void matrix(Range rg, int K, const Q8Act& a,
                                          bool compute, const Store& store) {
     const int segs = K / LK_SEG;
@@ -635,7 +712,7 @@ struct Consumer {
       float acc = 0.f;
       for (int sg = 0; sg < segs; ++sg) {
         const unsigned char* slot = wait();
-        if (mine) acc = unit_dot(slot, warp, a, sg, lane, acc);
+        if (mine) acc = unit_dot<S6>(slot, warp, a, sg, lane, acc);
         release();
       }
       if (mine) {
@@ -963,11 +1040,13 @@ __host__ __device__ constexpr int lk_smem_bytes(int kd) {
 // residual); the producer streams x (the first chunk, ahead of the weight
 // stream that would queue an L2 read of it), wqkv, the K / V tiles and
 // W_o, from the six pointers of p.w, and o's image lies at the start of
-// p.ygu.
+// p.ygu. S6 (BLOCK only): wqkv and W_o are s6 weights (units of
+// LK_S6_ROW bytes a row).
 
-template <bool BLOCK>
+template <bool BLOCK, bool S6 = false>
 __global__ void __launch_bounds__(LK_THREADS, 1)
 layer_decode_kernel(FusedArgs p) {
+  static_assert(BLOCK || !S6, "the layer kernel takes no s6 weight");
   extern __shared__ __align__(128) unsigned char lk_sm[];
   unsigned char* act_base = lk_sm + LK_STAGES * LK_SLOT;
   const int kb_max = (p.Kd > LK_DIM ? p.Kd : LK_DIM) / 32;
@@ -1007,9 +1086,9 @@ layer_decode_kernel(FusedArgs p) {
 #pragma unroll
       for (int i = 0; i < 6; ++i) w[i] = p.w[i];
       pr.vec(p.x);
-      pr.matrix(w, lk_slice(nq), LK_DIM);
+      pr.matrix<S6>(w, lk_slice(nq), LK_DIM);
       pr.attention(p, p.layer0, AttnPlan(lb, p.S, p.Hkv, tk), tk, rowb);
-      pr.matrix(w + 3, lk_slice(LK_DIM), LK_DIM);
+      pr.matrix<S6>(w + 3, lk_slice(LK_DIM), LK_DIM);
       return;
     }
     for (int l = 0; l < p.nL; ++l) {
@@ -1070,8 +1149,8 @@ layer_decode_kernel(FusedArgs p) {
       lk_quant(XVec{xs}, ax);
       cs.release();
     }
-    cs.matrix(lk_slice(nq), LK_DIM, ax, true,
-              [&](int n, float v) { yqkv[n] = v; });
+    cs.matrix<S6>(lk_slice(nq), LK_DIM, ax, true,
+                  [&](int n, float v) { yqkv[n] = v; });
     sync();
     // RoPE, the new k / v, the split partials; the last split of a KV
     // head merges it and quantizes its o into the image go
@@ -1083,8 +1162,8 @@ layer_decode_kernel(FusedArgs p) {
                            fold, rope, red, go);
     sync();
     lk_copy(oimg, act_base, q8_act_bytes(LK_DIM / 32));
-    cs.matrix(lk_slice(LK_DIM), LK_DIM, ax, true,
-              [&](int n, float v) { hout[n] = v; });
+    cs.matrix<S6>(lk_slice(LK_DIM), LK_DIM, ax, true,
+                  [&](int n, float v) { hout[n] = v; });
   } else {
     for (int l = 0; l < p.nL; ++l) {
       const float* h = l == 0 ? p.x : p.out;
@@ -1167,20 +1246,23 @@ static int launch_coop(Kernel kernel, FusedArgs& a, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
+template <bool S6>
 static int launch_mlp(FusedArgs& a, void* stream) {
   static int granted = 0, sms = 0, cached_smem = -1, per_sm = 0;
   const int kb_max = (a.Kd > a.dim ? a.Kd : a.dim) / 32;
   const int smem = RED_BYTES + 4 * a.dim + q8_act_bytes(kb_max);
-  return launch_coop(fused_mlp_kernel, a, Q8_THREADS, smem, &granted,
+  return launch_coop(S6 ? fused_mlp_s6_kernel : fused_mlp_kernel, a,
+                     Q8_THREADS, smem, &granted,
                      &cached_smem, &per_sm, &sms, [](int) { return true; },
                      stream);
 }
 
-template <bool BLOCK>
+template <bool BLOCK, bool S6 = false>
 static int launch_layers(FusedArgs& a, void* stream) {
   static int granted = 0, sms = 0, cached_smem = -1, per_sm = 0;
   return launch_coop(
-      layer_decode_kernel<BLOCK>, a, LK_THREADS, lk_smem_bytes(a.Kd),
+      layer_decode_kernel<BLOCK, S6>, a,
+      LK_THREADS, lk_smem_bytes(a.Kd),
       &granted, &cached_smem, &per_sm, &sms,
       [&](int grid) {
         return (a.Kd / 32 + grid - 1) / grid <= LK_DIM / 64 &&
@@ -1198,10 +1280,12 @@ static bool lk_shape_ok(int Hq, int Hkv, int Kd, const void* kc,
          Hq / Hkv <= 8 && (((uintptr_t)kc | (uintptr_t)vc) & 15) == 0;
 }
 
-GCT_EXPORT int fused_mlp(const float* x, const void* gu_qs, const void* gu_es,
-                         const void* gu_em, const void* d_qs,
-                         const void* d_es, const void* d_em, float* ygu,
-                         float* y, int Kg, int Kd, int Nd, void* stream) {
+template <bool S6>
+static int fused_mlp_run(const float* x, const void* gu_qs,
+                         const void* gu_es, const void* gu_em,
+                         const void* d_qs, const void* d_es,
+                         const void* d_em, float* ygu, float* y, int Kg,
+                         int Kd, int Nd, void* stream) {
   FusedArgs a = {};
   a.x = x;
   a.w[6] = gu_qs; a.w[7] = gu_es; a.w[8] = gu_em;
@@ -1211,10 +1295,29 @@ GCT_EXPORT int fused_mlp(const float* x, const void* gu_qs, const void* gu_es,
   a.Nd = Nd;
   a.ygu = ygu;
   a.out = y;
-  return launch_mlp(a, stream);
+  return launch_mlp<S6>(a, stream);
 }
 
-GCT_EXPORT int fused_attention(
+GCT_EXPORT int fused_mlp(const float* x, const void* gu_qs, const void* gu_es,
+                         const void* gu_em, const void* d_qs,
+                         const void* d_es, const void* d_em, float* ygu,
+                         float* y, int Kg, int Kd, int Nd, void* stream) {
+  return fused_mlp_run<false>(x, gu_qs, gu_es, gu_em, d_qs, d_es, d_em, ygu,
+                              y, Kg, Kd, Nd, stream);
+}
+
+// the s6 instance: each weight's (qs, sm, dd)
+GCT_EXPORT int fused_mlp_s6(const float* x, const void* gu_qs,
+                            const void* gu_sm, const void* gu_dd,
+                            const void* d_qs, const void* d_sm,
+                            const void* d_dd, float* ygu, float* y, int Kg,
+                            int Kd, int Nd, void* stream) {
+  return fused_mlp_run<true>(x, gu_qs, gu_sm, gu_dd, d_qs, d_sm, d_dd, ygu,
+                             y, Kg, Kd, Nd, stream);
+}
+
+template <bool S6>
+static int fused_attention_run(
     const float* x, const void* q_qs, const void* q_es, const void* q_em,
     const void* o_qs, const void* o_es, const void* o_em, const void* kc,
     const void* vc, const int* lengths, int layer, int Hq, int Hkv,
@@ -1249,7 +1352,30 @@ GCT_EXPORT int fused_attention(
   a.vn = vn;
   a.phase = PH_ALL;
   a.bar = bar;
-  return launch_layers<true>(a, stream);
+  return launch_layers<true, S6>(a, stream);
+}
+
+GCT_EXPORT int fused_attention(
+    const float* x, const void* q_qs, const void* q_es, const void* q_em,
+    const void* o_qs, const void* o_es, const void* o_em, const void* kc,
+    const void* vc, const int* lengths, int layer, int Hq, int Hkv,
+    int S, int cache_f32, float theta, float scale, float* yqkv, float* part,
+    float* oimg, float* o, void* kn, void* vn, unsigned* bar, void* stream) {
+  return fused_attention_run<false>(
+      x, q_qs, q_es, q_em, o_qs, o_es, o_em, kc, vc, lengths, layer, Hq, Hkv,
+      S, cache_f32, theta, scale, yqkv, part, oimg, o, kn, vn, bar, stream);
+}
+
+// the s6 instance: wqkv's and W_o's (qs, sm, dd), every one on 16 bytes
+GCT_EXPORT int fused_attention_s6(
+    const float* x, const void* q_qs, const void* q_sm, const void* q_dd,
+    const void* o_qs, const void* o_sm, const void* o_dd, const void* kc,
+    const void* vc, const int* lengths, int layer, int Hq, int Hkv,
+    int S, int cache_f32, float theta, float scale, float* yqkv, float* part,
+    float* oimg, float* o, void* kn, void* vn, unsigned* bar, void* stream) {
+  return fused_attention_run<true>(
+      x, q_qs, q_sm, q_dd, o_qs, o_sm, o_dd, kc, vc, lengths, layer, Hq, Hkv,
+      S, cache_f32, theta, scale, yqkv, part, oimg, o, kn, vn, bar, stream);
 }
 
 GCT_EXPORT int layer_kernel(

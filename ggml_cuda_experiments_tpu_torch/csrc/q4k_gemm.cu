@@ -1,7 +1,7 @@
-// Q4_K-E, Q4_0 and Q8_0 dequantizing GEMM for Hopper (sm_90a).
+// Q4_K-E, Q4_K "s6", Q4_0 and Q8_0 dequantizing GEMM for Hopper (sm_90a).
 //
-// q4k_gemm / q40_gemm / q80_gemm (two route templates, three format
-// instances each) replace ggml_cuda_experiments_tpu/ops/quant_matmul.py's
+// q4k_gemm / q4k_s6_gemm / q40_gemm / q80_gemm (two route templates, four
+// format instances each) replace ggml_cuda_experiments_tpu/ops/quant_matmul.py's
 // _mxu_kernel (:1154), _pipe_sub_kernel (:1084) and _pipe_kernel (:1115):
 //   y[M, N] f32 = sum_K bf16(x) . bf16(deq(W)), f32 accumulation,
 // deq(W) = q * scale - min per 32-block through the format's trait
@@ -52,6 +52,15 @@
 // memory in rank order, so the launch stays one and needs no workspace. The split is a function of N and K alone, so that every M
 // sums an output in one order. The stream route does not split (a split
 // saved at most 3 us at the 7B's N = 4096 shapes).
+//
+// s6 (q4k_s6_gemm, K % 4096 == 0): both routes' stages are 16 blocks, two
+// superblocks, so a row's scale bytes of a stage are 16 of sc, 16 of mn
+// (two aligned runs K / 32 bytes apart) and the two superblocks' bf16 d
+// and dmin (two 4-byte words). They are copied as they are into a
+// 48-byte row of shared memory (load_scales_s6), the pitch the raw scale
+// words of the other formats take, and a thread decodes f32(d) * sc and
+// f32(dmin) * mn of its block there (block_scales_s6): the weight is never
+// expanded to Q4_K-E in device memory.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -78,6 +87,12 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
 
 template <int N>
@@ -235,6 +250,45 @@ __device__ __forceinline__ void load_scales(uint8_t* dst, const F& f, int N,
   }
 }
 
+// s6: a row's scale bytes of a stage of 16 blocks, S6_P bytes a row: sc
+// [16] | mn [16] | the bf16 d, dmin of its 2 superblocks as 4-byte words
+// [d0 d1 | dmin0 dmin1] | 8 bytes of pad (rows g = 0..7 on distinct banks)
+constexpr int S6_P = 48;
+
+template <class F, int R, int SB>
+__device__ __forceinline__ void load_scales_s6(uint8_t* dst, const F& f,
+                                               int N, int KB, int n0,
+                                               int kb0) {
+  static_assert(SB == 16, "an s6 stage is two superblocks");
+  for (int i = threadIdx.x; i < 4 * R; i += GT) {
+    const int r = i >> 2, c = i & 3, n = n0 + r;
+    if (n >= N) continue;
+    uint8_t* d = dst + r * S6_P;
+    if (c < 2)
+      cp_async16(smem_u32(d + 16 * c),
+                 f.sm + (size_t)n * 2 * KB + c * KB + kb0, true);
+    else
+      cp_async4(smem_u32(d + 32 + 4 * (c - 2)),
+                f.dd + (size_t)n * (KB / 4) + (c - 2) * (KB / 8) + kb0 / 8);
+  }
+}
+
+// s6 scale and min of block j of a stage for rows row0 / row1 (their
+// S6_P-byte rows); 0 and 0 past K / 32 blocks
+__device__ __forceinline__ void block_scales_s6(const uint8_t* row0,
+                                                const uint8_t* row1, int j,
+                                                bool valid, float (&s)[2],
+                                                float (&m)[2]) {
+  const uint8_t* rows[2] = {row0, row1};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint8_t* p = rows[h];
+    Q4KS6::from((int8_t)p[j], (int8_t)p[16 + j], lds16(p + 32 + 2 * (j >> 3)),
+                lds16(p + 36 + 2 * (j >> 3)), s[h], m[h]);
+    if (!valid) s[h] = m[h] = 0.f;
+  }
+}
+
 // Copy W's bytes of rows n0 .. n0 + R - 1, blocks kb0 .. kb0 + SB - 1, at
 // row pitch P; rows past N and blocks past K / 32 zero-filled.
 template <class F, int R, int SB, int P>
@@ -255,14 +309,18 @@ __device__ __forceinline__ void load_weights(uint8_t* dst, const uint8_t* qs,
 template <class F>
 __device__ __forceinline__ void scale_offsets(const F& f, int KB, int n,
                                               unsigned (&base)[2][2]) {
+  if constexpr (F::S6) {              // s6 rows start on their own bytes
+    base[0][0] = base[0][1] = base[1][0] = base[1][1] = 0u;
+  } else {
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      base[a][h] = a < F::NARR
-                       ? (unsigned)reinterpret_cast<uintptr_t>(f.arr(a)) +
-                             2u * (unsigned)(n + 8 * h) * (unsigned)KB
-                       : 0u;
+      for (int h = 0; h < 2; ++h)
+        base[a][h] = a < F::NARR
+                         ? (unsigned)reinterpret_cast<uintptr_t>(f.arr(a)) +
+                               2u * (unsigned)(n + 8 * h) * (unsigned)KB
+                         : 0u;
+  }
 }
 
 __device__ __forceinline__ void at_stage(const unsigned (&base)[2][2],
@@ -290,6 +348,7 @@ constexpr int ST_R_WIDE = 64;           // gives 2 waves of these, these
 constexpr int ST_SB = 16;               // 32-blocks a stage (512 k)
 constexpr int ST_RING = 110 * 1024;     // ring bytes: two CTAs an SM
 constexpr int ST_SP = ScaleRows<ST_SB>::P;
+static_assert(ST_SP == S6_P, "s6 rows take the scale rows' pitch");
 
 template <class F, int MT, int R>
 struct StreamCfg {
@@ -319,7 +378,10 @@ __device__ __forceinline__ void stream_load(uint8_t* st, const bf16* x,
   using C = StreamCfg<F, MT, R>;
   const int KB = K / 32;
   load_weights<F, R, ST_SB, C::WP>(st, qs, N, KB, n0, kb0);
-  load_scales<F, R, ST_SB, ST_SP>(st + C::W, f, N, KB, n0, kb0);
+  if constexpr (F::S6)
+    load_scales_s6<F, R, ST_SB>(st + C::W, f, N, KB, n0, kb0);
+  else
+    load_scales<F, R, ST_SB, ST_SP>(st + C::W, f, N, KB, n0, kb0);
   constexpr int XC = ST_SB * 64 / 16;   // 16-byte chunks of a token row
   for (int i = threadIdx.x; i < C::XR * XC; i += GT) {
     const int r = i / XC, c = i % XC, k = kb0 * 32 + 8 * c;
@@ -345,8 +407,12 @@ __device__ __forceinline__ void stream_stage(const uint8_t* S, int kb0,
   for (int jj = 0; jj < ST_SB / C::KG; ++jj) {
     const int j = kg * (ST_SB / C::KG) + jj;
     float s[2], m[2];
-    block_scales<F>(S + C::W + r0 * ST_SP, S + C::W + (r0 + 8) * ST_SP,
-                    R * ST_SP, lo, j, FULL || kb0 + j < KB, s, m);
+    if constexpr (F::S6)
+      block_scales_s6(S + C::W + r0 * ST_SP, S + C::W + (r0 + 8) * ST_SP, j,
+                      FULL || kb0 + j < KB, s, m);
+    else
+      block_scales<F>(S + C::W + r0 * ST_SP, S + C::W + (r0 + 8) * ST_SP,
+                      R * ST_SP, lo, j, FULL || kb0 + j < KB, s, m);
     uint32_t alo[4], ahi[4];
     block_frags_perm<F>(S + r0 * C::WP + j * F::QB,
                         S + (r0 + 8) * C::WP + j * F::QB, t, s, m, alo, ahi);
@@ -460,6 +526,7 @@ struct TcCfg {
   static_assert(BN * OP * 4 <= RING, "the epilogue must fit the ring");
   static_assert(SMEM <= 227 * 1024, "shared memory");
   static_assert(WS >= TC_NS - 2, "W stage ws + 1 must land before its use");
+  static_assert(!F::S6 || SP == S6_P, "s6 rows take the scale rows' pitch");
 };
 
 #define GQ_F8(i)                                                            \
@@ -579,7 +646,11 @@ __device__ __forceinline__ void tc_load_w(uint8_t* dst, const uint8_t* qs,
                                           int ws) {
   using C = TcCfg<F, BN>;
   load_weights<F, TC_R, C::WB, C::WP>(dst, qs, N, KB, n0, ws * C::WB);
-  load_scales<F, TC_R, C::WB, C::SP>(dst + C::W, f, N, KB, n0, ws * C::WB);
+  if constexpr (F::S6)
+    load_scales_s6<F, TC_R, C::WB>(dst + C::W, f, N, KB, n0, ws * C::WB);
+  else
+    load_scales<F, TC_R, C::WB, C::SP>(dst + C::W, f, N, KB, n0,
+                                       ws * C::WB);
 }
 
 // one x stage: dequantize this thread's A fragments (4 k16 steps) from W
@@ -598,8 +669,12 @@ __device__ __forceinline__ void tc_stage(const uint8_t* xs,
 #pragma unroll
   for (int j = 0; j < TC_SB; ++j) {
     float s[2], m[2];
-    block_scales<F>(wst + C::W + r0 * C::SP, wst + C::W + (r0 + 8) * C::SP,
-                    TC_R * C::SP, lo, jb + j, kb0 + jb + j < KB, s, m);
+    if constexpr (F::S6)
+      block_scales_s6(wst + C::W + r0 * C::SP, wst + C::W + (r0 + 8) * C::SP,
+                      jb + j, kb0 + jb + j < KB, s, m);
+    else
+      block_scales<F>(wst + C::W + r0 * C::SP, wst + C::W + (r0 + 8) * C::SP,
+                      TC_R * C::SP, lo, jb + j, kb0 + jb + j < KB, s, m);
     block_frags<F>(wst + r0 * C::WP + (jb + j) * F::QB,
                    wst + (r0 + 8) * C::WP + (jb + j) * F::QB, t, s, m,
                    a[2 * j], a[2 * j + 1]);
@@ -818,6 +893,12 @@ int gemm(const bf16* x, const uint8_t* qs, F f, float* y, int M, int N,
   if (reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(qs) % 16)
     return (int)cudaErrorMisalignedAddress;
+  if constexpr (F::S6) {                // whole superblock pairs a stage
+    if (K % 4096) return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(f.sm) % 16 ||
+        reinterpret_cast<uintptr_t>(f.dd) % 4)
+      return (int)cudaErrorMisalignedAddress;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   if (route == 0) {
     if (M <= 8) return (int)run_stream<F, 1>(x, qs, f, y, M, N, K, s);
@@ -839,6 +920,12 @@ GCT_EXPORT int q4k_gemm(const bf16* x, const uint8_t* qs, const bf16* es,
                         const bf16* em, float* y, int M, int N, int K,
                         int route, void* stream) {
   return gemm(x, qs, Q4K{es, em}, y, M, N, K, route, stream);
+}
+
+GCT_EXPORT int q4k_s6_gemm(const bf16* x, const uint8_t* qs,
+                           const int8_t* sm, const bf16* dd, float* y, int M,
+                           int N, int K, int route, void* stream) {
+  return gemm(x, qs, Q4KS6{sm, dd}, y, M, N, K, route, stream);
 }
 
 GCT_EXPORT int q40_gemm(const bf16* x, const uint8_t* qs, const __half* d,

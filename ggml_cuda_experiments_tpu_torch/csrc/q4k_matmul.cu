@@ -15,7 +15,10 @@
 // exact fold; for Q4_0 d_b * dot_b - 8 d_b * xsum_b).
 //
 //   Bound on the H100: bytes, 0.625 B an element for Q4_K-E (16 bytes of
-//   payload and 4 of scales a block), 0.5625 for Q4_0. The 7B w_gu
+//   payload and 4 of scales a block), 0.5625 for Q4_0, 0.578125 for the
+//   Q4_K "s6" encoding (q4k_s6_matvec: 16 bytes of payload, the block's
+//   6-bit sc and mn one byte each, and a quarter of its superblock's bf16
+//   d and dmin). The 7B w_gu
 //   [24576, 4096] is 62.9 MB (18.8 us at 3.35 TB/s).
 //
 //   Design. A persistent grid: at most MV_CTAS_PER_SM CTAs an SM (what is
@@ -46,6 +49,13 @@
 //   a named barrier, and the group's first warp adds them in split order. No
 //   atomics: a row's sum does not depend on the schedule, so two calls give
 //   the same bits.
+//
+//   s6 (K % 4096 == 0): the same warps and ring; a step's scale bytes are
+//   each row's 32 sc and 32 mn bytes (two 16-byte runs K / 32 bytes apart)
+//   and its 4 superblocks' d and dmin (two 8-byte runs), so a stage holds
+//   80 bytes a row of them instead of 128, copied by one cp.async a lane
+//   (16 bytes of sc or mn, or 4 of d or dmin). A lane decodes its block's
+//   f32(d) * sc and f32(dmin) * mn as the s6 route of the JAX kernel does.
 //
 // The GEMMs of the same formats (q4k_gemm / q40_gemm / q80_gemm) are in
 // q4k_gemm.cu.
@@ -112,10 +122,14 @@ __device__ __forceinline__ float mv_word(uint32_t w, const float4& xl,
 // bytes, split bounds on 8 blocks): [MV_R][NARR] runs of 32 halves, 4
 // chunks of 16 bytes each. Otherwise [MV_R][NARR][MV_SW] 4-byte words that
 // hold the 32 halves, the first one's half given by the address.
+// s6: [MV_R][sc 32 | mn 32] bytes, then [MV_R][d 4 | dmin 4] bf16.
 template <class F, bool A16>
 struct MvStage {
   static constexpr int PAY = MV_R * 32 * 16;
-  static constexpr int BYTES = PAY + MV_R * F::NARR * (A16 ? 64 : MV_SW * 4);
+  static constexpr int S6D = PAY + MV_R * 64;     // s6: the d | dmin words
+  static constexpr int BYTES =
+      F::S6 ? S6D + MV_R * 16
+            : PAY + MV_R * F::NARR * (A16 ? 64 : MV_SW * 4);
   static_assert(BYTES % 16 == 0, "16-byte stages");
 };
 
@@ -180,7 +194,21 @@ q4_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
 #pragma unroll
     for (int r = 0; r < MV_R; ++r)            // (src-size 0 reads nothing)
       mv_cp16(dst + r * 512 + lane * 16, src + r * KB, okb && row0 + r < N);
-    if constexpr (A16) {
+    if constexpr (F::S6) {
+      // lanes 0-15: 16 bytes of a row's sc (h 0) or mn (h 1), chunk c;
+      // lanes 16-31: one 4-byte word of its d (h 0) or dmin (h 1): the
+      // superblocks of blocks bs + 16 c .. + 15
+      const int j = lane & 15, r = j >> 2, h = (j >> 1) & 1, c = j & 1;
+      const bool ok = row0 + r < N && bs + 16 * c < b1;
+      const size_t n = ok ? (size_t)(row0 + r) : 0;
+      if (lane < 16)
+        mv_cp16(dst + S::PAY + r * 64 + h * 32 + c * 16,
+                f.sm + n * 2 * KB + h * KB + bs + 16 * c, ok);
+      else
+        mv_cp4(dst + S::S6D + r * 16 + h * 8 + c * 4,
+               f.dd + n * (KB / 4) + h * (KB / 8) + bs / 8 + 2 * c,
+               ok ? 4 : 0);
+    } else if constexpr (A16) {
       const int pr = lane >> 2, c = lane & 3;
       const int r = pr / F::NARR, a = pr % F::NARR;
       if (pr < NP)                      // (a zero-fill still writes)
@@ -275,24 +303,39 @@ q4_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
         }
       }
       const float xsb = xsum[b];
-      const unsigned short* sw =
-          reinterpret_cast<const unsigned short*>(stg + S::PAY);
+      if constexpr (F::S6) {
+        const int8_t* sb = reinterpret_cast<const int8_t*>(stg + S::PAY);
+        const unsigned short* dw =
+            reinterpret_cast<const unsigned short*>(stg + S::S6D);
 #pragma unroll
-      for (int r = 0; r < MV_R; ++r) {
-        uint16_t raw[2] = {0, 0};
-#pragma unroll
-        for (int a = 0; a < F::NARR; ++a) {
-          if constexpr (A16) {
-            raw[a] = sw[(r * F::NARR + a) * 32 + lane];
-          } else {
-            const uintptr_t A =
-                (uintptr_t)f.arr(a) + ((size_t)(row0 + r) * KB + bs) * 2;
-            raw[a] = sw[(r * F::NARR + a) * MV_SW * 2 + ((A >> 1) & 1) + lane];
-          }
+        for (int r = 0; r < MV_R; ++r) {
+          float sc, mn;
+          F::from(sb[r * 64 + lane], sb[r * 64 + 32 + lane],
+                  dw[r * 8 + (lane >> 3)], dw[r * 8 + 4 + (lane >> 3)], sc,
+                  mn);
+          acc[r] += sc * dot[r] - mn * xsb;
         }
-        float sc, mn;
-        F::scale_min(raw[0], raw[1], sc, mn);
-        acc[r] += sc * dot[r] - mn * xsb;
+      } else {
+        const unsigned short* sw =
+            reinterpret_cast<const unsigned short*>(stg + S::PAY);
+#pragma unroll
+        for (int r = 0; r < MV_R; ++r) {
+          uint16_t raw[2] = {0, 0};
+#pragma unroll
+          for (int a = 0; a < F::NARR; ++a) {
+            if constexpr (A16) {
+              raw[a] = sw[(r * F::NARR + a) * 32 + lane];
+            } else {
+              const uintptr_t A =
+                  (uintptr_t)f.arr(a) + ((size_t)(row0 + r) * KB + bs) * 2;
+              raw[a] = sw[(r * F::NARR + a) * MV_SW * 2 + ((A >> 1) & 1) +
+                          lane];
+            }
+          }
+          float sc, mn;
+          F::scale_min(raw[0], raw[1], sc, mn);
+          acc[r] += sc * dot[r] - mn * xsb;
+        }
       }
     }
     if (st == nst - 1) {                // the tile's rows are summed
@@ -370,14 +413,28 @@ GCT_EXPORT int q4k_matvec(const float* x, const uint8_t* qs, const bf16* es,
   return q4_matvec(x, qs, Q4K{es, em}, y, N, K, splits, stream);
 }
 
+// s6: K % 4096 == 0 (splits start on 16 blocks), sm on 16 bytes, dd on 4
+GCT_EXPORT int q4k_s6_matvec(const float* x, const uint8_t* qs,
+                             const int8_t* sm, const bf16* dd, float* y,
+                             int N, int K, int splits, void* stream) {
+  if (K % 4096 || N < 1 || splits < 1 || MV_WARPS % splits ||
+      ((uintptr_t)sm & 15) || ((uintptr_t)dd & 3))
+    return (int)cudaErrorInvalidValue;
+  return q4_matvec_launch<Q4KS6, true>(x, qs, Q4KS6{sm, dd}, y, N, K, splits,
+                                       (cudaStream_t)stream);
+}
+
 GCT_EXPORT int q40_matvec(const float* x, const uint8_t* qs, const __half* d,
                           float* y, int N, int K, int splits, void* stream) {
   return q4_matvec(x, qs, Q40{d}, y, N, K, splits, stream);
 }
 
 // registers, shared memory and occupancy of the 16-byte scale instance at
-// this K (kernel_info); fmt 0 Q4_K, 1 Q4_0
+// this K (kernel_info); fmt 0 Q4_K, 1 Q4_0, 2 Q4_K s6
 GCT_EXPORT int q4_matvec_info(int fmt, int K, int* out) {
+  if (fmt == 2)
+    return kernel_info(q4_matvec_kernel<Q4KS6, true>, MV_WARPS * 32,
+                       mv_smem_bytes<Q4KS6, true>(K / 32), out);
   return fmt ? kernel_info(q4_matvec_kernel<Q40, true>, MV_WARPS * 32,
                            mv_smem_bytes<Q40, true>(K / 32), out)
              : kernel_info(q4_matvec_kernel<Q4K, true>, MV_WARPS * 32,

@@ -16,6 +16,10 @@
 // AND and one XOR per word), so the integer work stays far below the byte
 // time. Each CTA quantizes x into shared memory itself (the grid is capped
 // at what is resident, so that costs a few hundred 16 KB reads of L2).
+// q4k_s6_q8_matvec is the Q4_K "s6" instance (quant_formats.cuh: 0.578125
+// bytes per element, the lm_head 75.8 MB, 22.6 us): a lane reads its
+// block's sc and mn bytes and its superblock's bf16 d and dmin where the
+// Q4_K-E instance reads its bf16 es and em.
 #include "q8_common.cuh"
 
 template <class F>
@@ -54,6 +58,12 @@ GCT_EXPORT int q4k_q8_matvec(const float* x, const uint8_t* qs, const bf16* es,
 GCT_EXPORT int q4k_q8_matvec_info(int K, int* out) {
   return kernel_info(q4_q8_matvec_kernel<Q4K>, Q8_THREADS,
                      q8_act_bytes(K / 32), out);
+}
+
+GCT_EXPORT int q4k_s6_q8_matvec(const float* x, const uint8_t* qs,
+                                const int8_t* sm, const bf16* dd, float* y,
+                                int N, int K, void* stream) {
+  return q4_q8_matvec(x, qs, Q4KS6{sm, dd}, y, N, K, stream);
 }
 
 GCT_EXPORT int q40_q8_matvec(const float* x, const uint8_t* qs,

@@ -117,8 +117,8 @@ struct GlobalVec {
 };
 
 // One row's dot: qs [.., kb*16] bytes, the block scales and mins through
-// the trait f (Q4K or Q40); kb % 128 == 0. Returns the full sum in every
-// lane.
+// the trait f (Q4K, Q40, or Q4KS6 through its at()); kb % 128 == 0.
+// Returns the full sum in every lane.
 template <class F>
 __device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const F& f,
                                             size_t n, const Q8Act& a,
@@ -134,8 +134,12 @@ __device__ __forceinline__ float q8_row_dot(const uint8_t* qs, const F& f,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       w[u] = __ldg(q + b0 + 32 * u);
-      s[u] = f.scale(i0 + b0 + 32 * u);
-      mn[u] = f.min(i0 + b0 + 32 * u);
+      if constexpr (F::S6) {
+        f.at(n, b0 + 32 * u, kb, s[u], mn[u]);
+      } else {
+        s[u] = f.scale(i0 + b0 + 32 * u);
+        mn[u] = f.min(i0 + b0 + 32 * u);
+      }
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {

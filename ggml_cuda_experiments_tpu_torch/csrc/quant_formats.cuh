@@ -6,7 +6,15 @@
 // w = q * scale - min:
 //   Q4K  Q4_K-E: scale = bf16 es[i], min = bf16 em[i];
 //   Q40  Q4_0:   scale = fp16 d[i],  min = 8 d[i] (exact: w = (q - 8) d);
-//   Q80  Q8_0:   scale = fp16 d[i],  min = 0.
+//   Q80  Q8_0:   scale = fp16 d[i],  min = 0;
+//   Q4KS6 Q4_K "s6" (S6): the 6-bit sub-scales and mins one byte each, sm
+//        int8 [N, 2 K/32] (row n: the sc of its K/32 blocks, then their
+//        mn), and the superblock scales dd bf16 [N, 2 K/256] (row n: the d
+//        of its K/256 superblocks, then their dmin); for block b of row n,
+//        scale = f32(d[b / 8]) * sc[b] and min = f32(dmin[b / 8]) * mn[b],
+//        both exact in f32 (an 8-bit mantissa times 6 bits). A kernel
+//        reads it through at(), or copies its own layout of the bytes
+//        (K % 4096 == 0: K / 32 is a multiple of 128).
 // QB is the payload bytes of one block: 16 (planar nibbles, byte j holds
 // element j low and element j + 16 high) or 32 (the int8 values).
 // q * scale is exact in f32 (4 or 8 bits times an 8- or 11-bit mantissa),
@@ -24,6 +32,7 @@
 
 struct Q4K {
   static constexpr int QB = 16;
+  static constexpr bool S6 = false;
   const bf16* es;
   const bf16* em;
   __device__ __forceinline__ float scale(size_t i) const {
@@ -47,6 +56,7 @@ struct Q4K {
 
 struct Q40 {
   static constexpr int QB = 16;
+  static constexpr bool S6 = false;
   const __half* d;
   __device__ __forceinline__ float scale(size_t i) const {
     return __half2float(d[i]);
@@ -67,6 +77,7 @@ struct Q40 {
 
 struct Q80 {
   static constexpr int QB = 32;
+  static constexpr bool S6 = false;
   const __half* d;
   __device__ __forceinline__ float scale(size_t i) const {
     return __half2float(d[i]);
@@ -80,6 +91,32 @@ struct Q80 {
                                    float& m) {
     s = __half2float(__ushort_as_half(a));
     m = 0.f;
+  }
+};
+
+struct Q4KS6 {
+  static constexpr int QB = 16;
+  static constexpr bool S6 = true;
+  static constexpr int NARR = 1;        // one row of sc | mn | d | dmin
+  static constexpr uint32_t QXOR = 0u;
+  static constexpr float QOFF = 8388608.f;
+  const int8_t* sm;
+  const bf16* dd;
+  // scale and min of block b of row n, kb blocks a row
+  __device__ __forceinline__ void at(size_t n, int b, int kb, float& s,
+                                     float& m) const {
+    const int8_t* r = sm + n * 2 * (size_t)kb;
+    const bf16* q = dd + n * (size_t)(kb / 4);
+    s = __bfloat162float(q[b >> 3]) * (float)r[b];
+    m = __bfloat162float(q[kb / 8 + (b >> 3)]) * (float)r[kb + b];
+  }
+  // the same from a row's bytes copied into shared memory: sc, mn at
+  // blocks j of the copy, d, dmin its superblocks' bf16 words
+  __device__ __forceinline__ static void from(int8_t sc, int8_t mn,
+                                              uint16_t d, uint16_t dmin,
+                                              float& s, float& m) {
+    s = __uint_as_float((uint32_t)d << 16) * (float)sc;
+    m = __uint_as_float((uint32_t)dmin << 16) * (float)mn;
   }
 };
 

@@ -724,7 +724,7 @@ def build_model_pack(params: Params, cfg: ModelConfig) -> Params:
     """``params`` with ``"m_pack"``: the device table of every layer's
     weight pointers that ``model_step`` reads (``ops/layer_kernel.py``; no
     weight is copied). As in the reference, a no-op unless every layer has
-    q4_k wqkv / wo / w_gu / w_down of one shape, with dim and the padded
+    Q4_K-E (not s6) wqkv / wo / w_gu / w_down of one shape, with dim and the padded
     intermediate multiples of 4096 (where the reference builds
     ``w_gu_f``)."""
     layers = params["layers"]
@@ -732,7 +732,8 @@ def build_model_pack(params: Params, cfg: ModelConfig) -> Params:
 
     def ok(lay):
         return (all(isinstance(lay.get(k), QuantLinear)
-                    and lay[k].fmt == "q4_k" for k in stream)
+                    and lay[k].fmt == "q4_k" and lay[k].enc == "e"
+                    for k in stream)
                 and lay["w_down"].array_shape[1] % 4096 == 0
                 and lay["w_gu"].array_shape[1] % 4096 == 0)
 

@@ -48,7 +48,7 @@ def _expert_slice(w, e):
     QuantLinear whose arrays carry a leading E dim): views, no copy. ``e``
     an int, or a slice of experts (a shard of the stack, still stacked)."""
     if isinstance(w, QuantLinear):
-        return QuantLinear(fmt=w.fmt, shape=w.shape, **{
+        return QuantLinear(fmt=w.fmt, shape=w.shape, enc=w.enc, **{
             f: None if getattr(w, f) is None else getattr(w, f)[e]
             for f in _FIELDS})
     return w[e]
@@ -58,15 +58,17 @@ def stack_expert_quant(qls: list[QuantLinear]) -> QuantLinear:
     """Stack per-expert QuantLinears into one leading-E container (the form
     ``_expert_slice`` unstacks and the ``expert`` mesh axis shards)."""
     ref = qls[0]
-    if any(q.fmt != ref.fmt or q.shape != ref.shape for q in qls):
-        raise ValueError("stack_expert_quant: experts of different formats "
-                         f"or shapes: {[(q.fmt, q.shape) for q in qls]}")
+    if any((q.fmt, q.shape, q.enc) != (ref.fmt, ref.shape, ref.enc)
+           for q in qls):
+        raise ValueError("stack_expert_quant: experts of different formats, "
+                         "shapes or encodings: "
+                         f"{[(q.fmt, q.shape, q.enc) for q in qls]}")
 
     def cat(field):
         vals = [getattr(q, field) for q in qls]
         return None if vals[0] is None else torch.stack(vals)
 
-    return QuantLinear(fmt=ref.fmt, shape=ref.shape,
+    return QuantLinear(fmt=ref.fmt, shape=ref.shape, enc=ref.enc,
                        **{f: cat(f) for f in _FIELDS})
 
 

@@ -43,6 +43,10 @@ SIGNATURES = {
     "q4k_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, qs, es, em, y, M, N, K, route, stream
     "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the q4_k "s6" instances: es, em -> sm (int8 sc | mn), dd (bf16 d | dmin)
+    "q4k_s6_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "q4k_s6_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "q4k_s6_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     # the 32-block formats (fp16 d): x, qs, d, y, N, K, [splits,] stream
     "q40_matvec": (_P, _P, _P, _P, _I, _I, _I, _P),
     # x, qs, d, y, N, K, splits, stages, grid, stream
@@ -76,11 +80,15 @@ SIGNATURES = {
     "q4k_q8_matvec": (_P, _P, _P, _P, _P, _I, _I, _P),
     # x, w_gu qs/es/em, w_down qs/es/em, ygu scratch, y, Kg, Kd, Nd, stream
     "fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "fused_mlp_s6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, wqkv qs/es/em, wo qs/es/em, k, v, lengths, layer, Hq, Hkv, S,
     # cache_f32, theta, scale, yqkv / part / o-image scratch, o, k_new,
     # v_new, tickets, stream
     "fused_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    "fused_attention_s6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P,
+                           _P),
     # h, ptrs, norms, k, v, lengths, layer0, nL, Hq, Hkv, S, Kd, cache_f32,
     # theta, scale, eps, yqkv / part / ygu / h2 scratch, h_out, k_new,
     # v_new, stream
@@ -120,7 +128,7 @@ SIGNATURES = {
     "mosaic_probe": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     # registers, shared memory and occupancy (int[7]): K / mode, K
     "q4k_q8_matvec_info": (_I, _P),
-    # format (0 q4_k, 1 q4_0), K; kv_kind, page-list entries
+    # format (0 q4_k, 1 q4_0, 2 q4_k s6), K; kv_kind, page-list entries
     "q4_matvec_info": (_I, _I, _P),
     "paged_decode_info": (_I, _I, _P),
     "q80_matvec_info": (_I, _I, _P),      # K, stages

@@ -22,6 +22,11 @@ its W_o rows through a TMA ring; the keys split by ``split_plan`` from
 ``lengths[0]`` on the card; the last split of a KV head merges it and
 quantizes its o once). The caller appends k_new / v_new to its cache: the
 function itself writes nothing, like the reference's.
+
+s6 q4_k weights (``quant_matmul``'s opt-in encoding) take the kernel's s6
+instance (``fused_attention_s6``, counted under its own key), which
+streams and decodes the s6 bytes; on the card wqkv and W_o must share one
+encoding. The gate, as the reference's, does not look at the encoding.
 """
 
 from __future__ import annotations
@@ -30,10 +35,10 @@ import torch
 
 from ggml_cuda_experiments_tpu_torch.ops import _build
 from ggml_cuda_experiments_tpu_torch.ops.quant_matmul import (
-    QuantLinear, _check_q8, _check_ql, qmatmul_q8_ref)
+    QuantLinear, _check_q8, _check_ql, _scales, qmatmul_q8_ref)
 from ggml_cuda_experiments_tpu_torch.utils.platform import kernels_for
 
-LAUNCHES = {"fused_attention": 0}
+LAUNCHES = {"fused_attention": 0, "fused_attention_s6": 0}
 
 # per-(head, split) partials the workspace holds room for
 MAX_SPLITS = 64
@@ -194,8 +199,10 @@ def attention_fused(x, wqkv, wo, k_cache, v_cache, lengths, layer, *,
                                      head_dim, k_cache.dtype):
         raise ValueError("attention_fused: weights or cache outside the "
                          "fused gate")
-    nq, dim = _check_q8(x, wqkv, "attention_fused")
-    _check_ql(wo, x.device)
+    enc = wqkv.enc
+    name = "fused_attention_s6" if enc == "s6" else "fused_attention"
+    nq, dim = _check_q8(x, wqkv, name, enc=enc)
+    _check_ql(wo, x.device, enc=enc)
     check_cache(k_cache, v_cache, lengths, x, n_heads, n_kv_heads, head_dim)
     L, _, _, S, D = k_cache.shape
     layer = int(layer)
@@ -203,7 +210,7 @@ def attention_fused(x, wqkv, wo, k_cache, v_cache, lengths, layer, *,
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if scale is None:
         scale = float(1.0 / D ** 0.5)
-    ptrs = [t.data_ptr() for w in (wqkv, wo) for t in (w.qs, w.es, w.em)]
+    ptrs = [t.data_ptr() for w in (wqkv, wo) for t in (w.qs, *_scales(w))]
     if any(p % 16 for p in ptrs + [x.data_ptr(), k_cache.data_ptr(),
                                    v_cache.data_ptr()]):
         raise ValueError("attention_fused: the kernel copies x, the weights "
@@ -215,13 +222,13 @@ def attention_fused(x, wqkv, wo, k_cache, v_cache, lengths, layer, *,
     o = torch.empty((1, dim), dtype=torch.float32, device=x.device)
     kn = torch.empty((n_kv_heads, D), dtype=k_cache.dtype, device=x.device)
     vn = torch.empty_like(kn)
-    rc = _build.lib().fused_attention(
+    rc = getattr(_build.lib(), name)(
         x.data_ptr(), *ptrs, k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), layer, n_heads, n_kv_heads, S,
         int(k_cache.dtype == torch.float32), float(rope_theta), scale,
         ws.data_ptr(), ws[nq:].data_ptr(), ws[nq + npart:].data_ptr(),
         o.data_ptr(), kn.data_ptr(), vn.data_ptr(),
         _tickets(x.device).data_ptr(), _build.stream_of(x))
-    _build.check(rc, "fused_attention")
-    LAUNCHES["fused_attention"] += 1
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
     return o, kn, vn

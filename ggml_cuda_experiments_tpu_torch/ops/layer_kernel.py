@@ -96,9 +96,9 @@ def pack_layers(layers: list) -> LayerPack:
         for k in STREAM:
             w, w0 = lay[k], layers[0][k]
             if not isinstance(w, QuantLinear) or w.fmt != "q4_k" \
-                    or w.array_shape != w0.array_shape:
+                    or w.enc != "e" or w.array_shape != w0.array_shape:
                 raise ValueError(f"pack_layers: layer {i} {k} is not a q4_k "
-                                 "weight shaped as layer 0's")
+                                 "(Q4_K-E) weight shaped as layer 0's")
             for t, dt in ((w.qs, torch.uint8), (w.es, torch.bfloat16),
                           (w.em, torch.bfloat16)):
                 if t.device != dev or t.dtype != dt or not t.is_contiguous():
@@ -119,9 +119,11 @@ def pack_layers(layers: list) -> LayerPack:
 def fused_layout_ok(layer: dict, n_heads: int, n_kv_heads: int,
                     head_dim: int, cache_dtype) -> bool:
     """The reference's static gate of the layer kernel, from shapes: q4_k
-    wqkv / wo / w_gu / w_down inside both the fused attention's and the
-    fused MLP's gates, w_down back to dim, a bf16 / f32 cache."""
-    if any(not isinstance(layer.get(k), QuantLinear) for k in STREAM):
+    wqkv / wo / w_gu / w_down in the "e" encoding (an s6 weight shuts it,
+    as in the reference) inside both the fused attention's and the fused
+    MLP's gates, w_down back to dim, a bf16 / f32 cache."""
+    if any(not isinstance(layer.get(k), QuantLinear) or layer[k].enc != "e"
+           for k in STREAM):
         return False
     if not attention_fused_supported(layer["wqkv"], layer["wo"], n_heads,
                                      n_kv_heads, head_dim, cache_dtype):

@@ -1,5 +1,6 @@
-"""Q8_0, Q4_0, Q4_K-E and Q6_K-E quantized linears: the container, the
-device quantizers, and the fused dequant matvec / GEMM wrappers.
+"""Q8_0, Q4_0, Q4_K (Q4_K-E or "s6") and Q6_K-E quantized linears: the
+container, the device quantizers, and the fused dequant matvec / GEMM
+wrappers.
 
 Port of the reference's ``ops/quant_matmul.py`` for its four formats:
 ``fmt="q8_0"`` and ``fmt="q4_0"`` (GGML's 32-block formats, one scale d per
@@ -20,6 +21,21 @@ values themselves. Dequantization is ``w = q * f32(d)`` (q8_0),
 ``dequantize_jnp`` for the same oracle blocks. q4_0 is q4_k's function with
 es = d and em = 8 d (exact), so it shares q4_k's kernels through a scale
 trait.
+
+q4_k has a second, opt-in encoding, the reference's ``enc="s6"`` (K a
+multiple of 4096, else the quantizer keeps "e", as the reference does): the
+6-bit sub-scales and mins one byte each, ``es`` int8 [N, 2 K/32] (the sc of
+a row's blocks, then their mn) and the superblock scales ``d`` bf16
+[N, 2 K/256] (the superblocks' d, then their dmin; bf16 of the fp16
+value), both in logical order: 0.578125 bytes a weight against Q4_K-E's
+0.625. Its effective scale and min are f32(d) * sc and f32(dmin) * mn,
+exact in f32 and not rounded again (``scales_to_e``), so the s6 function
+differs from the Q4_K-E one of the same blocks by Q4_K-E's bf16 rounding of
+es / em. Every q4_k kernel has an s6 instance that decodes these bytes
+itself (``q4k_s6_matvec``, ``q4k_s6_q8_matvec``, ``q4k_s6_gemm``,
+``mlp_fused`` and ``ops/fused_attention.py``'s fused attention, each
+counted under its own ``LAUNCHES`` key); ``scales_to_e`` is the plain
+versions' expansion and runs on no kernel path.
 
 Kernels:
 - ``q4k_matvec`` / ``q40_matvec`` (``csrc/q4k_matmul.cu``) — B = 1, exact
@@ -80,8 +96,11 @@ from ggml_cuda_experiments_tpu_torch.utils.platform import (
 LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0, "q4k_q8_matvec": 0,
             "fused_mlp": 0, "q6k_matvec": 0, "q6k_q8_matvec": 0,
             "q80_matvec": 0, "q40_matvec": 0, "q40_q8_matvec": 0,
-            "q80_gemm": 0, "q40_gemm": 0}
+            "q80_gemm": 0, "q40_gemm": 0, "q4k_s6_matvec": 0,
+            "q4k_s6_q8_matvec": 0, "q4k_s6_gemm": 0, "fused_mlp_s6": 0}
 FORMATS = ("q8_0", "q4_0", "q4_k", "q6_k")
+ENCODINGS = ("e", "s6")         # q4_k's scale encodings
+S6_K = 4096                     # s6 needs K % S6_K == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +110,12 @@ class QuantLinear:
     q8_0: qs int8 [N, K], d fp16 [N, K/32]. 1.0625 bytes per weight.
     q4_0: qs uint8 [N, K/2] (per-32-block planar nibbles, as q4_k's),
     d fp16 [N, K/32]. 0.5625 bytes per weight.
-    q4_k ("Q4_K-E"): qs uint8 [N, K/2] (per-32-block planar nibbles),
-    es bf16 [N, K/32], em bf16 [N, K/32].
+    q4_k ("Q4_K-E", ``enc="e"``): qs uint8 [N, K/2] (per-32-block planar
+    nibbles), es bf16 [N, K/32], em bf16 [N, K/32]. 0.625 bytes per weight.
+    q4_k "s6" (``enc="s6"``, K % 4096 == 0): qs as Q4_K-E's, es int8
+    [N, 2 K/32] (the blocks' 6-bit sc, then their mn), d bf16 [N, 2 K/256]
+    (the superblocks' d, then their dmin), em None. 0.578125 bytes per
+    weight.
     q6_k ("Q6_K-E"): per 16-element block b, qs uint8 [N, K/2] bytes
     8b..8b+7 (byte j: the low 4 bits of element j, those of element j + 8
     in the high nibble), qh uint8 [N, K/4] bytes 4b..4b+3 (byte i: the high
@@ -112,6 +135,11 @@ class QuantLinear:
     em: torch.Tensor | None = None
     qh: torch.Tensor | None = None
     d: torch.Tensor | None = None
+    enc: str = "e"
+
+    @property
+    def s6(self) -> bool:
+        return self.fmt == "q4_k" and self.enc == "s6"
 
     @property
     def array_shape(self) -> tuple[int, int]:
@@ -281,13 +309,14 @@ def quantize_blocks(w: torch.Tensor, fmt: str = "q4_k"):
     return blocks(*(torch.cat(f) for f in zip(*parts)), shape=(n, k))
 
 
-def quantize(w: torch.Tensor, fmt: str = "q4_k") -> QuantLinear:
+def quantize(w: torch.Tensor, fmt: str = "q4_k", enc: str = "e"
+             ) -> QuantLinear:
     """Quantize a float [N, K] weight on its own device: ``quantize_blocks``
     folded by ``from_oracle``, so bit-equal to the oracle's
     ``quantize_q8_0`` / ``quantize_q4_0`` / ``quantize_q4_k`` /
     ``quantize_q6_k`` (the last two followed by the reference's Q4_K-E /
-    Q6_K-E scale folding)."""
-    return from_oracle(quantize_blocks(w, fmt), device=w.device)
+    Q6_K-E scale folding, or q4_k's s6 encoding with ``enc="s6"``)."""
+    return from_oracle(quantize_blocks(w, fmt), device=w.device, enc=enc)
 
 
 _Q4K_FIELDS = ("qs", "sc", "mn", "d", "dmin", "shape")
@@ -326,16 +355,27 @@ def block_format(t) -> str:
                               f"formats ({', '.join(FORMATS)})")
 
 
-def from_oracle(t, device=None) -> QuantLinear:
+def from_oracle(t, device=None, enc: str = "e") -> QuantLinear:
     """Port container from planar Q8_0, Q4_0, Q4_K or Q6_K blocks (the same
     values; fp16 d, or the bf16 effective scales), on the card unless
     ``device`` says otherwise. ``t``'s fields (``block_format``) may be
     NumPy arrays or tensors; tensor fields are folded where they lie (a
-    GGUF tensor decoded on the card stays there)."""
+    GGUF tensor decoded on the card stays there). ``enc`` (q4_k only, as
+    in the reference; the other formats ignore it): "e" (Q4_K-E) or "s6",
+    which falls back to "e" where K % 4096 != 0."""
+    if enc not in ENCODINGS:
+        raise ValueError(f"enc {enc!r}: one of {', '.join(ENCODINGS)}")
     device = resolve_device(device)
     fmt = block_format(t)
     n, k = t.shape
     qs = _field(t.qs)
+    if fmt == "q4_k" and enc == "s6" and k % S6_K == 0:
+        sm = torch.cat([_field(t.sc), _field(t.mn)], -1)
+        dd = torch.cat([_field(t.d), _field(t.dmin)], -1)
+        return QuantLinear(fmt=fmt, shape=(n, k), enc="s6",
+                           qs=qs.to(device, torch.uint8),
+                           es=sm.to(device, torch.int8),
+                           d=dd.to(device, torch.bfloat16))
     if fmt == "q4_k":
         d8 = _field(t.d).float().repeat_interleave(8, -1)   # [N, K/32] f32
         dm8 = _field(t.dmin).float().repeat_interleave(8, -1)
@@ -361,10 +401,27 @@ def _nibbles(qs: torch.Tensor, n: int, k: int) -> torch.Tensor:
     return torch.cat([p & 0x0F, p >> 4], dim=-1).float()
 
 
+def scales_to_e(ql: QuantLinear) -> QuantLinear:
+    """An s6 q4_k weight with its scales expanded to the "e" fields: es =
+    f32(d) * sc and em = f32(dmin) * mn, f32 [N, K/32], NOT rounded to bf16
+    (the reference's ``scales_to_e``: the same scales the s6 kernels
+    compute). Any other weight is returned as it is. The plain versions
+    take it; no kernel does (its es / em are not bf16)."""
+    if not ql.s6:
+        return ql
+    kb = ql.array_shape[1] // QK
+    d = ql.d.float().repeat_interleave(8, -1)    # [N, 2 K/32]: d | dmin
+    sm = ql.es.float()                           # [N, 2 K/32]: sc | mn
+    return QuantLinear(fmt="q4_k", shape=ql.shape, qs=ql.qs,
+                       es=d[..., :kb] * sm[..., :kb],
+                       em=d[..., kb:] * sm[..., kb:])
+
+
 def dequantize(ql: QuantLinear, dtype=torch.float32) -> torch.Tensor:
     """Dense logical-order [N, K]: w = q * f32(d) (q8_0),
-    w = (q - 8) * f32(d) (q4_0), w = q * f32(es) - f32(em) (q4_k),
-    w = f32(es) * (q - 32) (q6_k)."""
+    w = (q - 8) * f32(d) (q4_0), w = q * f32(es) - f32(em) (q4_k; s6
+    through ``scales_to_e``), w = f32(es) * (q - 32) (q6_k)."""
+    ql = scales_to_e(ql)
     n, k = ql.array_shape
     if ql.fmt == "q6_k":
         q = _q6_values(ql.qs, ql.qh).float() - 32.0         # [N, K/16, 16]
@@ -425,11 +482,15 @@ _Q8_ROWS = 4096             # rows per chunk of the plain int8 matvec
 
 
 def _scale_min(ql: QuantLinear, r0: int, r1: int):
-    """Rows r0:r1 of the per-32-block (es, em) f32 of a q4_k weight, or of
-    a q4_0 one (es = d, em = 8 d, exact)."""
+    """Rows r0:r1 of the per-32-block (es, em) f32 of a q4_k weight (s6
+    through ``scales_to_e``), or of a q4_0 one (es = d, em = 8 d, exact)."""
     if ql.fmt == "q4_0":
         es = ql.d[r0:r1].float()
         return es, 8.0 * es
+    if ql.s6:
+        e = scales_to_e(dataclasses.replace(
+            ql, qs=ql.qs[r0:r1], es=ql.es[r0:r1], d=ql.d[r0:r1]))
+        return e.es, e.em
     return ql.es[r0:r1].float(), ql.em[r0:r1].float()
 
 
@@ -533,16 +594,23 @@ def mlp_fused_ref(x: torch.Tensor, w_gu: QuantLinear,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_ql(ql: QuantLinear, device: torch.device, fmt: str = "q4_k"
-              ) -> tuple[int, int]:
-    """Raise unless ``ql`` is a ``fmt`` weight whose arrays are what the
-    kernels read."""
+def _check_ql(ql: QuantLinear, device: torch.device, fmt: str = "q4_k",
+              enc: str = "e") -> tuple[int, int]:
+    """Raise unless ``ql`` is a ``fmt`` weight of encoding ``enc`` (q4_k)
+    whose arrays are what the kernels read."""
     _need(ql, fmt)
     n, k = ql.array_shape
     if k % _block(fmt):
         raise ValueError(f"{fmt} kernels need K % {_block(fmt)} == 0 "
                          f"(got {k})")
-    if fmt == "q4_k":
+    if fmt == "q4_k" and ql.enc != enc:
+        raise ValueError(f"a q4_k {enc!r} kernel got an {ql.enc!r} weight")
+    if ql.s6:
+        if k % S6_K:
+            raise ValueError(f"s6 kernels need K % {S6_K} == 0 (got {k})")
+        scales = (("es", ql.es, torch.int8, (n, k // 16), 16),
+                  ("d", ql.d, torch.bfloat16, (n, k // 128), 16))
+    elif fmt == "q4_k":
         scales = (("es", ql.es, torch.bfloat16, (n, k // QK), 2),
                   ("em", ql.em, torch.bfloat16, (n, k // QK), 2))
     else:
@@ -567,9 +635,9 @@ def _check_arrays(device, arrays) -> None:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _check_weight(ql: QuantLinear, x: torch.Tensor, fmt: str = "q4_k"
-                  ) -> tuple[int, int]:
-    n, k = _check_ql(ql, x.device, fmt)
+def _check_weight(ql: QuantLinear, x: torch.Tensor, fmt: str = "q4_k",
+                  enc: str = "e") -> tuple[int, int]:
+    n, k = _check_ql(ql, x.device, fmt, enc)
     if x.dim() != 2 or x.shape[1] != k or not x.is_contiguous():
         raise ValueError(f"x: need contiguous [B, {k}], got {tuple(x.shape)}")
     return n, k
@@ -686,14 +754,24 @@ def q80_plan(n: int, k: int, sms: int) -> tuple[int, int, int]:
     return s, stages, min(tiles(s), ctas)
 
 
+def _scales(ql: QuantLinear) -> tuple:
+    """A weight's scale arrays in its kernels' argument order: q4_k (es,
+    em), s6 (es, d), q4_0 / q8_0 (d,)."""
+    if ql.s6:
+        return ql.es, ql.d
+    return (ql.es, ql.em) if ql.fmt == "q4_k" else (ql.d,)
+
+
 def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
-            dtype: torch.dtype, gemm: bool = False) -> torch.Tensor:
-    """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight,
-    launch the C entry ``name`` (x, qs, its scale arrays, y, [M,] N, K,
-    [route | splits,] stream) and count the launch; a GEMM takes
-    ``gemm_route``'s route and needs x on 16 bytes, the exact-f32 matvecs
-    ``matvec_splits``' split, ``q80_matvec`` ``q80_plan``'s."""
-    n, k = _check_weight(ql, x, fmt)
+            dtype: torch.dtype, gemm: bool = False, enc: str = "e"
+            ) -> torch.Tensor:
+    """Check x (``dtype``; one row unless ``gemm``) and the ``fmt`` weight
+    (of encoding ``enc``), launch the C entry ``name`` (x, qs, its scale
+    arrays, y, [M,] N, K, [route | splits,] stream) and count the launch; a
+    GEMM takes ``gemm_route``'s route and needs x on 16 bytes, the
+    exact-f32 matvecs ``matvec_splits``' split, ``q80_matvec``
+    ``q80_plan``'s."""
+    n, k = _check_weight(ql, x, fmt, enc)
     if x.dtype != dtype or (x.shape[0] != 1 and not gemm):
         raise ValueError(f"{name}: x must be {dtype} "
                          f"{'[M, K]' if gemm else '[1, K]'}, got {x.dtype} "
@@ -703,7 +781,7 @@ def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
     if gemm and x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on 16 bytes")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    scales = (ql.es, ql.em) if fmt == "q4_k" else (ql.d,)
+    scales = _scales(ql)
     if gemm:
         extra = (GEMM_ROUTE_ID[route],)
     elif name in _SPLIT_MATVECS:
@@ -723,7 +801,7 @@ def _launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
     return y
 
 
-_SPLIT_MATVECS = ("q4k_matvec", "q40_matvec")
+_SPLIT_MATVECS = ("q4k_matvec", "q40_matvec", "q4k_s6_matvec")
 
 
 def q4k_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
@@ -731,6 +809,14 @@ def q4k_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     if not kernels_for(x):
         return qmatmul_ref(x, ql, torch.float32)
     return _launch("q4k_matvec", "q4_k", x, ql, torch.float32)
+
+
+def q4k_s6_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_matvec`` for an s6 W: the same warps, its scales decoded from
+    the s6 bytes in the kernel."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.float32)
+    return _launch("q4k_s6_matvec", "q4_k", x, ql, torch.float32, enc="s6")
 
 
 def q40_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
@@ -773,6 +859,14 @@ def q4k_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return _launch("q4k_gemm", "q4_k", x, ql, torch.bfloat16, gemm=True)
 
 
+def q4k_s6_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_gemm`` for an s6 W (both routes decode the s6 bytes)."""
+    if not kernels_for(x):
+        return qmatmul_ref(x, ql, torch.bfloat16)
+    return _launch("q4k_s6_gemm", "q4_k", x, ql, torch.bfloat16, gemm=True,
+                   enc="s6")
+
+
 def q40_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """``q4k_gemm`` for a q4_0 W."""
     if not kernels_for(x):
@@ -795,8 +889,8 @@ def q8_matvec_supported(ql: QuantLinear) -> bool:
 
 
 def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str,
-              fmt: str = "q4_k") -> tuple[int, int]:
-    n, k = _check_weight(ql, x, fmt)
+              fmt: str = "q4_k", enc: str = "e") -> tuple[int, int]:
+    n, k = _check_weight(ql, x, fmt, enc)
     if x.dtype != torch.float32 or x.shape[0] != 1 \
             or not q8_matvec_supported(ql):
         raise ValueError(f"{name}: x must be f32 [1, K] with K % 4096 == 0, "
@@ -804,10 +898,10 @@ def _check_q8(x: torch.Tensor, ql: QuantLinear, name: str,
     return n, k
 
 
-def _q8_launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear
-               ) -> torch.Tensor:
-    _check_q8(x, ql, name, fmt)
-    return _launch(name, fmt, x, ql, torch.float32)
+def _q8_launch(name: str, fmt: str, x: torch.Tensor, ql: QuantLinear,
+               enc: str = "e") -> torch.Tensor:
+    _check_q8(x, ql, name, fmt, enc)
+    return _launch(name, fmt, x, ql, torch.float32, enc=enc)
 
 
 def q4k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
@@ -815,6 +909,13 @@ def q4k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     if not kernels_for(x):
         return qmatmul_q8_ref(x, ql)
     return _q8_launch("q4k_q8_matvec", "q4_k", x, ql)
+
+
+def q4k_s6_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """``q4k_q8_matvec`` for an s6 W."""
+    if not kernels_for(x):
+        return qmatmul_q8_ref(x, ql)
+    return _q8_launch("q4k_s6_q8_matvec", "q4_k", x, ql, enc="s6")
 
 
 def q40_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
@@ -882,6 +983,7 @@ def q6k_q8_matvec(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
 # name: looked up when called, so a wrapper replaced on the module (a
 # counting spy) is the one that runs
 _ROUTES = {"q4_k": ("q4k_matvec", "q4k_q8_matvec", "q4k_gemm"),
+           "q4_k~s6": ("q4k_s6_matvec", "q4k_s6_q8_matvec", "q4k_s6_gemm"),
            "q4_0": ("q40_matvec", "q40_q8_matvec", "q40_gemm"),
            "q8_0": ("q80_matvec", None, "q80_gemm")}
 
@@ -895,7 +997,10 @@ def qmatmul(x: torch.Tensor, ql: QuantLinear,
     exact-f32 matvec (its ``_chunk_kernel`` / ``_vpu2_kernel`` /
     ``_vpu_e_kernel``); B >= 2 the bf16 GEMM (its ``_mxu_kernel`` and, for
     its ``pipelined`` prefill range, ``_pipe_sub_kernel``: the same
-    function, so the port has one kernel and no ``pipelined`` flag).
+    function, so the port has one kernel and no ``pipelined`` flag). An s6
+    q4_k weight takes the s6 instance of each (the reference's B 2-8 VPU
+    loop expands s6 with ``scales_to_e``; the port's B 2-8 rows are the
+    GEMM's stream route, which decodes s6 itself).
 
     q8_0 (``x_quant8`` has no effect, as in the reference): B == 1 runs
     ``q80_matvec`` (its ``_mxu_kernel`` at repeat-aligned K/32, its
@@ -915,7 +1020,7 @@ def qmatmul(x: torch.Tensor, ql: QuantLinear,
         else:
             y = qmatmul_ref(x, ql, torch.bfloat16)
         return y.to(x.dtype)
-    matvec, matvec_q8, gemm = _ROUTES[ql.fmt]
+    matvec, matvec_q8, gemm = _ROUTES["q4_k~s6" if ql.s6 else ql.fmt]
     if x.shape[0] == 1:
         name = matvec_q8 if x_quant8 and q8_matvec_supported(ql) else matvec
         y = globals()[name](x.float().contiguous(), ql)
@@ -946,21 +1051,25 @@ def mlp_fused_supported(w_gu, w_down) -> bool:
 def mlp_fused(x: torch.Tensor, w_gu: QuantLinear,
               w_down: QuantLinear) -> torch.Tensor:
     """y [1, Nd] f32 = the fused silu MLP of x [1, 4096] f32 (normed, in
-    logical order; w_gu = [gate; up] rows, logical order too)."""
+    logical order; w_gu = [gate; up] rows, logical order too). Two s6
+    weights take the s6 instance (``fused_mlp_s6``); on the card both
+    weights must share one encoding."""
     if not kernels_for(x):
         return mlp_fused_ref(x, w_gu, w_down)
     if not mlp_fused_supported(w_gu, w_down):
         raise ValueError(f"mlp_fused: w_gu {w_gu.array_shape}, w_down "
                          f"{w_down.array_shape} outside the fused gate")
-    ng, kg = _check_q8(x, w_gu, "mlp_fused")
-    nd, kd = _check_ql(w_down, x.device)
+    enc = w_gu.enc
+    name = "fused_mlp_s6" if enc == "s6" else "fused_mlp"
+    ng, kg = _check_q8(x, w_gu, name, enc=enc)
+    nd, kd = _check_ql(w_down, x.device, enc=enc)
     ws = torch.empty((ng,), dtype=torch.float32, device=x.device)
     y = torch.empty((1, nd), dtype=torch.float32, device=x.device)
-    rc = _build.lib().fused_mlp(
-        x.data_ptr(), w_gu.qs.data_ptr(), w_gu.es.data_ptr(),
-        w_gu.em.data_ptr(), w_down.qs.data_ptr(), w_down.es.data_ptr(),
-        w_down.em.data_ptr(), ws.data_ptr(), y.data_ptr(), kg, kd, nd,
-        _build.stream_of(x))
-    _build.check(rc, "fused_mlp")
-    LAUNCHES["fused_mlp"] += 1
+    rc = getattr(_build.lib(), name)(
+        x.data_ptr(), w_gu.qs.data_ptr(),
+        *(t.data_ptr() for t in _scales(w_gu)), w_down.qs.data_ptr(),
+        *(t.data_ptr() for t in _scales(w_down)), ws.data_ptr(),
+        y.data_ptr(), kg, kd, nd, _build.stream_of(x))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
     return y

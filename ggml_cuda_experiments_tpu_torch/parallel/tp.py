@@ -103,6 +103,9 @@ def shard_quant_linear(w, i: int, n: int):
     if (k1 - k0) % _block(w.fmt):
         raise ValueError(f"{w.fmt} K-slice of {k1 - k0} is not a multiple "
                          f"of its {_block(w.fmt)}-element block")
+    if w.s6:        # its fields hold two halves each: no proportional slice
+        raise NotImplementedError("a K-slice of an s6 weight: shard the "
+                                  "Q4_K-E encoding")
     out = {}
     for f in _fields(w):
         t = getattr(w, f)

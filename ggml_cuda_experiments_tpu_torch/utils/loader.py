@@ -11,7 +11,9 @@ framing (little-endian):
 dtype codes: 0 f32, 1 f16, 2 bf16 (through ``torch.bfloat16``), 3 int8,
 4 uint8, 5 int32. A tree flattens to one entry a leaf, named by its path
 (``layers.3.attn_norm``), and a ``QuantLinear`` to one entry a field,
-``<path>#<fmt>+logical#<N>x<K>#<field>``, so no side manifest is needed.
+``<path>#<fmt>+logical#<N>x<K>#<field>``, so no side manifest is needed; a
+q4_k weight in the s6 encoding names its format ``q4_k~s6`` (the JAX
+package's v3 token), as in ``<path>#q4_k~s6+logical#<N>x<K>#es``.
 
 Dense entries are the JAX package's both ways: same framing, codes,
 alignment and names, and a tree with no quantized leaf is written as
@@ -151,7 +153,8 @@ def _flatten(prefix: str, node, out: dict[str, torch.Tensor]) -> None:
             _flatten(f"{prefix}.{i}", sub, out)
     elif isinstance(node, QuantLinear):
         n, k = node.shape
-        base = f"{prefix}#{node.fmt}+{_LAYOUT}#{n}x{k}"
+        fmt = node.fmt if node.enc == "e" else f"{node.fmt}~{node.enc}"
+        base = f"{prefix}#{fmt}+{_LAYOUT}#{n}x{k}"
         for f in _QFIELDS:
             a = getattr(node, f)
             if a is not None:
@@ -218,8 +221,9 @@ def load_params(path, mesh=None, device=None) -> dict[str, Any]:
             prefix, fmt, shape_s, field = name.split("#")
             if prefix not in quants:           # keep the saved key order
                 _set_path(tree, prefix, None)
+                fmt, _, enc = fmt.partition("+")[0].partition("~")
                 quants[prefix] = {
-                    "fmt": fmt.partition("+")[0],
+                    "fmt": fmt, "enc": enc or "e",
                     "shape": tuple(int(v) for v in shape_s.split("x"))}
             quants[prefix][field] = t
         else:

@@ -22,7 +22,9 @@ groups, whose p * v_scale is rounded to bf16 as in the reference. The
 Q8_0 / Q4_0 kernels: q40_matvec and q40_q8_matvec 1e-4 * max (as their
 q4_k instances), q80_matvec 1e-4 * max (it reproduces its plain version's
 rounding, bf16(x) * bf16(q d) summed in f32), the GEMMs 2e-2 * max (as
-q4k_gemm); the device quantizer bit-equal to the oracle."""
+q4k_gemm); the device quantizer bit-equal to the oracle. The q4_k s6
+instances (q4k_s6_matvec, q4k_s6_q8_matvec, q4k_s6_gemm, the fused MLP and
+attention on s6 weights) at their Q4_K-E instances' tolerances."""
 
 import contextlib
 import dataclasses
@@ -1785,3 +1787,108 @@ def test_moe_mlp_on_card(dev, rows):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, want)
+
+
+# ---------------------------------------------------------------- q4_k s6
+
+def _s6(seed, n, k, dev, scale=None):
+    return qm.quantize(_randn(seed, n, k, scale=scale or k ** -0.5).to(dev),
+                       enc="s6")
+
+
+@pytest.mark.parametrize("n,k", [(300, 4096), (4096, 4096), (37, 12288),
+                                 (12288, 4096), (130, 8192)])
+def test_q4k_s6_matvec(dev, n, k):
+    """Every split the plan picks (37 rows: 8 splits of 48 blocks, a step
+    of 16 the last), ragged N; bitwise repeatable; launched under its own
+    key, never the Q4_K-E one."""
+    ql = _s6(60, n, k, dev)
+    x = _randn(61, 1, k).to(dev)
+    before = dict(qm.LAUNCHES)
+    _check(qm.q4k_s6_matvec, x, ql, tol=1e-4)
+    assert qm.LAUNCHES["q4k_s6_matvec"] == before["q4k_s6_matvec"] + 1
+    assert qm.LAUNCHES["q4k_matvec"] == before["q4k_matvec"]
+    first = qm.q4k_s6_matvec(x, ql)
+    assert torch.equal(first, qm.q4k_s6_matvec(x, ql))
+
+
+@pytest.mark.parametrize("n,k", [(640, 4096), (300, 12288)])
+def test_q4k_s6_q8_matvec(dev, n, k):
+    ql = _s6(62, n, k, dev)
+    before = qm.LAUNCHES["q4k_s6_q8_matvec"]
+    _check(qm.q4k_s6_q8_matvec, _randn(63, 1, k).to(dev), ql, tol=1e-4)
+    assert qm.LAUNCHES["q4k_s6_q8_matvec"] == before + 1
+
+
+S6_GEMM_CASES = [(m, n, k) for m in (2, 17, 32, 33, 300) for n in (130, 300)
+                 for k in (4096, 12288)]
+
+
+@pytest.mark.parametrize("m,n,k", S6_GEMM_CASES,
+                         ids=[f"M{m}-N{n}-K{k}" for m, n, k in S6_GEMM_CASES])
+def test_q4k_s6_gemm(dev, m, n, k):
+    """Both routes (gemm_route), each instance's part-empty tile, ragged N;
+    bitwise repeatable."""
+    ql = _s6(64, n, k, dev)
+    x = _randn(65, m, k).to(dev, torch.bfloat16)
+    route = qm.gemm_route(m)
+    before = qm.LAUNCHES["q4k_s6_gemm"], qm.GEMM_ROUTE_LAUNCHES[route]
+    _check(qm.q4k_s6_gemm, x, ql, tol=2e-2)
+    assert (qm.LAUNCHES["q4k_s6_gemm"], qm.GEMM_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(qm.q4k_s6_gemm(x, ql), qm.q4k_s6_gemm(x, ql))
+
+
+@pytest.mark.parametrize("kd", [4096, 12288])
+def test_fused_mlp_s6(dev, kd):
+    w_gu = _s6(66, 2 * kd, 4096, dev, 1 / 64)
+    w_down = _s6(67, 256, kd, dev, 1 / 64)
+    before = qm.LAUNCHES["fused_mlp_s6"], qm.LAUNCHES["fused_mlp"]
+    _check(qm.mlp_fused, _randn(68, 1, 4096).to(dev), w_gu, w_down, tol=5e-3)
+    assert (qm.LAUNCHES["fused_mlp_s6"], qm.LAUNCHES["fused_mlp"]) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("hkv", [32, 8])
+@pytest.mark.parametrize("length", [0, 255, 1023])
+def test_fused_attention_s6(dev, hkv, length):
+    """One split (0), several (255), the cache's last slot (1023)."""
+    wqkv = _s6(69, (32 + 2 * hkv) * 128, 4096, dev, 1 / 64)
+    wo = _s6(70, 4096, 4096, dev, 1 / 64)
+    kc = _randn(71, 2, 1, hkv, 1024, 128).to(dev, torch.bfloat16)
+    vc = _randn(72, 2, 1, hkv, 1024, 128).to(dev, torch.bfloat16)
+    x = _randn(73, 1, 4096).to(dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    kw = dict(n_heads=32, n_kv_heads=hkv, head_dim=128)
+    before = fat.LAUNCHES["fused_attention_s6"], fat.LAUNCHES[
+        "fused_attention"]
+    got = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 1, **kw)
+    with plain_versions():
+        ref = fat.attention_fused(x, wqkv, wo, kc, vc, lens, 1, **kw)
+    torch.cuda.synchronize()
+    assert (fat.LAUNCHES["fused_attention_s6"],
+            fat.LAUNCHES["fused_attention"]) == (before[0] + 1, before[1])
+    _close(got[0], ref[0], 5e-3)
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, 2e-2, floor=1.0)
+
+
+def test_s6_weights_never_reach_an_e_kernel(dev):
+    """A Q4_K-E wrapper refuses an s6 weight (and an s6 one a Q4_K-E
+    weight) before any launch; mixed encodings in one fused block raise."""
+    s6, e = _s6(74, 256, 4096, dev), qm.quantize(
+        _randn(74, 256, 4096, scale=1 / 64).to(dev))
+    x = _randn(75, 1, 4096).to(dev)
+    before = dict(qm.LAUNCHES)
+    for fn, w in ((qm.q4k_matvec, s6), (qm.q4k_q8_matvec, s6),
+                  (qm.q4k_s6_matvec, e), (qm.q4k_s6_q8_matvec, e)):
+        with pytest.raises(ValueError):
+            fn(x, w)
+    for fn, w in ((qm.q4k_gemm, s6), (qm.q4k_s6_gemm, e)):
+        with pytest.raises(ValueError):
+            fn(x.repeat(4, 1).to(torch.bfloat16), w)
+    w_gu, w_down = _s6(76, 8192, 4096, dev), qm.quantize(
+        _randn(77, 256, 4096, scale=1 / 64).to(dev))
+    with pytest.raises(ValueError):
+        qm.mlp_fused(x, w_gu, w_down)
+    assert qm.LAUNCHES == before

@@ -9,7 +9,8 @@ run with their quantizer swapped for one that makes an empty weight of the
 right shape (the JAX one keeps its ``layout``), and one decode step of
 each ``_forward`` runs with its kernel entry points swapped for recorders
 that return zeros. The vocabulary is cut to 512 and the depth to one
-layer: neither enters a gate."""
+layer: neither enters a gate. With q4_k's s6 encoding both packages shut
+the layer kernel and keep the fused attention and the fused MLP open."""
 
 import itertools
 import types
@@ -61,11 +62,16 @@ def _np_zeros(*shape):
     return np.broadcast_to(np.float32(0), shape)
 
 
-def _jax_tree(cfg, monkeypatch):
-    def quantize(w, fmt, layout="std", enc="auto"):
+def _jax_tree(cfg, monkeypatch, enc="e"):
+    def quantize(w, fmt, layout="std"):
         n, k = w.shape
-        return jqm.QuantLinear(fmt=fmt, shape=(n, k), layout=layout,
-                               qs=np.broadcast_to(np.uint8(0), (n, k // 2)),
+        qs = np.broadcast_to(np.uint8(0), (n, k // 2))
+        if enc == "s6":
+            return jqm.QuantLinear(
+                fmt=fmt, shape=(n, k), layout=layout, enc="s6", qs=qs,
+                es=np.broadcast_to(np.int8(0), (n, k // 16)),
+                d=_np_zeros(n, k // 128))
+        return jqm.QuantLinear(fmt=fmt, shape=(n, k), layout=layout, qs=qs,
                                es=_np_zeros(n, k // 32),
                                em=_np_zeros(n, k // 32))
 
@@ -129,11 +135,16 @@ def _t_zeros(*shape):
     return torch.zeros(()).expand(*shape)
 
 
-def _port_tree(cfg, monkeypatch):
+def _port_tree(cfg, monkeypatch, enc="e"):
     def quantize(w, fmt="q4_k"):
         n, k = w.shape
-        return tqm.QuantLinear(fmt=fmt, shape=(n, k),
-                               qs=torch.empty((n, k // 2), dtype=torch.uint8),
+        qs = torch.empty((n, k // 2), dtype=torch.uint8)
+        if enc == "s6":
+            return tqm.QuantLinear(
+                fmt=fmt, shape=(n, k), enc="s6", qs=qs,
+                es=torch.empty((n, k // 16), dtype=torch.int8),
+                d=torch.empty((n, k // 128), dtype=torch.bfloat16))
+        return tqm.QuantLinear(fmt=fmt, shape=(n, k), qs=qs,
                                es=torch.empty((n, k // 32),
                                               dtype=torch.bfloat16),
                                em=torch.empty((n, k // 32),
@@ -198,14 +209,19 @@ def _port_step(params, cfg, monkeypatch, quantized=False):
     return calls
 
 
-def _trees(shape, monkeypatch):
+def _trees(shape, monkeypatch, enc="e"):
     """(JAX, port) configs, and the trees by name: quantized, hperm (the
-    deploy layout) and per_layer (the per-layer packs, no model pack)."""
+    deploy layout) and per_layer (the per-layer packs, no model pack; not
+    for s6, which neither package packs)."""
     jcfg, tcfg = _cut(JPRESETS[shape]), _cut(PRESETS[shape])
-    jq, tq = _jax_tree(jcfg, monkeypatch), _port_tree(tcfg, monkeypatch)
+    jq = _jax_tree(jcfg, monkeypatch, enc)
+    tq = _port_tree(tcfg, monkeypatch, enc)
     jh = jl.permute_hidden_params(jq, jcfg)
     th = tl.permute_hidden_params(tq, tcfg)
     assert ("m_pack" in jh) == ("m_pack" in th)
+    if enc == "s6":
+        assert "m_pack" not in th
+        return jcfg, tcfg, {"quantized": (jq, tq), "hperm": (jh, th)}
     jlay = dict({k: v for k, v in jh.items() if k != "m_pack"}, layers=[
         dict(lay, w_pack=jlk.pack_stream(lay["wqkv"], lay["wo"],
                                          lay["w_gu_f"]))
@@ -216,11 +232,11 @@ def _trees(shape, monkeypatch):
                         "per_layer": (jlay, tlay)}
 
 
-def _branches(shape, monkeypatch, quantized=False):
+def _branches(shape, monkeypatch, quantized=False, enc="e"):
     """Every flag combination through both packages' decode step (asserted
     equal); returns the set of branches taken (the calls other than the
     linears)."""
-    jcfg, tcfg, trees = _trees(shape, monkeypatch)
+    jcfg, tcfg, trees = _trees(shape, monkeypatch, enc)
     branches = set()
     for values in itertools.product((False, True), repeat=len(FLAGS)):
         flags = dict(zip(FLAGS, values))
@@ -254,3 +270,17 @@ def test_quantized_cache_closes_the_fused_gates(fmt, monkeypatch):
     fused MLP."""
     branches = _branches("llama2-7b", monkeypatch, quantized=fmt)
     assert branches == {("flash_decode",), ("flash_decode", "mlp_fused")}
+
+
+@pytest.mark.parametrize("shape", ["llama2-7b", "llama3-8b"])
+def test_s6_shuts_only_the_layer_kernel(shape, monkeypatch):
+    """s6 weights: in both packages no flag combination reaches
+    model_step or layer_step (the layer kernel takes Q4_K-E only), while
+    the fused attention and the fused MLP open as they do for Q4_K-E."""
+    branches = _branches(shape, monkeypatch, enc="s6")
+    assert branches == {("flash_decode",), ("flash_decode", "mlp_fused"),
+                        ("attention_fused",),
+                        ("attention_fused", "mlp_fused")}, branches
+    lay = _port_tree(_cut(PRESETS[shape]), monkeypatch, "s6")["layers"][0]
+    assert not tlk.fused_layout_ok(lay, 32, PRESETS[shape].n_kv_heads, 128,
+                                   torch.bfloat16)
