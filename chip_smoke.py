@@ -242,6 +242,15 @@ Phases, each printing its own lines; any failure ends the run nonzero:
      alone) decoded together through q4k_s6_gemm's stream route and
      flash_decode over unequal lengths, each layer and the logits forced
      against each row's batch-1 run (2e-2 * max), counts asserted.
+  16. (after 15) tools/profile_decode.py's probe modes, each once at
+     reduced reps on tinyllama-1.1b where it takes a model (--ladder,
+     --layer-marginal --ablate, --nonlayer --head-fmt q6_k, --blocks,
+     --embed 512, --pipe, --enc s6, --host), every JSON row asserted;
+     q4k_gemm's tc phases at the two --pipe shapes, M 512 (phase "all"
+     bit-equal to the production call, "stream" zeros, "dequant" and
+     "dot" launched); the tools' GCTC weight cache on tinyllama (built
+     and saved, loaded: the same tree, the same logits); the launches
+     counted as one path, "profile_decode".
 Each phase's wall seconds are printed on a line of their own ("phase 13:
 <seconds> s") and kept in the JSON line's "phase_seconds". The last line is
 the contract line {"ok": true, "device": {...}}; the line before it is the
@@ -4937,19 +4946,13 @@ S6_RAGGED = (17, 64, 200, 511)       # the ragged batch: a prompt a row
 S6_RAGGED_STEPS = 4
 
 
-def _s6_params(dense, **kw):
+def _s6_params(dense):
     """``dense`` quantized by ``llama.quantize_params`` to q4_k with every
-    linear in the s6 encoding: its quantizer called as ``quantize(w, fmt,
-    enc="s6")`` (quantize_params takes no ``enc``, as the reference's takes
-    none), so the tree has quantize_params' layout and MLP pad (7B: 11008
-    -> 12288)."""
-    import functools
-    from ggml_cuda_experiments_tpu_torch.models import llama
-    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
-    with contextlib.ExitStack() as stack:
-        stack.callback(setattr, llama, "quantize", llama.quantize)
-        llama.quantize = functools.partial(qm.quantize, enc="s6")
-        return llama.quantize_params(dense, "q4_k", **kw)
+    linear in the s6 encoding (``profile_decode.quantize_model``: its
+    quantizer called as ``quantize(w, fmt, enc="s6")``), so the tree has
+    quantize_params' layout and MLP pad (7B: 11008 -> 12288)."""
+    from ggml_cuda_experiments_tpu_torch.tools import profile_decode as pdc
+    return pdc.quantize_model(dense, "q4_k", "s6")
 
 
 def _s6_case(res, name, case, calls, nbytes, tol, ops, kind,
@@ -5308,6 +5311,132 @@ def phase_s6(dev, seed, res: Results, card):
     return paths, metrics
 
 
+PROBE_MODEL = "tinyllama-1.1b"
+
+
+def _probe_rows(what, out, n_rows, free=()):
+    """A probe mode's JSON rows: ``n_rows`` of them, each us finite (and
+    positive, but for the rows named in ``free``: a difference of two
+    timings), each bound positive and named; logged."""
+    import math
+    rows = out["rows"]
+    json.dumps(out)                      # its JSON line can be printed
+    bad = [r for r in rows if not (
+        math.isfinite(r["us"]) and (r["us"] > 0 or r["component"] in free)
+        and r["bound_us"] >= 0 and r["bound_by"] in ("bytes", "operations"))]
+    if len(rows) != n_rows or bad:
+        raise AssertionError(f"profile_decode {what}: {len(rows)} rows "
+                             f"(want {n_rows}); bad {bad}")
+    log(f"  {what}: {n_rows} rows ok: " + "; ".join(
+        f"{r['component']} {r['us']:.1f} us" for r in rows))
+
+
+def phase_probe_modes(dev, seed, card):
+    """16. tools/profile_decode.py's probe modes, the counterparts of the
+    JAX package's probe tools, each once through ``run`` at reduced reps
+    (1 pair, 5 host calls), on tinyllama-1.1b where the mode takes a model,
+    every JSON row asserted (``_probe_rows``); q4k_gemm's tc phases at the
+    two --pipe shapes at M 512: phase "all" bit-equal to the production
+    call, "stream" all zeros, "dequant" and "dot" launched; the GCTC weight
+    cache (``cached_params``): tinyllama built and saved, loaded, the same
+    tree and the same logits. The modes' and the phases' launches are
+    counted as one path, "profile_decode"."""
+    import shutil
+    import tempfile
+    import torch
+    from ggml_cuda_experiments_tpu_torch.models import llama
+    from ggml_cuda_experiments_tpu_torch.ops import quant_matmul as qm
+    from ggml_cuda_experiments_tpu_torch.tools import profile_decode as pdc
+    t_phase = time.perf_counter()
+    log(f"== 16. profile_decode's probe modes ({PROBE_MODEL}), q4k_gemm's "
+        "phases, the GCTC weight cache")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="gct_probe_")
+    metrics = {}
+    try:
+        cfg = pdc.config(PROBE_MODEL)
+        path = os.path.join(tmp, "e.gctc")
+        t0 = time.perf_counter()
+        built = pdc.cached_params(cfg, "q4_k", seed, dev, ckpt=path)
+        t1 = time.perf_counter()
+        params = pdc.cached_params(cfg, "q4_k", seed, dev, ckpt=path)
+        t2 = time.perf_counter()
+        n = _assert_same_tree("the GCTC cache (load against build)", params,
+                              built)
+        prompt = torch.ones((1, 16), dtype=torch.int64, device=dev)
+
+        def logits(p):
+            cache = llama.KVCache.create(cfg, 1, 256, device=dev)
+            lg, cache = llama.prefill(p, cfg, prompt, cache)
+            return llama.decode_step(p, cfg, torch.argmax(lg, -1), cache)[0]
+
+        if not torch.equal(logits(params), logits(built)):
+            raise AssertionError("the GCTC cache: the loaded weights' "
+                                 "logits differ from the built ones'")
+        del built
+        torch.cuda.empty_cache()
+        metrics["cache"] = {"build_save_s": t1 - t0, "load_s": t2 - t1,
+                            "file_bytes": os.path.getsize(path)}
+        log(f"  [{card}] the GCTC cache of {PROBE_MODEL} q4_k: built and "
+            f"saved in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s "
+            f"({os.path.getsize(path)} bytes); {n} bytes of weights "
+            "bit-equal, decode logits identical")
+        common = ["--model", PROBE_MODEL, "--seed", str(seed)]
+        modes = (  # argv, rows, the rows that may read <= 0
+            (["--ladder"], 5, ()),
+            (["--layer-marginal", "--ablate"], 7,
+             ("non-layer (t(L) - L x the full layer)",)),
+            (["--nonlayer", "--head-fmt", "q6_k"], 7, ()),
+            (["--blocks"], 4, ()),
+            (["--embed", "512"], 4, ()),
+            (["--pipe", "--pairs", "1"], 12, ()),
+            (["--enc", "s6", "--pairs", "1", "--ckpt",
+              os.path.join(tmp, "s6.gctc")], 15, ()),
+            (["--host", "--n", "5"], 8, ()))
+        torch.cuda.synchronize()
+        _reset_counts()
+        for argv, n_rows, free in modes:
+            args = pdc.parse(common + argv)
+            t0 = time.perf_counter()
+            out = pdc.run(args, dev, params)
+            _probe_rows(args.mode, out, n_rows, free)
+            metrics[args.mode] = {"rows": out["rows"],
+                                  "s": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(seed + 160)
+        for k, _, nb in pdc.PIPE_SHAPES:
+            ql = qm.quantize(torch.randn((nb, k), generator=g, device=dev)
+                             / k ** 0.5, "q4_k")
+            x = torch.randn((512, k), generator=g,
+                            device=dev).to(torch.bfloat16)
+            y = qm.q4k_gemm(x, ql)
+            if not torch.equal(qm.q4k_gemm(x, ql, phase="all"), y):
+                raise AssertionError(f"q4k_gemm phase all != production "
+                                     f"at [{nb} x {k}], M 512")
+            if qm.q4k_gemm(x, ql, phase="stream").any():
+                raise AssertionError("q4k_gemm phase stream wrote non-zero")
+            for phase in ("dequant", "dot"):
+                qm.q4k_gemm(x, ql, phase=phase)
+            torch.cuda.synchronize()
+            log(f"  q4k_gemm [{nb} x {k}] M 512: phase all bit-equal to the "
+                "production call, stream zeros, dequant and dot launched")
+            del ql, x, y
+        counts = _counts()
+        log(f"  launches in profile_decode: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (counts["q4k_gemm_phase"] and counts["q4k_gemm"]
+                and counts["fused_mlp"] and counts["fused_attention"]
+                and counts["flash_decode"]):
+            raise AssertionError(f"profile_decode: {counts}")
+        params.clear()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{card}] phase 16 in {metrics['phase_s']:.1f} s")
+    return {"profile_decode": counts}, metrics
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -5392,12 +5521,14 @@ def main() -> int:
     l70_paths, l70_metrics = timed("14", phase_llama2_70b, dev, args.seed,
                                    res, card)
     s6_paths, s6_metrics = timed("15", phase_s6, dev, args.seed, res, card)
+    probe_paths, probe_metrics = timed("16", phase_probe_modes, dev,
+                                       args.seed, card)
     paths = {"generate": counts, **fused_paths, **q4km_paths, **paths,
              **serving_paths,
              **spec_paths, **fmt_paths, **tiny_paths, **lab_paths,
              **vpu_paths, **b7_paths, **bench_paths, **par_paths,
              **ckpt_paths, **moe_paths, **l3_paths, **l70_paths,
-             **s6_paths}
+             **s6_paths, **probe_paths}
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "ggml_cuda_experiments_tpu"
            or m.startswith("ggml_cuda_experiments_tpu.")]
@@ -5436,6 +5567,7 @@ def main() -> int:
                       "llama3-8b": l3_metrics,
                       "llama2-70b": l70_metrics,
                       "llama2-7b s6": s6_metrics,
+                      "probe_modes": probe_metrics,
                       "phase_seconds": PHASE_SECONDS,
                       "bench": {**bench_metrics, "probe_rungs": probe_times,
                                 "decode": {

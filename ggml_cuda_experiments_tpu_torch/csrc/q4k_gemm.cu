@@ -45,7 +45,10 @@
 // that a stage's dequantization overlaps the previous stage's wgmma. The
 // tile is staged in shared memory for coalesced stores. The grid's fast
 // index is the token tile, so the CTAs sharing a weight tile run together
-// and W streams from HBM once.
+// and W streams from HBM once. Its kernel takes a phase (TC_ALL in
+// production): measurement-only variants without the wgmma, without the
+// dequantization, or with neither (q4k_gemm_phase; tools/profile_decode.py
+// --pipe prices the phases with them).
 // The tc route splits K over 2 CTAs of a thread-block cluster where its
 // row tiles alone would fill less than 3/4 of the card (the 7B's N = 4096
 // and 12288): the ranks' partials are added through distributed shared
@@ -653,10 +656,20 @@ __device__ __forceinline__ void tc_load_w(uint8_t* dst, const uint8_t* qs,
                                        ws * C::WB);
 }
 
+// The tc route's phases, a template argument of its kernel: TC_ALL is the
+// production kernel; the others are measurement-only variants (q4_k only,
+// q4k_gemm_phase) that price the phases of a stage apart and give wrong
+// outputs. TC_DEQUANT skips the wgmma and folds the A registers into the
+// accumulator with one XOR (so the dequantization is no dead code);
+// TC_DOT skips the dequantization and runs the wgmma on the raw W words;
+// TC_STREAM runs only the ring's copies. Every variant stages every byte
+// of W, its scales and x.
+constexpr int TC_ALL = 0, TC_DEQUANT = 1, TC_DOT = 2, TC_STREAM = 3;
+
 // one x stage: dequantize this thread's A fragments (4 k16 steps) from W
 // stage `wst` (blocks jb, jb + 1 of it, its first block kb0) into buffer a,
 // then the warpgroup's 4 wgmma on x stage `xs`; leaves the group in flight
-template <class F, int BN>
+template <class F, int BN, int PH>
 __device__ __forceinline__ void tc_stage(const uint8_t* xs,
                                          const uint8_t* wst, int kb0, int jb,
                                          int KB, int r0, int t,
@@ -664,33 +677,57 @@ __device__ __forceinline__ void tc_stage(const uint8_t* xs,
                                          float (&acc)[BN / 2],
                                          uint32_t (&a)[4][4]) {
   using C = TcCfg<F, BN>;
-  unsigned lo[2][2];
-  at_stage(sbase, kb0, lo);
+  if constexpr (PH == TC_ALL || PH == TC_DEQUANT) {
+    unsigned lo[2][2];
+    at_stage(sbase, kb0, lo);
 #pragma unroll
-  for (int j = 0; j < TC_SB; ++j) {
-    float s[2], m[2];
-    if constexpr (F::S6)
-      block_scales_s6(wst + C::W + r0 * C::SP, wst + C::W + (r0 + 8) * C::SP,
-                      jb + j, kb0 + jb + j < KB, s, m);
-    else
-      block_scales<F>(wst + C::W + r0 * C::SP, wst + C::W + (r0 + 8) * C::SP,
-                      TC_R * C::SP, lo, jb + j, kb0 + jb + j < KB, s, m);
-    block_frags<F>(wst + r0 * C::WP + (jb + j) * F::QB,
-                   wst + (r0 + 8) * C::WP + (jb + j) * F::QB, t, s, m,
-                   a[2 * j], a[2 * j + 1]);
+    for (int j = 0; j < TC_SB; ++j) {
+      float s[2], m[2];
+      if constexpr (F::S6)
+        block_scales_s6(wst + C::W + r0 * C::SP,
+                        wst + C::W + (r0 + 8) * C::SP, jb + j,
+                        kb0 + jb + j < KB, s, m);
+      else
+        block_scales<F>(wst + C::W + r0 * C::SP,
+                        wst + C::W + (r0 + 8) * C::SP, TC_R * C::SP, lo,
+                        jb + j, kb0 + jb + j < KB, s, m);
+      block_frags<F>(wst + r0 * C::WP + (jb + j) * F::QB,
+                     wst + (r0 + 8) * C::WP + (jb + j) * F::QB, t, s, m,
+                     a[2 * j], a[2 * j + 1]);
+    }
+  } else if constexpr (PH == TC_DOT) {
+    // the raw words of the rows' blocks as A: no decode, no scales
+#pragma unroll
+    for (int j = 0; j < TC_SB; ++j) {
+      const uint32_t w0 = lds32(wst + r0 * C::WP + (jb + j) * F::QB + 4 * t);
+      const uint32_t w1 =
+          lds32(wst + (r0 + 8) * C::WP + (jb + j) * F::QB + 4 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[2 * j + h][0] = a[2 * j + h][2] = w0;
+        a[2 * j + h][1] = a[2 * j + h][3] = w1;
+      }
+    }
   }
-  const uint64_t db = sw128_desc(smem_u32(xs));
-  fence_regs(acc);
-  fence_regs(a);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  if constexpr (PH == TC_ALL || PH == TC_DOT) {
+    const uint64_t db = sw128_desc(smem_u32(xs));
+    fence_regs(acc);
+    fence_regs(a);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, a[kk], db + 2 * kk);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-  fence_regs(acc);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, a[kk], db + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_regs(acc);
+  } else if constexpr (PH == TC_DEQUANT) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      acc[kk] = __uint_as_float(__float_as_uint(acc[kk]) ^ a[kk][0] ^
+                                a[kk][1] ^ a[kk][2] ^ a[kk][3]);
+  }
 }
 
-template <class F, int BN>
+template <class F, int BN, int PH>
 __global__ void __launch_bounds__(GT, 1)
 gemm_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
                const F f, float* __restrict__ y, int M, int N, int K) {
@@ -743,9 +780,11 @@ gemm_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
     const uint8_t* wst = wring + (ws & 1) * C::WSTAGE;
     const int jb = (st % C::WS) * TC_SB;
     if (st & 1)
-      tc_stage<F, BN>(xs, wst, ws * C::WB, jb, KB, r0, t, sbase, acc, a1);
+      tc_stage<F, BN, PH>(xs, wst, ws * C::WB, jb, KB, r0, t, sbase, acc,
+                          a1);
     else
-      tc_stage<F, BN>(xs, wst, ws * C::WB, jb, KB, r0, t, sbase, acc, a0);
+      tc_stage<F, BN, PH>(xs, wst, ws * C::WB, jb, KB, r0, t, sbase, acc,
+                          a0);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_regs(acc);
@@ -866,13 +905,13 @@ cudaError_t run_stream(const bf16* x, const uint8_t* qs, const F& f,
   return launch_stream<F, MT, ST_R>(x, qs, f, y, M, N, K, s);
 }
 
-template <class F, int BN>
+template <class F, int BN, int PH>
 cudaError_t run_tc(const bf16* x, const uint8_t* qs, const F& f, float* y,
                    int M, int N, int K, cudaStream_t s) {
   using C = TcCfg<F, BN>;
   static int granted = 0;
   int sms = 0;
-  cudaError_t e = allow_smem(gemm_tc_kernel<F, BN>, C::SMEM, &granted);
+  cudaError_t e = allow_smem(gemm_tc_kernel<F, BN, PH>, C::SMEM, &granted);
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + BN - 1) / BN, (N + TC_R - 1) / TC_R);
@@ -880,12 +919,21 @@ cudaError_t run_tc(const bf16* x, const uint8_t* qs, const F& f, float* y,
   // from N and K alone, so that every M sums each output in one order (a
   // chunked prefill equals a whole one)
   const int S = k_splits(grid.y, sms, (K / 32 + C::WB - 1) / C::WB);
-  return launch_split(gemm_tc_kernel<F, BN>, grid, S, C::SMEM, s, x, qs, f,
-                      y, M, N, K);
+  return launch_split(gemm_tc_kernel<F, BN, PH>, grid, S, C::SMEM, s, x, qs,
+                      f, y, M, N, K);
 }
 
 // route: 0 stream (M <= 32), 1 tc (ops/quant_matmul.py::gemm_route). x and
 // the payload must start on 16 bytes; a route that cannot take M is refused.
+// the tc route at M tokens in phase PH
+template <class F, int PH>
+int run_tc_m(const bf16* x, const uint8_t* qs, const F& f, float* y, int M,
+             int N, int K, cudaStream_t s) {
+  if (M <= 64) return (int)run_tc<F, 64, PH>(x, qs, f, y, M, N, K, s);
+  if (M <= 128) return (int)run_tc<F, 128, PH>(x, qs, f, y, M, N, K, s);
+  return (int)run_tc<F, TC_BN, PH>(x, qs, f, y, M, N, K, s);
+}
+
 template <class F>
 int gemm(const bf16* x, const uint8_t* qs, F f, float* y, int M, int N,
          int K, int route, void* stream) {
@@ -906,11 +954,7 @@ int gemm(const bf16* x, const uint8_t* qs, F f, float* y, int M, int N,
     if (M <= 32) return (int)run_stream<F, 4>(x, qs, f, y, M, N, K, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (route == 1) {
-    if (M <= 64) return (int)run_tc<F, 64>(x, qs, f, y, M, N, K, s);
-    if (M <= 128) return (int)run_tc<F, 128>(x, qs, f, y, M, N, K, s);
-    return (int)run_tc<F, TC_BN>(x, qs, f, y, M, N, K, s);
-  }
+  if (route == 1) return run_tc_m<F, TC_ALL>(x, qs, f, y, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -920,6 +964,28 @@ GCT_EXPORT int q4k_gemm(const bf16* x, const uint8_t* qs, const bf16* es,
                         const bf16* em, float* y, int M, int N, int K,
                         int route, void* stream) {
   return gemm(x, qs, Q4K{es, em}, y, M, N, K, route, stream);
+}
+
+// The Q4_K-E tc route in a measurement-only phase (TC_DEQUANT, TC_DOT,
+// TC_STREAM; TC_ALL is q4k_gemm's own kernel): any M, the checks of gemm.
+GCT_EXPORT int q4k_gemm_phase(const bf16* x, const uint8_t* qs,
+                              const bf16* es, const bf16* em, float* y, int M,
+                              int N, int K, int phase, void* stream) {
+  if (K % 32 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(qs) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const Q4K f{es, em};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (phase) {
+    case TC_ALL: return run_tc_m<Q4K, TC_ALL>(x, qs, f, y, M, N, K, s);
+    case TC_DEQUANT:
+      return run_tc_m<Q4K, TC_DEQUANT>(x, qs, f, y, M, N, K, s);
+    case TC_DOT: return run_tc_m<Q4K, TC_DOT>(x, qs, f, y, M, N, K, s);
+    case TC_STREAM:
+      return run_tc_m<Q4K, TC_STREAM>(x, qs, f, y, M, N, K, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 GCT_EXPORT int q4k_s6_gemm(const bf16* x, const uint8_t* qs,

@@ -43,6 +43,8 @@ SIGNATURES = {
     "q4k_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, qs, es, em, y, M, N, K, route, stream
     "q4k_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the same with the tc route's phase (GEMM_PHASES) for the route
+    "q4k_gemm_phase": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the q4_k "s6" instances: es, em -> sm (int8 sc | mn), dd (bf16 d | dmin)
     "q4k_s6_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "q4k_s6_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

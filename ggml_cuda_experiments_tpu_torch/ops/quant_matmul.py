@@ -97,7 +97,8 @@ LAUNCHES = {"q4k_matvec": 0, "q4k_gemm": 0, "q4k_q8_matvec": 0,
             "fused_mlp": 0, "q6k_matvec": 0, "q6k_q8_matvec": 0,
             "q80_matvec": 0, "q40_matvec": 0, "q40_q8_matvec": 0,
             "q80_gemm": 0, "q40_gemm": 0, "q4k_s6_matvec": 0,
-            "q4k_s6_q8_matvec": 0, "q4k_s6_gemm": 0, "fused_mlp_s6": 0}
+            "q4k_s6_q8_matvec": 0, "q4k_s6_gemm": 0, "fused_mlp_s6": 0,
+            "q4k_gemm_phase": 0}
 FORMATS = ("q8_0", "q4_0", "q4_k", "q6_k")
 ENCODINGS = ("e", "s6")         # q4_k's scale encodings
 S6_K = 4096                     # s6 needs K % S6_K == 0
@@ -852,11 +853,42 @@ def gemm_route(m: int) -> str:
     return "stream" if m <= STREAM_MAX_M else "tc"
 
 
-def q4k_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
-    """y [M, N] f32 = bf16(x) [M, K] . bf16(deq(W))^T, f32 accumulation."""
+# ``phase`` of ``q4k_gemm``: measurement-only variants of the tc route's
+# kernel (tools/profile_decode.py --pipe), the reference's ``_pipe_kernel``
+# phases plus "stream". "all" is the production call; "dequant" skips the
+# wgmma, "dot" the dequantization (the wgmma takes the raw W words),
+# "stream" both (only the ring's copies run). Every variant stages every
+# byte of W, its scales and x, takes the tc route at any M, gives wrong
+# outputs, and counts as ``q4k_gemm_phase``. The plain version takes "all"
+# only; no model path passes a phase.
+GEMM_PHASES = {"all": 0, "dequant": 1, "dot": 2, "stream": 3}
+
+
+def q4k_gemm(x: torch.Tensor, ql: QuantLinear,
+             phase: str = "all") -> torch.Tensor:
+    """y [M, N] f32 = bf16(x) [M, K] . bf16(deq(W))^T, f32 accumulation.
+    ``phase``: ``GEMM_PHASES`` (measurement only)."""
+    if phase not in GEMM_PHASES:
+        raise ValueError(f"q4k_gemm: phase {phase!r} is not one of "
+                         f"{', '.join(GEMM_PHASES)}")
     if not kernels_for(x):
+        if phase != "all":
+            raise ValueError(f"q4k_gemm: the plain version has no phase "
+                             f"{phase!r} (measurement-only, the kernel's)")
         return qmatmul_ref(x, ql, torch.bfloat16)
-    return _launch("q4k_gemm", "q4_k", x, ql, torch.bfloat16, gemm=True)
+    if phase == "all":
+        return _launch("q4k_gemm", "q4_k", x, ql, torch.bfloat16, gemm=True)
+    n, k = _check_weight(ql, x)
+    if x.dtype != torch.bfloat16 or x.data_ptr() % 16:
+        raise ValueError("q4k_gemm: x must be bf16 [M, K] on 16 bytes")
+    m = x.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    rc = _build.lib().q4k_gemm_phase(
+        x.data_ptr(), ql.qs.data_ptr(), ql.es.data_ptr(), ql.em.data_ptr(),
+        y.data_ptr(), m, n, k, GEMM_PHASES[phase], _build.stream_of(x))
+    _build.check(rc, "q4k_gemm_phase")
+    LAUNCHES["q4k_gemm_phase"] += 1
+    return y
 
 
 def q4k_s6_gemm(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:

@@ -3,6 +3,7 @@
     python -m ggml_cuda_experiments_tpu_torch.tools.bench [--trace DIR]
     python -m ggml_cuda_experiments_tpu_torch.tools.bench --decode
         [--model=tinyllama-1.1b|llama2-7b|llama3-8b] [--exact] [--no-hperm]
+        [--ckpt PATH]
     python -m ggml_cuda_experiments_tpu_torch.tools.bench --cpu [--decode]
 
 Prints ONE JSON line on stdout, with bench.py's keys; context lines (the
@@ -30,7 +31,9 @@ the median of the valid pairs (``utils/bench.py`` ``pair_protocol``).
 their ratio and ``vs_baseline`` value / 85.
 
 **--decode** (bench.py ``decode_bench``): ``init_weights(seed=0)``,
-``quantize_params(.., "q4_k")``, the configuration ``x_quant8`` (off with
+``quantize_params(.., "q4_k")`` through the GCTC cache ``--ckpt``
+(``profile_decode.cached_params``: loaded where the file exists, else
+built and saved), the configuration ``x_quant8`` (off with
 ``--exact``) and ``permute_hidden_params`` (off with ``--no-hperm``;
 without its model pack, as at tinyllama's dim of 2048, the gates pick
 another path, named on stderr). tok/s at batch 1 is the marginal of 8 and
@@ -313,21 +316,23 @@ def decode_config(model: str, exact: bool = False):
 
 def decode_bench(model: str = "tinyllama-1.1b", params=None, dev=None,
                  exact: bool = False, hperm: bool = True, seed: int = 0,
-                 steps=(8, 40)) -> dict:
+                 steps=(8, 40), ckpt=None) -> dict:
     """bench.py's ``--decode`` on the card. ``params``: the q4_k weights of
-    ``model`` (made from ``seed`` when None). Returns tok/s at batch 1, the
+    ``model`` (when None, ``seed``'s through the GCTC cache ``ckpt``:
+    ``profile_decode.cached_params``). Returns tok/s at batch 1, the
     TTFTs, batch-8 tok/s, the stream bytes, the bound and the JSON line."""
     from ggml_cuda_experiments_tpu_torch.models import llama
     from ggml_cuda_experiments_tpu_torch.tools import spec_bench as sb
+    from ggml_cuda_experiments_tpu_torch.tools.profile_decode import (
+        cached_params)
     from ggml_cuda_experiments_tpu_torch.utils.device_info import card_spec
     from ggml_cuda_experiments_tpu_torch.utils.platform import require_cuda
     dev = require_cuda() if dev is None else torch.device(dev)
     cfg = decode_config(model, exact)
     if params is None:
-        log(f"building {model} q4_k ({cfg.num_params() / 1e9:.2f}B params) "
-            f"from seed {seed}")
-        params = llama.quantize_params(
-            llama.init_weights(cfg, seed=seed, device=dev), "q4_k")
+        log(f"{model} q4_k: {cfg.num_params() / 1e9:.2f}B params from seed "
+            f"{seed}")
+        params = cached_params(cfg, "q4_k", seed, dev, ckpt=ckpt)
     if hperm:
         params = llama.permute_hidden_params(params, cfg)
         cfg = dataclasses.replace(cfg, hperm=True)
@@ -410,6 +415,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="--decode without x_quant8")
     ap.add_argument("--no-hperm", action="store_true",
                     help="--decode without permute_hidden_params")
+    ap.add_argument("--ckpt", metavar="PATH", default=None,
+                    help="--decode: the GCTC weight cache (default: "
+                    "profile_decode.ckpt_path's keyed file)")
     ap.add_argument("--trace", metavar="DIR", default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="the plain versions at a small size; no time")
@@ -444,7 +452,8 @@ def main(argv=None) -> int:
     with traced(args.trace):
         if args.decode:
             line = decode_bench(args.model, dev=dev, exact=args.exact,
-                                hperm=not args.no_hperm)["line"]
+                                hperm=not args.no_hperm,
+                                ckpt=args.ckpt)["line"]
         else:
             kernel_report()
             line = kernel_metric(dev)["line"]

@@ -5,11 +5,12 @@ counterpart of the JAX package's ``tools/engine_bench.py``, with its flags.
         [--model llama2-7b] [--fmt q4_k] [--batch 8] [--prompt 64] \\
         [--gen 64] [--pages 128] [--page-size 64] [--max-seq-len N] \\
         [--int8-kv] [--native-sched] [--window 1] [--prefill-chunk C] \\
-        [--pairs 3] [--trace DIR] [--root DIR] [--tag new]
+        [--pairs 3] [--ckpt PATH] [--trace DIR] [--root DIR] [--tag new]
     python -m ggml_cuda_experiments_tpu_torch.tools.engine_bench --cpu
 
 Random weights from ``--seed`` (``init_weights``, quantized to ``--fmt`` on
-the card) in the JAX tool's configuration (``x_quant8``). One ``Engine`` a
+the card, through the GCTC cache ``--ckpt``: ``profile_decode.
+cached_params``) in the JAX tool's configuration (``x_quant8``). One ``Engine`` a
 run (``--batch`` slots, a pool of ``--pages`` pages of ``--page-size``,
 ``max_seq_len`` the JAX tool's rule unless ``--max-seq-len``), requests of
 ``--prompt`` random tokens generating ``--gen`` each. It measures:
@@ -110,6 +111,9 @@ def parse(argv):
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", metavar="PATH", default=None,
+                    help="the GCTC weight cache (default: "
+                    "profile_decode.ckpt_path's keyed file)")
     ap.add_argument("--trace", metavar="DIR", default=None)
     ap.add_argument("--root", default=None,
                     help="run against the package of the checkout at DIR")
@@ -421,18 +425,14 @@ def measure(params, cfg, kw, batch: int, prompt: int, gen: int,
 
 def build_params(args, dev):
     """The JAX tool's weights: ``init_weights(seed)`` quantized to
-    ``--fmt`` on the card, configuration ``x_quant8``."""
-    from ggml_cuda_experiments_tpu_torch.models import llama
+    ``--fmt`` on the card through the GCTC cache ``--ckpt``
+    (``profile_decode.cached_params``), configuration ``x_quant8``."""
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.tools.profile_decode import (
+        cached_params)
     cfg = dataclasses.replace(PRESETS[args.model], x_quant8=True)
-    t0 = time.perf_counter()
-    params = llama.quantize_params(
-        llama.init_weights(cfg, seed=args.seed, device=dev), args.fmt)
-    torch.cuda.empty_cache()
-    _sync(dev)
-    log(f"{args.model} {args.fmt} weights ready in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return params, cfg
+    return cached_params(cfg, args.fmt, args.seed, dev,
+                         ckpt=args.ckpt), cfg
 
 
 def plan(args) -> int:

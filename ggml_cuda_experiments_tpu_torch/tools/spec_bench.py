@@ -23,13 +23,12 @@ decoding. The port's counterpart of the JAX package's
         [--target llama2-7b] [--draft tinyllama-1.1b] [--draft-layers K]
         [--gamma 4] [--w-small 4] [--w-big 16] [--plen 16]
 
-Weights are built from seed 0 (``init_weights(cfg, seed=0)``, as the JAX
+Weights are made from seed 0 (``init_weights(cfg, seed=0)``, as the JAX
 tool's) and quantized to q4_k on the card, the configuration ``x_quant8`` as
-in the JAX tool. The JAX tool caches its quantized weights in a GCTC file
-(its ``utils/loader.py``); the port has that container too
-(``utils/loader.py``: ``save_params`` / ``load_params``), but its tools,
-this one among them, build their weights every run: wiring the cache in
-is listed in ROADMAP A. Runs on the card; the measuring functions take any
+in the JAX tool, through each model's GCTC cache file
+(``profile_decode.cached_params`` at its default ``ckpt_path``: loaded
+where it exists, else built and saved), as the JAX tool caches its
+quantized weights. Runs on the card; the measuring functions take any
 device, so the CPU tests call them at the ``debug`` size.
 """
 
@@ -47,16 +46,13 @@ MAX_LEN = 1024
 
 
 def load(model: str, device, fmt: str = "q4_k"):
-    """(params, cfg) of ``model`` from seed 0, quantized to ``fmt``."""
-    from ggml_cuda_experiments_tpu_torch.models import llama
+    """(params, cfg) of ``model`` from seed 0, quantized to ``fmt``, through
+    its GCTC cache file (``profile_decode.cached_params``)."""
     from ggml_cuda_experiments_tpu_torch.models.config import PRESETS
+    from ggml_cuda_experiments_tpu_torch.tools.profile_decode import (
+        cached_params)
     cfg = dataclasses.replace(PRESETS[model], x_quant8=True)
-    t0 = time.perf_counter()
-    params = llama.quantize_params(
-        llama.init_weights(cfg, seed=0, device=device), fmt)
-    _sync(device)
-    print(f"{model} ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    return params, cfg
+    return cached_params(cfg, fmt, 0, device), cfg
 
 
 def truncated(params, cfg, k: int):
@@ -78,7 +74,9 @@ def replay_seconds(step, state, runs) -> dict:
     run from the state as it was before the first (the faster of two). On
     the card the step is captured once (``llama.capture_graph``) and each
     run is ``n`` replays between CUDA events; on the CPU, ``n`` eager calls
-    on the host clock. The step's output buffers hold the last run's."""
+    on the host clock, one run (a CPU time is no device metric: the CPU
+    path checks the mechanics). The step's output buffers hold the last
+    run's."""
     from ggml_cuda_experiments_tpu_torch.models import llama
     saved = [t.clone() for t in state]
     cuda = saved[0].is_cuda
@@ -86,7 +84,7 @@ def replay_seconds(step, state, runs) -> dict:
     out = {}
     for n in runs:
         best = float("inf")
-        for _ in range(2):
+        for _ in range(2 if cuda else 1):
             for t, s in zip(state, saved):
                 t.copy_(s)
             if cuda:

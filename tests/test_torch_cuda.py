@@ -319,6 +319,33 @@ def test_quant_gemm_refuses_an_unaligned_x_base(dev, fmt):
     assert qm.LAUNCHES == before
 
 
+@pytest.mark.parametrize("phase", sorted(qm.GEMM_PHASES))
+@pytest.mark.parametrize("m", [8, 200, 512])
+def test_q4k_gemm_phases(dev, phase, m):
+    """The tc route's measurement phases at any M (the stream route's M
+    too), each one launch counted as q4k_gemm_phase: "all" is the
+    production call itself, "stream" leaves y zero; "dequant" and "dot"
+    give wrong values by design and are only launched."""
+    ql = _gemm_weight("q4_k", 300, 4096, dev)
+    x = _randn(58, m, 4096).to(dev, torch.bfloat16)
+    want = qm.q4k_gemm(x, ql)
+    before = dict(qm.LAUNCHES)
+    y = qm.q4k_gemm(x, ql, phase=phase)
+    torch.cuda.synchronize()
+    assert y.shape == (m, 300)
+    assert qm.LAUNCHES["q4k_gemm_phase"] == \
+        before["q4k_gemm_phase"] + (phase != "all")
+    assert qm.LAUNCHES["q4k_gemm"] == before["q4k_gemm"] + (phase == "all")
+    if phase == "all":
+        assert torch.equal(y, want)
+    elif phase == "stream":
+        assert not y.any()
+    s6 = qm.quantize(_randn(2, 300, 4096, scale=4096 ** -0.5).to(dev),
+                     "q4_k", enc="s6")
+    with pytest.raises(ValueError):          # Q4_K-E only
+        qm.q4k_gemm(x, s6, phase=phase if phase != "all" else "dot")
+
+
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 2, 128),
                                       (64, 8, 128)])
 @pytest.mark.parametrize("splits", [None, 1, 5])

@@ -52,13 +52,22 @@ def dense():
 
 
 @pytest.fixture(scope="module")
-def quantized(request, dense):
-    """(JAX params, port params) in one format; one format alive at a
-    time (pytest groups the tests by it)."""
+def quantized(dense):
+    """fmt -> (JAX params, port params) in that format, made once a module:
+    the cases of one format (its configurations) share them, and one
+    format is alive at a time (the cases run in format order)."""
     jp, dn = dense
-    fmt = request.param
-    tp = convert.params_from_jax(dn, _port(CFG), device="cpu")
-    return fmt, jl.quantize_params(jp, fmt), tl.quantize_params(tp, fmt)
+    held = {}
+
+    def get(fmt):
+        if fmt not in held:
+            held.clear()
+            tp = convert.params_from_jax(dn, _port(CFG), device="cpu")
+            held[fmt] = (jl.quantize_params(jp, fmt),
+                         tl.quantize_params(tp, fmt))
+        return held[fmt]
+
+    return get
 
 
 def _want(fmt, config):
@@ -80,13 +89,13 @@ def _want(fmt, config):
     return want
 
 
-@pytest.mark.parametrize("quantized,config", [
+@pytest.mark.parametrize("fmt,config", [
     ("q8_0", "preset"), ("q8_0", "bench"), ("q4_0", "preset"),
     ("q4_0", "bench"), ("q6_k", "preset")],
-    indirect=["quantized"], ids=["q8_0-preset", "q8_0-bench", "q4_0-preset",
-                                 "q4_0-bench", "q6_k-preset"])
-def test_generate_7b_width_matches_jax(quantized, config, monkeypatch):
-    fmt, jq, tq = quantized
+    ids=["q8_0-preset", "q8_0-bench", "q4_0-preset", "q4_0-bench",
+         "q6_k-preset"])
+def test_generate_7b_width_matches_jax(quantized, fmt, config, monkeypatch):
+    jq, tq = quantized(fmt)
     flags = {} if config == "preset" else dict(x_quant8=True, hperm=True)
     jc = dataclasses.replace(CFG, **flags)
     tc = _port(jc)
